@@ -8,3 +8,5 @@ def pytest_configure(config):
     # not warn when the plugin is absent (bare containers).
     config.addinivalue_line(
         "markers", "timeout(seconds): per-test ceiling (pytest-timeout)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
