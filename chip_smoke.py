@@ -3,24 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path -- the UFS live scheduler, the
-continuous-batching engine and llama3.2-1b at its published width and depth
--- on the card, and holds each hand-written Hopper kernel against its plain
-PyTorch version.  Phases, each printed on its own line and each fatal:
+Drives the port's serving paths -- the UFS live scheduler, the
+continuous-batching engine and three models at their published widths:
+llama3.2-1b (dense GQA), qwen2-moe-a2.7b (MoE) and xlstm-350m (mLSTM and
+sLSTM blocks) -- on the card, and holds each hand-written Hopper kernel
+against its plain PyTorch version.  Phases, each printed on its own line
+and each fatal:
 
 1. device   -- the card's name and power limit, compute capability 9.0
 2. build    -- compile the CUDA kernels from ``src/repro_torch/csrc``
-3. kernels  -- each kernel against its plain version (float32 to 1e-4,
-               bfloat16 to 3e-2) over the serving shapes and the reference
-               test shapes; CUDA-event times of the kernel, the plain
-               version and one library call beside the kernel's bound
-4. model    -- full-width llama3.2-1b in float32: prefill_batch on ragged
-               prompts and 8 decode steps, kernel path against the plain path
-               (logits to 1e-3, greedy tokens identical)
-5. engine   -- the engine's tokens equal a direct prefill + decode loop
-6. serving  -- 8 time-sensitive requests and 2 background bulk prefills
-               under UFS in bfloat16; every request must finish, and both
-               kernels must have been launched on this path
+3. kernels  -- each kernel against its plain version over the serving
+               shapes and the reference test shapes: attention (K1, K2)
+               float32 to 1e-4 and bfloat16 to 3e-2; the MoE router (K4)
+               indices identical and weights to 1e-6; the mLSTM scan (K3)
+               float32 to 1e-3 and bfloat16 to 3e-2 of max(1, max |plain|).
+               CUDA-event times of back-to-back calls of the kernel, the
+               plain version and (for attention) one library call, and the
+               kernel's own device time from the profiler, beside the
+               kernel's bound
+4. model    -- float32, kernel path against the plain path (logits to
+               1e-3, greedy tokens identical) over prefill_batch on ragged
+               prompts and 8 decode steps: llama3.2-1b and xlstm-350m at
+               full size, qwen2-moe-a2.7b at full width with 4 of its 24
+               layers (24 layers in float32 are 60 GB) and the default
+               capacity factors
+5. engine   -- the engine's tokens equal a direct prefill + decode loop, for
+               each of the three (qwen2-moe at capacity factor 64, where no
+               expert overflows; xlstm on a prompt of one whole length
+               bucket, so no pad token enters its state)
+6. serving  -- per model, at full width and depth in bfloat16: 8
+               time-sensitive requests and 2 background bulk prefills under
+               UFS; every request must finish, and the kernels of that path
+               must have been launched on it (counts set to 0 just before)
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -30,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -45,6 +60,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+ROUTER_TOL = 1e-6                  # weights; indices must be identical
+SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}   # bf16: x max(1, |ref|)
 MODEL_TOL = 1e-3
 
 
@@ -71,6 +88,35 @@ def cuda_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Mean device time of one launch of the CUDA kernel whose name contains
+    ``kernel``, from a profiler window over ``iters`` calls of ``fn``: the
+    kernel alone, without the host time between launches that a
+    back-to-back event timing of a short kernel measures."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in rows)
+    if count == 0:
+        raise AssertionError(f"profiler saw no launch of {kernel}")
+    return sum(e.self_device_time_total for e in rows) / count / 1e3
+
+
+def free_device_memory() -> None:
+    """Free what the models of a finished phase held: the engine and its
+    scheduler threads keep them in reference cycles, which ``del`` alone
+    does not break."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def randn(shape, dtype, seed):
@@ -122,6 +168,8 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
         (8, 256, 256, 32, 8, 64, True, 0),    # llama3.2-1b admission batch
         (1, 500, 500, 32, 8, 64, True, 0),    # ragged bulk prefill
         (8, 256, 256, 14, 2, 64, True, 0),    # qwen2-0.5b, G = 7
+        (8, 256, 256, 16, 16, 128, True, 0),  # qwen2-moe-a2.7b admission
+        (1, 500, 500, 16, 16, 128, True, 0),  # qwen2-moe bulk prefill
         (1, 512, 512, 32, 8, 64, True, 128),  # sliding window
         (2, 64, 256, 32, 8, 64, False, 0),    # non-causal, Sq != Sk
         (4, 256, 256, 1, 1, 64, True, 0),     # reference test shapes, BH form
@@ -134,6 +182,8 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
         (8, 1024, 32, 8, 64, [700] * 8),      # llama3.2-1b decode step
         (8, 1024, 32, 8, 64, [1, 64, 65, 300, 511, 700, 1000, 1024]),
         (8, 1024, 14, 2, 64, [700, 3, 1024, 250, 64, 65, 900, 128]),
+        (8, 1024, 16, 16, 128, [700] * 8),    # qwen2-moe-a2.7b decode step
+        (8, 1024, 16, 16, 128, [1, 64, 65, 300, 511, 700, 1000, 1024]),
         (6, 512, 1, 1, 64, [i * (512 // 6) + 1 for i in range(6)]),
         (2, 2048, 1, 1, 128, [i * 1024 + 1 for i in range(2)]),
         (8, 256, 1, 1, 32, [i * 32 + 1 for i in range(8)]),
@@ -184,6 +234,8 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
     }
+    flash["device_ms"] = device_ms(
+        lambda: kflash.flash_attention(q, k, v, causal=True), "flash_fwd_kernel")
     flash["bound_ms"], flash["bound_by"] = flash_bound_ms(q, k, True, 0)
     flash["shape"] = f"B={b} S={s} H={h} KH={kh} hd={hd} causal bf16"
     got = kflash.flash_attention(q, k, v, causal=True)
@@ -203,6 +255,8 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)),
     }
+    decode["device_ms"] = device_ms(
+        lambda: kdecode.decode_attention(q, k, v, lengths), "decode_kernel")
     decode["bound_ms"], decode["bound_by"] = decode_bound_ms(q, k, lengths)
     decode["shape"] = f"B={b} S_max={smax} live={live} H={h} KH={kh} hd={hd} bf16"
     got = kdecode.decode_attention(q, k, v, lengths)
@@ -216,18 +270,163 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
     return {"flash_attention": flash, "decode_attention": decode}
 
 
+def router_bound_ms(logits, top_k: int) -> tuple:
+    """Each logit read once, weights and indices written once; (5 + 2k)
+    float32 operations a logit (mask, max, exp, sum, divide; a compare and
+    a select per argmax pass), at the float32 rate: the reference computes
+    the router in float32."""
+    t, e = logits.shape
+    nbytes = logits.numel() * logits.element_size() + t * top_k * 8
+    ops = t * e * (5 + 2 * top_k)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scan_bound_ms(q, v) -> tuple:
+    """q, k, v read once, out written once, the two float32 gates read
+    once; 4 dk dv operations a step for q C and the update of C, at the
+    float32 rate: the reference carries the state in float32."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    es = q.element_size()
+    nbytes = (2 * q.numel() + 2 * v.numel()) * es + 2 * bh * s * 4
+    ops = 4 * bh * s * dk * dv
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scan_inputs(bh, s, dk, dv, dtype, seed):
+    F = torch.nn.functional
+    q = (randn((bh, s, dk), torch.float32, seed) * 0.5).to(dtype)
+    k = (randn((bh, s, dk), torch.float32, seed + 1) * 0.5).to(dtype)
+    v = randn((bh, s, dv), dtype, seed + 2)
+    logf = F.logsigmoid(randn((bh, s), torch.float32, seed + 3) + 2.0)
+    i = torch.sigmoid(randn((bh, s), torch.float32, seed + 4))
+    return q, k, v, logf, i
+
+
+def router_scan_phase(ref, kmoe, kscan) -> dict:
+    """Parity of K4 and K3 over their shapes, then times at the serving
+    shapes.  Returns the per-kernel entries of the kernels line."""
+    worst_w = {}
+    n_router = 0
+    for dt in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for t in (8, 512, 2048, 500):
+            for j, (e, k, n_valid) in enumerate(((64, 4, 60), (256, 8, 256),
+                                                 (16, 2, 16))):
+                logits = randn((t, e), dt, 100 + t + j)
+                w, idx = kmoe.moe_topk(logits, k, n_valid)
+                rw, ridx = ref.moe_topk_ref(logits, k, n_valid)
+                err = (w - rw).abs().max().item()
+                if not (torch.equal(idx, ridx) and err < ROUTER_TOL):
+                    raise AssertionError(
+                        f"moe_topk {dt} T={t} E={e} k={k} n_valid={n_valid}: "
+                        f"indices equal {torch.equal(idx, ridx)}, max err {err}")
+                worst = max(worst, err)
+                n_router += 1
+        worst_w[str(dt).replace("torch.", "")] = worst
+    scan_shapes = [
+        # bh, s, dk, dv, scale
+        (32, 64, 512, 512, None),      # xlstm-350m admission, B=8 H=4
+        (32, 256, 512, 512, None),
+        (32, 1024, 512, 512, None),
+        (4, 500, 512, 512, None),      # xlstm bulk prefill, B=1
+        (200, 256, 16, 64, 1.0),       # hymba-1.5b SSD heads, B=8 H=25
+        (2, 256, 32, 32, None),        # reference test shapes
+        (4, 128, 16, 64, None),
+        (1, 512, 64, 64, None),
+    ]
+    worst_s = {}
+    for dt in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for j, (bh, s, dk, dv, scale) in enumerate(scan_shapes):
+            q, k, v, logf, i = scan_inputs(bh, s, dk, dv, dt, 200 + 10 * j)
+            out = kscan.mlstm_scan(q, k, v, logf, i, scale=scale)
+            want = ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale)
+            err = (out.float() - want.float()).abs().max().item()
+            tol = SCAN_TOL[dt] * (1.0 if dt == torch.float32 else
+                                  max(1.0, want.float().abs().max().item()))
+            if not err < tol:
+                raise AssertionError(f"mlstm_scan {dt} shape {scan_shapes[j]}:"
+                                     f" max err {err} (tolerance {tol})")
+            worst = max(worst, err)
+        worst_s[str(dt).replace("torch.", "")] = worst
+    torch.cuda.synchronize()
+    log("kernels.parity.k3k4", cases_router=n_router,
+        shapes_scan=len(scan_shapes), chunk_len={dk: kscan.chunk_len(dk)
+                                                 for dk in (16, 32, 64, 512)},
+        max_abs_err={"moe_topk": worst_w, "mlstm_scan": worst_s},
+        tolerance={"moe_topk": "indices identical, weights 1e-6",
+                   "mlstm_scan": "float32 1e-3, bfloat16 3e-2 x max(1, |ref|)"})
+
+    # Times at the serving shapes, bfloat16 as served.  The router runs at
+    # every MoE layer of every decode step (T = 8) and admission prefill
+    # (T = 8 x 256); the scan at admission (B = 8 x H = 4 row-heads, S =
+    # 256) and bulk prefill (B = 1, S = 500).
+    dt = torch.bfloat16
+    router = {}
+    for tag, t in (("", 8), ("_prefill", 2048)):
+        logits = randn((t, 64), dt, 300 + t)
+        router["ms" + tag] = cuda_ms(lambda: kmoe.moe_topk(logits, 4, 60))
+        router["plain_ms" + tag] = cuda_ms(lambda: ref.moe_topk_ref(logits, 4, 60))
+        router["device_ms" + tag] = device_ms(
+            lambda: kmoe.moe_topk(logits, 4, 60), "router_kernel")
+        b, by = router_bound_ms(logits, 4)
+        router["bound_ms" + tag] = b
+        if not tag:
+            router["bound_by"] = by
+            w, idx = kmoe.moe_topk(logits, 4, 60)
+            rw, _ = ref.moe_topk_ref(logits, 4, 60)
+            router["max_abs_err"] = (w - rw).abs().max().item()
+    router["shape"] = "T=8 (decode; _prefill: T=2048) E=64 k=4 n_valid=60 bf16"
+    router["library_ms"] = None
+
+    scan = {}
+    for tag, (bh, s) in (("", (32, 256)), ("_bulk", (4, 500))):
+        q, k, v, logf, i = scan_inputs(bh, s, 512, 512, dt, 400 + s)
+        scan["ms" + tag] = cuda_ms(lambda: kscan.mlstm_scan(q, k, v, logf, i),
+                                   iters=20, warmup=3)
+        scan["plain_ms" + tag] = cuda_ms(
+            lambda: ref.mlstm_chunkwise_ref(q, k, v, logf, i), iters=20, warmup=3)
+        scan["device_ms" + tag] = device_ms(
+            lambda: kscan.mlstm_scan(q, k, v, logf, i), "mlstm_kernel", iters=5)
+        b, by = scan_bound_ms(q, v)
+        scan["bound_ms" + tag] = b
+        if not tag:
+            scan["bound_by"] = by
+            got = kscan.mlstm_scan(q, k, v, logf, i)
+            want = ref.mlstm_chunkwise_ref(q, k, v, logf, i)
+            scan["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+    scan["shape"] = ("BH=32 S=256 dk=dv=512 (B=8 H=4 admission; _bulk: BH=4 "
+                     "S=500) bf16")
+    scan["library_ms"] = None
+    torch.cuda.synchronize()
+    for name, d in (("moe_topk", router), ("mlstm_scan", scan)):
+        log("kernels.time", kernel=name, **d)
+    router["max_abs_err_f32"] = worst_w["float32"]
+    scan["max_abs_err_f32"] = worst_s["float32"]
+    return {"moe_topk": router, "mlstm_scan": scan}
+
+
 # ------------------------------------------------------------ phases 4, 5
 @contextlib.contextmanager
-def plain_attention(ops, ref):
-    """Swap both kernels for their plain versions, on the card.  Used only
+def plain_kernels(ops, ref):
+    """Swap every kernel for its plain version, on the card.  Used only
     here, to hold the kernel path against the plain path."""
-    saved = ops.grouped_flash, ops.grouped_decode
-    ops.grouped_flash, ops.grouped_decode = (ref.grouped_flash_ref,
-                                             ref.grouped_decode_ref)
+    names = ("grouped_flash", "grouped_decode", "mlstm_scan", "moe_topk")
+    plain = (ref.grouped_flash_ref, ref.grouped_decode_ref,
+             ref.mlstm_chunkwise_ref, ref.moe_topk_ref)
+    saved = [getattr(ops, n) for n in names]
+    for n, f in zip(names, plain):
+        setattr(ops, n, f)
     try:
         yield
     finally:
-        ops.grouped_flash, ops.grouped_decode = saved
+        for n, f in zip(names, saved):
+            setattr(ops, n, f)
 
 
 def run_ragged(model, params, prompts, smax: int, steps: int):
@@ -257,7 +456,7 @@ def model_phase(model, params, ops, ref, vocab: int) -> None:
     prompts = [rng.integers(0, vocab, n).astype(np.int32)
                for n in (37, 64, 100, 128)]
     lk, tk = run_ragged(model, params, prompts, 256, 8)
-    with plain_attention(ops, ref):
+    with plain_kernels(ops, ref):
         lp, tp = run_ragged(model, params, prompts, 256, 8)
     err = (lk - lp).abs().max().item()
     finite = bool(torch.isfinite(lk).all())
@@ -266,14 +465,15 @@ def model_phase(model, params, ops, ref, vocab: int) -> None:
         max_abs_err=err, tolerance=MODEL_TOL,
         tokens_identical=bool(torch.equal(tk, tp)), finite=finite)
     if not (finite and err < MODEL_TOL and torch.equal(tk, tp)):
-        raise AssertionError(f"kernel path disagrees with the plain path: "
-                             f"max err {err}, tokens {tk.tolist()} vs "
-                             f"{tp.tolist()}")
+        raise AssertionError(f"{model.cfg.name}: kernel path disagrees with "
+                             f"the plain path: max err {err}, tokens "
+                             f"{tk.tolist()} vs {tp.tolist()}")
 
 
 def engine_phase(model, params, build_kernel, InferenceEngine, Request,
-                 vocab: int) -> None:
-    prompt = np.random.default_rng(2).integers(0, vocab, 50).astype(np.int32)
+                 vocab: int, prompt_len: int = 50) -> None:
+    prompt = np.random.default_rng(2).integers(0, vocab, prompt_len) \
+        .astype(np.int32)
     logits, caches = model.prefill(params, {"tokens": prompt[None]}, 256)
     direct = [int(logits[0, -1].argmax())]
     pos = len(prompt)
@@ -294,9 +494,12 @@ def engine_phase(model, params, build_kernel, InferenceEngine, Request,
         engine.stop()
         kernel.stop()
     torch.cuda.synchronize()
-    log("engine", direct=direct, engine=req.tokens, finished=done, ok=req.ok)
+    log("engine", arch=model.cfg.name, prompt_len=prompt_len,
+        capacity_factor=model.capacity_factor, direct=direct,
+        engine=req.tokens, finished=done, ok=req.ok)
     if not (done and req.ok and req.tokens[:4] == direct):
-        raise AssertionError(f"engine tokens {req.tokens} != direct {direct}")
+        raise AssertionError(f"{model.cfg.name}: engine tokens {req.tokens} "
+                             f"!= direct {direct}")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -306,7 +509,10 @@ def pct(xs, p: float) -> float:
 
 
 def serving_phase(model, params, core, InferenceEngine, Request, counters,
-                  vocab: int) -> dict:
+                  required, vocab: int) -> dict:
+    """The serving traffic on one model; every count in ``counters`` is set
+    to 0 just before and read just after, and each kernel in ``required``
+    must have been launched."""
     kernel = core.build_kernel("live", policy="ufs", n_slots=1)
     engine = InferenceEngine(model, params, kernel, max_batch=8, max_len=1024)
     rng = np.random.default_rng(0)
@@ -315,6 +521,7 @@ def serving_phase(model, params, core, InferenceEngine, Request, counters,
     ts_prompts = [rng.integers(0, vocab, int(rng.integers(64, 257)))
                   .astype(np.int32) for _ in range(8)]
     torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()     # weights and cache pool
     for c in counters.values():
         c.reset()
     t0 = time.monotonic()
@@ -353,6 +560,7 @@ def serving_phase(model, params, core, InferenceEngine, Request, counters,
         "bulk_ttft_ms": [(r.first_token - r.submitted) * 1e3 for r in bulk
                          if r.first_token],
         "launches": launches,
+        "memory_allocated_at_start_bytes": held_before,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "engine": engine.stats.summary(),
     }
@@ -360,9 +568,9 @@ def serving_phase(model, params, core, InferenceEngine, Request, counters,
     print(core.KernelReport.from_kernel(kernel).pretty(), flush=True)
     if bad:
         raise AssertionError(f"requests that did not finish ok: {bad}")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel was not launched on the serving "
-                             f"path: {launches}")
+    if not all(launches[n] > 0 for n in required):
+        raise AssertionError(f"{model.cfg.name}: a kernel of its path was "
+                             f"not launched while serving: {launches}")
     return launches
 
 
@@ -377,6 +585,8 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import decode_attention as kdecode
     from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import mlstm_scan as kscan
+    from repro_torch.kernels import moe_topk as kmoe
     from repro_torch.models.transformer import Model
     from repro_torch.serving.engine import InferenceEngine, Request
 
@@ -404,50 +614,88 @@ def main() -> int:
     timed = kernel_phase(ref, kflash, kdecode)
     log("kernels.done", seconds=time.monotonic() - t0)
 
-    cfg = get_arch("llama3.2-1b")
     t0 = time.monotonic()
-    model = Model(dataclasses.replace(cfg, dtype="float32"), device="cuda")
-    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
-    model_phase(model, params, ops, ref, cfg.vocab_size)
-    engine_phase(model, params, core.build_kernel, InferenceEngine, Request,
-                 cfg.vocab_size)
-    del model, params
-    torch.cuda.empty_cache()
-    log("model.done", seconds=time.monotonic() - t0)
+    timed.update(router_scan_phase(ref, kmoe, kscan))
+    log("kernels.k3k4.done", seconds=time.monotonic() - t0)
 
-    t0 = time.monotonic()
-    model = Model(cfg, device="cuda")
-    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    # Float32 checks: kernel path against plain path, engine against a
+    # direct loop.  qwen2-moe keeps 4 of its 24 layers (full width).
+    checks = [("llama3.2-1b", {}, 50),
+              ("xlstm-350m", {}, 64),
+              ("qwen2-moe-a2.7b", {"n_layers": 4}, 50)]
+    for name, cut, prompt_len in checks:
+        cfg = get_arch(name)
+        t0 = time.monotonic()
+        model = Model(dataclasses.replace(cfg, dtype="float32", **cut),
+                      device="cuda")
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        model_phase(model, params, ops, ref, cfg.vocab_size)
+        if cfg.moe is not None:
+            model.capacity_factor = 64.0     # no expert overflows
+        engine_phase(model, params, core.build_kernel, InferenceEngine, Request,
+                     cfg.vocab_size, prompt_len)
+        del model, params
+        free_device_memory()
+        log("model.done", arch=name, seconds=time.monotonic() - t0)
+
+    # Serving, bfloat16, full width and depth; each path's own kernels must
+    # run on it.
     counters = {"flash_attention": kflash.launches,
-                "decode_attention": kdecode.launches}
-    launches = serving_phase(model, params, core, InferenceEngine, Request,
-                             counters, cfg.vocab_size)
-    log("serving.done", seconds=time.monotonic() - t0,
-        total_seconds=time.monotonic() - t_start)
+                "decode_attention": kdecode.launches,
+                "mlstm_scan": kscan.launches, "moe_topk": kmoe.launches}
+    paths = [("llama3.2-1b", ("flash_attention", "decode_attention")),
+             ("qwen2-moe-a2.7b", ("flash_attention", "decode_attention",
+                                  "moe_topk")),
+             ("xlstm-350m", ("mlstm_scan",))]
+    by_path = {}
+    for name, required in paths:
+        cfg = get_arch(name)
+        t0 = time.monotonic()
+        model = Model(cfg, device="cuda")
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        by_path[name] = serving_phase(model, params, core, InferenceEngine,
+                                      Request, counters, required,
+                                      cfg.vocab_size)
+        del model, params
+        free_device_memory()
+        log("serving.done", arch=name, seconds=time.monotonic() - t0,
+            total_seconds=time.monotonic() - t_start)
 
+    # Each kernel's launches are read on its own slice's path: K1, K2 on
+    # llama3.2-1b, K4 on qwen2-moe, K3 on xlstm; every path is listed.
+    own = {"flash_attention": "llama3.2-1b", "decode_attention": "llama3.2-1b",
+           "moe_topk": "qwen2-moe-a2.7b", "mlstm_scan": "xlstm-350m"}
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:102"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:70")}
+                                    "src/repro/kernels/decode_attention.py:70"),
+               "mlstm_scan": ("src/repro_torch/csrc/mlstm_scan.cu",
+                              "src/repro/kernels/mlstm_scan.py:86"),
+               "moe_topk": ("src/repro_torch/csrc/moe_topk.cu",
+                            "src/repro/kernels/moe_topk.py:53")}
+    tolerance = {
+        "flash_attention": (f"bf16 {TOL[torch.bfloat16]:g}, "
+                            f"f32 {TOL[torch.float32]:g} max abs"),
+        "mlstm_scan": "bf16 3e-2 x max(1, max|plain|), f32 1e-3 max abs",
+        "moe_topk": "indices identical, weights 1e-6 max abs"}
+    tolerance["decode_attention"] = tolerance["flash_attention"]
     kernels = []
     for name, d in timed.items():
+        extra = {k: v for k, v in d.items() if k not in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "shape", "max_abs_err_f32")}
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "replaces": sources[name][1], "launches": by_path[own[name]][name],
             "max_abs_err": d["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
             "max_abs_err_f32": d["max_abs_err_f32"],
-            "tolerance": (f"bf16 {TOL[torch.bfloat16]:g}, "
-                          f"f32 {TOL[torch.float32]:g} max abs"),
-            "shape": d["shape"], "card": card})
-    not_ported = [
-        {"name": "mlstm_scan", "replaces": "src/repro/kernels/mlstm_scan.py:86",
-         "status": "not ported"},
-        {"name": "moe_topk", "replaces": "src/repro/kernels/moe_topk.py:53",
-         "status": "not ported"},
-    ]
-    print(json.dumps({"kernels": kernels, "not_ported": not_ported}), flush=True)
+            "tolerance": tolerance[name], "shape": d["shape"],
+            "launches_path": own[name],
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            **extra, "card": card})
+    print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

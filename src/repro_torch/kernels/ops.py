@@ -7,6 +7,8 @@ from a failed build or launch.
 
 * ``grouped_flash`` / ``flash_attention``   -- prefill attention (K1)
 * ``grouped_decode`` / ``decode_attention`` -- decode attention (K2)
+* ``mlstm_scan``                            -- chunkwise mLSTM scan (K3)
+* ``moe_topk``                              -- MoE router (K4)
 
 The ``grouped_*`` forms take the model's layout (``(B, S, H, hd)`` queries,
 ``(B, S, KH, hd)`` keys and values); the others the reference package's
@@ -17,6 +19,8 @@ from __future__ import annotations
 from . import ref
 from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
+from .mlstm_scan import mlstm_scan as _mlstm_cuda
+from .moe_topk import moe_topk as _moe_topk_cuda
 
 
 def _on_cuda(t, op: str) -> bool:
@@ -54,3 +58,18 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None):
     """q: (BH, 1, D); k, v: (BH, S, D); lengths: (BH,) int32."""
     return grouped_decode(q[:, :, None], k[:, :, None], v[:, :, None],
                           lengths, scale=scale)[:, :, 0]
+
+
+def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
+    """q, k: (BH, S, dk); v: (BH, S, dv); logf, i: (BH, S) -> h (BH, S, dv).
+    ``scale`` defaults to dk ** -0.5."""
+    if _on_cuda(q, "mlstm_scan"):
+        return _mlstm_cuda(q, k, v, logf, i, scale=scale)
+    return ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale)
+
+
+def moe_topk(logits, top_k: int, n_valid: int | None = None):
+    """logits: (T, E) -> (weights (T, k) float32, indices (T, k) int32)."""
+    if _on_cuda(logits, "moe_topk"):
+        return _moe_topk_cuda(logits, top_k, n_valid=n_valid)
+    return ref.moe_topk_ref(logits, top_k, n_valid=n_valid)

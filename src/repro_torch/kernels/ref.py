@@ -1,10 +1,15 @@
-"""Plain PyTorch versions of the port's kernels: dense attention, float32
-inside, cast back to the input type.  The CPU path runs them; on the card
-they are what each kernel is held against.
+"""Plain PyTorch versions of the port's kernels, float32 inside, cast back
+to the input type.  The CPU path runs them; on the card they are what each
+kernel is held against.
 
-Both take the model's layout, q (B, S, H, hd) and k, v (B, Sk, KH, hd)
-with query head ``h`` reading KV head ``h // G``; ``ops`` serves the
-reference package's (BH, S, D) signatures through them.
+* ``grouped_flash_ref`` / ``grouped_decode_ref`` -- dense attention (K1,
+  K2) in the model's layout, q (B, S, H, hd) and k, v (B, Sk, KH, hd) with
+  query head ``h`` reading KV head ``h // G``; ``ops`` serves the reference
+  package's (BH, S, D) signatures through them;
+* ``moe_topk_ref`` -- the MoE router (K4);
+* ``mlstm_chunkwise_ref`` -- the chunkwise mLSTM scan (K3), and
+  ``mlstm_scan_ref``, the step-by-step recurrence both chunkwise forms are
+  tested against.
 """
 from __future__ import annotations
 
@@ -48,3 +53,109 @@ def grouped_decode_ref(q, k, v, lengths, *, scale: float | None = None):
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE router (K4)
+# ---------------------------------------------------------------------------
+
+def moe_topk_ref(logits, top_k: int, n_valid: int | None = None):
+    """Softmax over the experts below ``n_valid``, then top-k by ``top_k``
+    masked-argmax passes, then renormalize.  logits: (T, E) ->
+    (weights (T, k) float32, indices (T, k) int32).
+
+    ``torch.argmax`` returns the first maximum, so ties go to the lowest
+    index as in the reference (``torch.topk`` leaves the order of ties
+    unspecified, and bfloat16 logits over 64 experts do tie)."""
+    t, e = logits.shape
+    n_valid = e if n_valid is None else n_valid
+    eidx = torch.arange(e, device=logits.device)
+    probs = torch.softmax(torch.where(eidx < n_valid, logits.float(), NEG_INF),
+                          dim=-1)
+    weights = torch.empty((t, top_k), dtype=torch.float32, device=logits.device)
+    idx = torch.empty((t, top_k), dtype=torch.int32, device=logits.device)
+    total = torch.zeros((t,), dtype=torch.float32, device=logits.device)
+    for j in range(top_k):
+        best = probs.argmax(dim=-1, keepdim=True)
+        bestp = probs.gather(-1, best)
+        weights[:, j:j + 1] = bestp
+        idx[:, j:j + 1] = best
+        total = total + bestp[:, 0]
+        probs = probs.scatter(-1, best, NEG_INF)
+    return weights / total.clamp(min=1e-9)[:, None], idx
+
+
+# ---------------------------------------------------------------------------
+# mLSTM scan (K3)
+# ---------------------------------------------------------------------------
+
+def mlstm_scan_ref(q, k, v, logf, i, *, scale: float | None = None):
+    """Step-by-step mLSTM recurrence, the ground truth of the chunkwise
+    forms (tests only).  q, k: (BH, S, dk); v: (BH, S, dv); logf, i:
+    (BH, S).  Returns h (BH, S, dv) in q's dtype."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    scale = scale if scale is not None else dk ** -0.5
+    qf, kf, vf = q.float() * scale, k.float(), v.float()
+    f, ig = logf.float().exp(), i.float()
+    c = torch.zeros((bh, dk, dv), dtype=torch.float32, device=q.device)
+    n = torch.zeros((bh, dk), dtype=torch.float32, device=q.device)
+    hs = []
+    for t in range(s):
+        c = (f[:, t, None, None] * c
+             + ig[:, t, None, None] * torch.einsum("bd,be->bde", kf[:, t], vf[:, t]))
+        n = f[:, t, None] * n + ig[:, t, None] * kf[:, t]
+        num = torch.einsum("bd,bde->be", qf[:, t], c)
+        den = torch.einsum("bd,bd->b", qf[:, t], n).abs().clamp(min=1.0)
+        hs.append(num / den[:, None])
+    return torch.stack(hs, dim=1).to(q.dtype)
+
+
+def mlstm_chunkwise_ref(q, k, v, logf, i, *, scale: float | None = None,
+                        chunk: int = 256):
+    """Chunkwise-parallel mLSTM, the plain version of K3: within a chunk a
+    decay-masked attention matrix, across chunks the carried state
+    ``C`` (dk x dv) and ``n`` (dk), all float32.
+
+    Takes any S: the tail is padded to a whole chunk with ``logf = 0`` and
+    ``i = 0``, steps through which the state passes unchanged, so the
+    padding is exact; the padded outputs are cut off.
+    """
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    scale = scale if scale is not None else dk ** -0.5
+    ch = min(chunk, s)
+    nc = -(-s // ch)
+    pad = nc * ch - s
+
+    def tail(x):
+        x = x.float()
+        return torch.nn.functional.pad(x, (0, 0, 0, pad) if x.dim() == 3
+                                       else (0, pad))
+
+    qc = (tail(q) * scale).reshape(bh, nc, ch, dk)
+    kc = tail(k).reshape(bh, nc, ch, dk)
+    vc = tail(v).reshape(bh, nc, ch, dv)
+    lc = tail(logf).reshape(bh, nc, ch)
+    ic = tail(i).reshape(bh, nc, ch)
+    causal = torch.ones((ch, ch), dtype=torch.bool, device=q.device).tril()
+    c = torch.zeros((bh, dk, dv), dtype=torch.float32, device=q.device)
+    n = torch.zeros((bh, dk), dtype=torch.float32, device=q.device)
+    hs = []
+    for j in range(nc):
+        qb, kb, vb, ib = qc[:, j], kc[:, j], vc[:, j], ic[:, j]
+        la = torch.cumsum(lc[:, j], dim=-1)                 # (BH, ch)
+        total = la[:, -1]
+        qd = qb * la.exp()[..., None]
+        inter = qd @ c                                      # (BH, ch, dv)
+        n_inter = (qd @ n[..., None])[..., 0]               # (BH, ch)
+        dmat = torch.where(causal, (la[:, :, None] - la[:, None, :]).exp()
+                           * ib[:, None, :], 0.0)
+        smat = (qb @ kb.transpose(1, 2)) * dmat             # (BH, ch, ch)
+        intra = smat @ vb
+        den = (n_inter + smat.sum(-1)).abs().clamp(min=1.0)
+        hs.append((inter + intra) / den[..., None])
+        w = ib * (total[:, None] - la).exp()                # (BH, ch)
+        c = total.exp()[:, None, None] * c + (kb * w[..., None]).transpose(1, 2) @ vb
+        n = total.exp()[:, None] * n + (w[:, None, :] @ kb)[:, 0]
+    return torch.cat(hs, dim=1)[:, :s].to(q.dtype)

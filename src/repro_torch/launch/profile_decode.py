@@ -1,17 +1,21 @@
 """Where a serving decode step spends its time on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_decode
+  PYTHONPATH=src python -m repro_torch.launch.profile_decode [--arch NAME]
 
-Builds llama3.2-1b at its published widths in bfloat16 with random weights
-(seed 0) and a random KV cache at the serving engine's largest batch (8
-rows, 1024 positions, 700 live), then times ``decode_step`` and
-``prefill_batch`` (8 prompts of 256 tokens) as the engine calls them: host
-wall time per call (ending in a synchronize), and a ``torch.profiler``
-window that gives the device's busy share and the device time by kernel.
-Prints one JSON line per measurement.
+Builds the model (``--arch``, default llama3.2-1b) at its published widths
+and depth in bfloat16 with random weights (seed 0) and random caches at the
+serving engine's largest batch (8 rows, 1024 positions, 700 live for
+attention caches; random recurrent states for xLSTM), then times
+``decode_step`` and ``prefill_batch`` (8 prompts of 256 tokens) as the
+engine calls them: host wall time per call (ending in a synchronize), and a
+``torch.profiler`` window that gives the device's busy share and the
+device time by kernel.  MoE layers run at the reference's default capacity
+factors (1.25 for prefill, 2.0 for decode).  Prints one JSON line per
+measurement.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -23,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs.base import get_arch
 from ..models.transformer import Model
+from ..models.weights import tree_leaves
 
 
 def _wall_ms(fn, n: int) -> float:
@@ -55,20 +60,23 @@ def _device_table(prof, n_calls: int, wall_ms: float, top: int) -> dict:
     }
 
 
-ARCH, BATCH, MAX_LEN, LIVE, PROMPT_LEN = "llama3.2-1b", 8, 1024, 700, 256
+BATCH, MAX_LEN, LIVE, PROMPT_LEN = 8, 1024, 700, 256
 ITERS, TOP = 20, 12
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode measures the CUDA device; none found")
 
-    cfg = get_arch(ARCH)
+    cfg = get_arch(args.arch)
     model = Model(cfg, device="cuda")
     params = model.init_params(seed=0)
     caches = model.init_cache(BATCH, MAX_LEN)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for leaf in (t for c in caches for t in c.values()):
+    for leaf in tree_leaves(caches):
         leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
     tok = torch.randint(0, cfg.vocab_size, (BATCH, 1), generator=gen,
                         device="cuda")

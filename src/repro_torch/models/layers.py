@@ -23,6 +23,15 @@ def dtype_of(name) -> torch.dtype:
 
 
 def _normal(gen, shape, scale: float, dtype):
+    """Normal(0, scale) values drawn in float32 and stored in ``dtype``.  A
+    tensor of more than two dims is drawn one leading slice at a time, so
+    the float32 draw never holds more than a slice (a stacked expert
+    tensor of qwen2-moe is 17.7 GB in float32)."""
+    if len(shape) > 2:
+        out = torch.empty(shape, dtype=dtype_of(dtype), device=gen.device)
+        for i in range(shape[0]):
+            out[i] = _normal(gen, shape[1:], scale, dtype)
+        return out
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (x * scale).to(dtype_of(dtype))

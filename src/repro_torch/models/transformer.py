@@ -1,16 +1,19 @@
-"""Model assembly for the dense decoder family: prefill and decode.
+"""Model assembly: segment plan, prefill and decode.
 
-The layer stack compiles to a list of *segments*, homogeneous runs of layers
-whose parameters and caches are stacked on a leading layer axis, as in the
-reference package.  A segment runs as a Python loop over that axis.  The
-dense plan is one segment of ``n_layers`` layers.
+The layer stack compiles to a list of *segments*, as in the reference
+package: homogeneous runs of layers (``"scan"``) whose parameters and caches
+are stacked on a leading layer axis, and ``"single"`` layers where the stack
+is heterogeneous (xLSTM's sLSTM blocks), stored without that axis.  A
+segment runs as a Python loop over its layers.
+
+Families ported: dense (GQA + SwiGLU), MoE without MLA (GQA + MoE FFN,
+leading dense layers per ``first_k_dense``) and SSM (xLSTM: groups of
+mLSTM blocks and one sLSTM block, no FFN).  The others raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 Modes:
 * ``prefill`` / ``prefill_batch`` : forward that also builds the caches
 * ``decode_step`` : one token in, one logits row out, caches updated
-
-Only the dense plan is ported; the other families raise
-``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from torch import nn
 from ..configs.base import ArchConfig
 from . import attention as A
 from . import layers as L
+from . import moe as M
+from . import ssm as S
 from .weights import tree_map
 
 
@@ -29,33 +34,56 @@ from .weights import tree_map
 class Segment:
     kind: str        # "scan" | "single"
     n: int
-    mixer: str       # "attn"
-    ffn: str         # "swiglu"
+    mixer: str       # "attn" | "mlstm" | "slstm"
+    ffn: str         # "swiglu" | "moe" | "none"
     window: int = 0
     cross: bool = False
 
 
 _WAITING = {
-    "ssm": "SSM/hybrid (mlstm_scan kernel)",
-    "hybrid": "SSM/hybrid (mlstm_scan kernel)",
-    "moe": "MoE (moe_topk kernel)",
+    "hybrid": "SSM/hybrid: hymba's SSD heads",
     "audio": "enc-dec/VLM",
     "vlm": "enc-dec/VLM",
 }
 
 
 def build_plan(cfg: ArchConfig) -> list:
-    family = "moe" if cfg.moe is not None else cfg.family
     if cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: MLA is not ported yet (ROADMAP.md, queue 1: MLA)")
-    if family in _WAITING:
+    if cfg.family in _WAITING:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md, queue 1: {_WAITING[family]})")
-    if family != "dense":
+            f"(ROADMAP.md, queue 1: {_WAITING[cfg.family]})")
+    if cfg.family == "ssm":                     # xlstm: 5 mLSTM + 1 sLSTM per group
+        k = cfg.ssm.slstm_every
+        plan = []
+        if k and cfg.n_layers >= k:
+            groups = cfg.n_layers // k
+            for _ in range(groups):
+                plan.append(Segment("scan", k - 1, "mlstm", "none"))
+                plan.append(Segment("single", 1, "slstm", "none"))
+            rem = cfg.n_layers - groups * k
+        else:
+            rem = cfg.n_layers
+        if rem:
+            plan.append(Segment("scan", rem, "mlstm", "none"))
+        return plan
+    if cfg.moe is not None:
+        plan = []
+        if cfg.first_k_dense:
+            plan.append(Segment("scan", cfg.first_k_dense, "attn", "swiglu"))
+        plan.append(Segment("scan", cfg.n_layers - cfg.first_k_dense, "attn",
+                            "moe"))
+        return plan
+    if cfg.family != "dense":
         raise NotImplementedError(f"{cfg.name}: unknown family {cfg.family}")
     return [Segment("scan", cfg.n_layers, "attn", "swiglu")]
+
+
+def _lead(seg: Segment) -> tuple:
+    """The stacked layer axis of a scanned segment; none for a single."""
+    return (seg.n,) if seg.kind == "scan" else ()
 
 
 # ---------------------------------------------------------------------------
@@ -64,37 +92,79 @@ def build_plan(cfg: ArchConfig) -> list:
 
 def _layer_init(gen, cfg: ArchConfig, seg: Segment, lead: tuple = ()):
     dev = gen.device
-    return {
-        "norm1": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev, lead=lead),
-        "attn": A.gqa_init(gen, cfg, lead=lead),
-        "norm2": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev, lead=lead),
-        "ffn": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype, lead=lead),
-    }
+    p = {"norm1": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev, lead=lead)}
+    if seg.mixer == "attn":
+        p["attn"] = A.gqa_init(gen, cfg, lead=lead)
+    elif seg.mixer == "mlstm":
+        p["mixer"] = S.mlstm_init(gen, cfg, lead=lead)
+    elif seg.mixer == "slstm":
+        p["mixer"] = S.slstm_init(gen, cfg, lead=lead)
+    if seg.ffn != "none":
+        p["norm2"] = L.rmsnorm_init(cfg.d_model, cfg.dtype, dev, lead=lead)
+    if seg.ffn == "swiglu":
+        p["ffn"] = L.swiglu_init(gen, cfg.d_model, cfg.d_ff, cfg.dtype, lead=lead)
+    elif seg.ffn == "moe":
+        p["ffn"] = M.moe_init(gen, cfg, lead=lead)
+    return p
+
+
+def _apply_mixer_seq(cfg, seg, lp, xn, positions, *, want_cache, smax,
+                     kv_quant):
+    """Full-sequence mixer; returns (y, cache_leaf or None)."""
+    if seg.mixer == "attn":
+        if want_cache:
+            y, kv = A.gqa_forward(cfg, lp["attn"], xn, positions,
+                                  window=seg.window, return_cache=True)
+            return y, A.gqa_prefill_cache(cfg, smax, kv["k"], kv["v"],
+                                          seg.window, quant=kv_quant)
+        return A.gqa_forward(cfg, lp["attn"], xn, positions,
+                             window=seg.window), None
+    if seg.mixer == "mlstm":
+        if want_cache:
+            return S.mlstm_forward(cfg, lp["mixer"], xn, return_state=True)
+        return S.mlstm_forward(cfg, lp["mixer"], xn), None
+    if seg.mixer == "slstm":
+        if want_cache:
+            return S.slstm_forward(cfg, lp["mixer"], xn, return_state=True)
+        return S.slstm_forward(cfg, lp["mixer"], xn), None
+    raise ValueError(seg.mixer)
+
+
+def _apply_ffn(cfg, seg, lp, x, capacity_factor):
+    if seg.ffn == "swiglu":
+        return x + L.swiglu(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    if seg.ffn == "moe":
+        y, _ = M.moe_forward(cfg, lp["ffn"],
+                             L.rmsnorm(lp["norm2"], x, cfg.norm_eps),
+                             capacity_factor=capacity_factor)
+        return x + y
+    return x
 
 
 def _apply_layer_seq(cfg, seg, lp, x, positions, *, want_cache=False,
-                     smax=0, kv_quant=False):
+                     smax=0, kv_quant=False, capacity_factor=1.25):
     """x -> x', cache_leaf (or None)."""
     xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    cache = None
-    if want_cache:
-        y, kv = A.gqa_forward(cfg, lp["attn"], xn, positions,
-                              window=seg.window, return_cache=True)
-        cache = A.gqa_prefill_cache(cfg, smax, kv["k"], kv["v"], seg.window,
-                                    quant=kv_quant)
-    else:
-        y = A.gqa_forward(cfg, lp["attn"], xn, positions, window=seg.window)
-    x = x + y
-    x = x + L.swiglu(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    y, cache = _apply_mixer_seq(cfg, seg, lp, xn, positions,
+                                want_cache=want_cache, smax=smax,
+                                kv_quant=kv_quant)
+    x = _apply_ffn(cfg, seg, lp, x + y, capacity_factor)
     return x, cache
 
 
-def _apply_layer_decode(cfg, seg, lp, x, cache, pos, *, out=None):
+def _apply_layer_decode(cfg, seg, lp, x, cache, pos, *, out=None,
+                        capacity_factor=2.0):
     xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    y, new_cache = A.gqa_decode(cfg, lp["attn"], xn, cache, pos,
-                                window=seg.window, out=out)
-    x = x + y
-    x = x + L.swiglu(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    if seg.mixer == "attn":
+        y, new_cache = A.gqa_decode(cfg, lp["attn"], xn, cache, pos,
+                                    window=seg.window, out=out)
+    elif seg.mixer == "mlstm":
+        y, new_cache = S.mlstm_decode(cfg, lp["mixer"], xn, cache, out=out)
+    elif seg.mixer == "slstm":
+        y, new_cache = S.slstm_decode(cfg, lp["mixer"], xn, cache, out=out)
+    else:
+        raise ValueError(seg.mixer)
+    x = _apply_ffn(cfg, seg, lp, x + y, capacity_factor)
     return x, new_cache
 
 
@@ -102,12 +172,20 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _layers(seg: Segment, tree) -> list:
+    """A segment's per-layer trees: slices of the stacked axis, or the one
+    tree of a single layer."""
+    if seg.kind == "scan":
+        return [_layer(tree, i) for i in range(seg.n)]
+    return [tree]
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """Dense decoder LM built from an ArchConfig.
+    """Decoder LM built from an ArchConfig.
 
     The parameter tree is the reference's nested-dict layout; the model owns
     the tree it made or was given (``adopt``), and its methods take the tree
@@ -116,13 +194,19 @@ class Model(nn.Module):
     """
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
-                 kv_quant: bool = False):
+                 kv_quant: bool = False, capacity_factor: float | None = None):
         super().__init__()
         self.cfg = cfg
         self.device = torch.device(device)
         self.kv_quant = kv_quant
+        # MoE capacity factor; None takes the reference's defaults, 1.25 for
+        # sequences and 2.0 for decode steps.
+        self.capacity_factor = capacity_factor
         self.plan = build_plan(cfg)
         self.params = None
+
+    def _cf(self, default: float) -> float:
+        return self.capacity_factor if self.capacity_factor is not None else default
 
     # ------------------------------------------------------------- params
     def init_params(self, generator: torch.Generator | None = None,
@@ -133,7 +217,7 @@ class Model(nn.Module):
         gen = generator
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        segs = [_layer_init(gen, cfg, seg, lead=(seg.n,)) for seg in self.plan]
+        segs = [_layer_init(gen, cfg, seg, lead=_lead(seg)) for seg in self.plan]
         params = {
             "embed": L.embedding_init(gen, cfg.vocab_size, cfg.d_model, cfg.dtype),
             "final_norm": L.rmsnorm_init(cfg.d_model, cfg.dtype, gen.device),
@@ -175,13 +259,18 @@ class Model(nn.Module):
         caches = []
         for seg, sp in zip(self.plan, params["segments"]):
             layer_caches = []
-            for i in range(seg.n):
-                x, c = _apply_layer_seq(cfg, seg, _layer(sp, i), x, positions,
+            for lp in _layers(seg, sp):
+                x, c = _apply_layer_seq(cfg, seg, lp, x, positions,
                                         want_cache=want_cache, smax=smax,
-                                        kv_quant=self.kv_quant)
+                                        kv_quant=self.kv_quant,
+                                        capacity_factor=self._cf(1.25))
                 layer_caches.append(c)
-            caches.append(tree_map(lambda *a: torch.stack(a), *layer_caches)
-                          if want_cache else None)
+            if not want_cache:
+                caches.append(None)
+            elif seg.kind == "scan":
+                caches.append(tree_map(lambda *a: torch.stack(a), *layer_caches))
+            else:
+                caches.append(layer_caches[0])
         return x, caches
 
     # ------------------------------------------------------------ prefill
@@ -221,10 +310,11 @@ class Model(nn.Module):
         x = L.embed(params["embed"], self._tokens(token))
         new_caches = []
         for seg, sp, sc in zip(self.plan, params["segments"], caches):
-            out = tree_map(torch.empty_like, sc)    # one copy per step
-            for i in range(seg.n):
-                x, _ = _apply_layer_decode(cfg, seg, _layer(sp, i), x,
-                                           _layer(sc, i), pos, out=_layer(out, i))
+            out = tree_map(torch.empty_like, sc)    # every layer writes here
+            for lp, lc, lo in zip(_layers(seg, sp), _layers(seg, sc),
+                                  _layers(seg, out)):
+                x, _ = _apply_layer_decode(cfg, seg, lp, x, lc, pos, out=lo,
+                                           capacity_factor=self._cf(2.0))
             new_caches.append(out)
         return self._logits(params, x), new_caches
 
@@ -233,7 +323,7 @@ class Model(nn.Module):
         """Zero caches; ``device="meta"`` gives shapes without memory."""
         dev = torch.device(device) if device is not None else self.device
         dt = L.dtype_of(dtype or self.cfg.dtype)
-        return [self._seg_cache_leaf(seg, batch_size, smax, dt, dev, (seg.n,))
+        return [self._seg_cache_leaf(seg, batch_size, smax, dt, dev, _lead(seg))
                 for seg in self.plan]
 
     def _seg_cache_leaf(self, seg: Segment, b: int, smax: int, dt, dev,
@@ -245,6 +335,14 @@ class Model(nn.Module):
         def z(shape, dtype):
             return torch.zeros((*lead, *shape), dtype=dtype, device=dev)
 
+        if seg.mixer == "mlstm":
+            h = cfg.n_heads
+            hdm = cfg.ssm.expand * cfg.d_model // h
+            return {"c": z((b, h, hdm, hdm), torch.float32),
+                    "n": z((b, h, hdm), torch.float32)}
+        if seg.mixer == "slstm":
+            return {"c": z((b, cfg.d_model), torch.float32),
+                    "n": z((b, cfg.d_model), torch.float32)}
         if self.kv_quant:
             return {"k": z((b, s, kh, hd), torch.int8),
                     "v": z((b, s, kh, hd), torch.int8),

@@ -3,13 +3,19 @@
 Run on a machine with an H100 (``pytest -m gpu tests/test_torch_kernels_gpu.py``);
 without a CUDA device every test skips.  Whether there is a device is decided
 in the ``cuda`` fixture, never at import, so every pytest-xdist worker
-collects the same tests.  float32 to 1e-4 (the kernel sums in another order
-and uses the device ``exp``), bfloat16 to 3e-2."""
+collects the same tests.  Attention: float32 to 1e-4 (the kernel sums in
+another order and uses the device ``exp``), bfloat16 to 3e-2.  Router:
+indices identical, weights to 1e-6.  mLSTM scan: float32 to 1e-3 (the
+reference's bound for chunkwise against the recurrence; kernel and plain
+version cut the sequence into chunks of different lengths), bfloat16 to
+3e-2 of max(1, max |plain|)."""
 import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import mlstm_scan as kscan
+from repro_torch.kernels import moe_topk as kmoe
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.gpu
@@ -83,3 +89,67 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         kdecode.decode_attention(q, q, q, torch.ones(1, dtype=torch.int32,
                                                      device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [8, 500, 2048])
+@pytest.mark.parametrize("e,k,n_valid", [(64, 4, 60), (256, 8, 256), (16, 2, 16)])
+def test_router_kernel_matches_plain(cuda, dtype, t, e, k, n_valid):
+    logits = _randn((t, e), dtype, cuda, 7)
+    n = kmoe.launches.count
+    w, idx = kmoe.moe_topk(logits, k, n_valid)
+    torch.cuda.synchronize()
+    assert kmoe.launches.count == n + 1
+    rw, ridx = ref.moe_topk_ref(logits, k, n_valid)
+    assert torch.equal(idx, ridx)
+    assert (w - rw).abs().max().item() < 1e-6
+
+
+def test_router_kernel_ties_go_to_lowest_index(cuda):
+    logits = (torch.randint(-2, 3, (512, 64), device=cuda) / 2).bfloat16()
+    w, idx = kmoe.moe_topk(logits, 4, 60)
+    rw, ridx = ref.moe_topk_ref(logits, 4, 60)
+    assert torch.equal(idx, ridx)
+    assert (w - rw).abs().max().item() < 1e-6
+
+
+def _scan_inputs(bh, s, dk, dv, dtype, device):
+    q = (_randn((bh, s, dk), torch.float32, device, 8) * 0.5).to(dtype)
+    k = (_randn((bh, s, dk), torch.float32, device, 9) * 0.5).to(dtype)
+    v = _randn((bh, s, dv), dtype, device, 10)
+    logf = torch.nn.functional.logsigmoid(
+        _randn((bh, s), torch.float32, device, 11) + 2.0)
+    i = torch.sigmoid(_randn((bh, s), torch.float32, device, 12))
+    return q, k, v, logf, i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,dk,dv,scale", [
+    (32, 256, 512, 512, None),       # xlstm-350m admission batch
+    (4, 500, 512, 512, None),        # xlstm bulk prefill, ragged length
+    (200, 256, 16, 64, 1.0),         # hymba's SSD heads
+    (2, 256, 32, 32, None),          # reference test shapes
+    (4, 128, 16, 64, None),
+    (1, 512, 64, 64, None),
+    (3, 37, 32, 96, None),           # ragged, dv not a multiple of 64
+])
+def test_scan_kernel_matches_plain(cuda, dtype, bh, s, dk, dv, scale):
+    q, k, v, logf, i = _scan_inputs(bh, s, dk, dv, dtype, cuda)
+    n = kscan.launches.count
+    out = kscan.mlstm_scan(q, k, v, logf, i, scale=scale)
+    torch.cuda.synchronize()
+    assert kscan.launches.count == n + 1
+    want = ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale)
+    assert out.dtype == dtype and out.shape == (bh, s, dv)
+    err = (out.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err < 1e-3
+    else:
+        assert err < 3e-2 * max(1.0, want.float().abs().max().item())
+
+
+def test_scan_kernel_matches_recurrence(cuda):
+    q, k, v, logf, i = _scan_inputs(2, 100, 32, 64, torch.float32, cuda)
+    out = kscan.mlstm_scan(q, k, v, logf, i)
+    want = ref.mlstm_scan_ref(q, k, v, logf, i)
+    assert (out - want).abs().max().item() < 1e-3

@@ -277,8 +277,7 @@ def test_params_from_numpy_keeps_bfloat16():
     assert np.array_equal(t.float().numpy(), np.asarray(j.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "qwen2-moe-a2.7b",
-                                  "xlstm-350m", "hymba-1.5b",
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "hymba-1.5b",
                                   "seamless-m4t-medium", "internvl2-1b"])
 def test_build_plan_names_waiting_families(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
