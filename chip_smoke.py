@@ -19,8 +19,10 @@ and each fatal:
                float32 to 1e-3 and bfloat16 to 3e-2 of max(1, max |plain|).
                CUDA-event times of back-to-back calls of the kernel, the
                plain version and (for attention) one library call, and the
-               kernel's own device time from the profiler, beside the
-               kernel's bound
+               kernel's own device time from the profiler (K1 and K2: each
+               call is one launch, and no other kernel runs), beside the
+               kernel's bound;
+               K1 and K2 at llama3.2-1b's and qwen2-moe-a2.7b's shapes
 4. model    -- float32, kernel path against the plain path (logits to
                1e-3, greedy tokens identical) over prefill_batch on ragged
                prompts and 8 decode steps: llama3.2-1b and xlstm-350m at
@@ -90,11 +92,14 @@ def cuda_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
+def device_ms(fn, kernel: str, iters: int = 20, alone: bool = False) -> float:
     """Mean device time of one launch of the CUDA kernel whose name contains
     ``kernel``, from a profiler window over ``iters`` calls of ``fn``: the
     kernel alone, without the host time between launches that a
-    back-to-back event timing of a short kernel measures."""
+    back-to-back event timing of a short kernel measures.  The window must
+    hold at least one launch of it and at most one a call (the profiler can
+    drop an event); with ``alone``, no other kernel may run in it, so each
+    call is that one launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -104,11 +109,16 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in rows)
-    if count == 0:
-        raise AssertionError(f"profiler saw no launch of {kernel}")
-    return sum(e.self_device_time_total for e in rows) / count / 1e3
+            if e.device_type == DeviceType.CUDA and e.count]
+    mine = [e for e in rows if kernel in e.key]
+    count = sum(e.count for e in mine)
+    if not 0 < count <= iters:
+        raise AssertionError(f"profiler saw {count} launches of {kernel} in "
+                             f"{iters} calls")
+    others = sorted(e.key for e in rows if kernel not in e.key)
+    if alone and others:
+        raise AssertionError(f"calls of {kernel} also ran {others}")
+    return sum(e.self_device_time_total for e in mine) / count / 1e3
 
 
 def free_device_memory() -> None:
@@ -162,10 +172,12 @@ def decode_bound_ms(q, k, lengths) -> tuple:
 def kernel_phase(ref, kflash, kdecode) -> dict:
     """Parity of both kernels over their shapes, then times at the serving
     shapes.  Returns the per-kernel entries of the kernels line."""
-    F = torch.nn.functional
     flash_shapes = [
         # b, sq, sk, h, kh, hd, causal, window
         (8, 256, 256, 32, 8, 64, True, 0),    # llama3.2-1b admission batch
+        (2, 64, 200, 8, 2, 64, True, 48),     # one 64-row tile, Sq != Sk, window
+        (1, 500, 500, 14, 2, 128, True, 0),   # ragged, G = 7, hd 128
+        (2, 200, 200, 4, 1, 16, True, 64),    # hd 16, window
         (1, 500, 500, 32, 8, 64, True, 0),    # ragged bulk prefill
         (8, 256, 256, 14, 2, 64, True, 0),    # qwen2-0.5b, G = 7
         (8, 256, 256, 16, 16, 128, True, 0),  # qwen2-moe-a2.7b admission
@@ -187,6 +199,11 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
         (6, 512, 1, 1, 64, [i * (512 // 6) + 1 for i in range(6)]),
         (2, 2048, 1, 1, 128, [i * 1024 + 1 for i in range(2)]),
         (8, 256, 1, 1, 32, [i * 32 + 1 for i in range(8)]),
+        # split edges of the plan at S_max 1024 (chunks of 128 for llama,
+        # 256 for qwen2-moe), S_max itself; G = 16 (the largest group)
+        (8, 1024, 32, 8, 64, [127, 128, 129, 1024, 1, 255, 256, 257]),
+        (8, 1024, 16, 16, 128, [255, 256, 257, 1024, 1, 511, 512, 513]),
+        (6, 512, 32, 2, 64, [1, 63, 64, 65, 300, 512]),
     ]
     errs = {"flash": {}, "decode": {}}
     for dt in (torch.float32, torch.bfloat16):
@@ -222,52 +239,76 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
         tolerance={"float32": TOL[torch.float32],
                    "bfloat16": TOL[torch.bfloat16]})
 
-    # Times at the serving shapes, bfloat16 as served.
+    # Times at the serving shapes, bfloat16 as served: llama3.2-1b's, then
+    # qwen2-moe-a2.7b's under the suffix "_qwen2moe".
+    flash, decode = time_flash(ref, kflash, 8, 256, 32, 8, 64), \
+        time_decode(ref, kdecode, 8, 1024, 700, 32, 8, 64)
+    for key, d in (("flash_attention", flash), ("decode_attention", decode)):
+        log("kernels.time", kernel=key, **d)
+    for key, d, more in (
+            ("flash_attention", flash, time_flash(ref, kflash, 8, 256, 16, 16, 128)),
+            ("decode_attention", decode,
+             time_decode(ref, kdecode, 8, 1024, 700, 16, 16, 128))):
+        log("kernels.time", kernel=key, **more)
+        d.update({f"{k}_qwen2moe": v for k, v in more.items()})
+    flash["max_abs_err_f32"] = errs["flash"]["float32"]
+    decode["max_abs_err_f32"] = errs["decode"]["float32"]
+    return {"flash_attention": flash, "decode_attention": decode}
+
+
+def time_flash(ref, kflash, b, s, h, kh, hd) -> dict:
+    """K1 in bfloat16, causal, at one admission shape: CUDA-event times of
+    the kernel, the plain version and SDPA, and the wgmma kernel's own
+    device time (one launch a call)."""
+    F = torch.nn.functional
     dt = torch.bfloat16
-    b, s, h, kh, hd = 8, 256, 32, 8, 64
     q, k, v = (randn((b, s, n, hd), dt, 70 + j)
                for j, n in enumerate((h, kh, kh)))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    flash = {
+    d = {
         "ms": cuda_ms(lambda: kflash.flash_attention(q, k, v, causal=True)),
         "plain_ms": cuda_ms(lambda: ref.grouped_flash_ref(q, k, v, causal=True)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "device_ms": device_ms(
+            lambda: kflash.flash_attention(q, k, v, causal=True),
+            "flash_fwd_wgmma", alone=True),
     }
-    flash["device_ms"] = device_ms(
-        lambda: kflash.flash_attention(q, k, v, causal=True), "flash_fwd_kernel")
-    flash["bound_ms"], flash["bound_by"] = flash_bound_ms(q, k, True, 0)
-    flash["shape"] = f"B={b} S={s} H={h} KH={kh} hd={hd} causal bf16"
+    d["bound_ms"], d["bound_by"] = flash_bound_ms(q, k, True, 0)
+    d["shape"] = f"B={b} S={s} H={h} KH={kh} hd={hd} causal bf16"
     got = kflash.flash_attention(q, k, v, causal=True)
-    flash["max_abs_err"] = (got.float() - ref.grouped_flash_ref(
+    d["max_abs_err"] = (got.float() - ref.grouped_flash_ref(
         q, k, v, causal=True).float()).abs().max().item()
+    return d
 
-    b, smax, live = 8, 1024, 700
+
+def time_decode(ref, kdecode, b, smax, live, h, kh, hd) -> dict:
+    """K2 in bfloat16 at one decode-step shape, all rows ``live`` long: as
+    ``time_flash``; the profiler must see exactly one K2 launch a call."""
+    F = torch.nn.functional
+    dt = torch.bfloat16
     q = randn((b, 1, h, hd), dt, 80)
     k, v = (randn((b, smax, kh, hd), dt, 81 + j) for j in range(2))
     lengths = torch.full((b,), live, dtype=torch.int32, device="cuda")
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     mask = (torch.arange(smax, device="cuda")[None, :] < lengths[:, None])
     mask = mask[:, None, None, :]
-    decode = {
+    d = {
         "ms": cuda_ms(lambda: kdecode.decode_attention(q, k, v, lengths)),
         "plain_ms": cuda_ms(lambda: ref.grouped_decode_ref(q, k, v, lengths)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        "device_ms": device_ms(
+            lambda: kdecode.decode_attention(q, k, v, lengths),
+            "decode_split_kernel", alone=True),
     }
-    decode["device_ms"] = device_ms(
-        lambda: kdecode.decode_attention(q, k, v, lengths), "decode_kernel")
-    decode["bound_ms"], decode["bound_by"] = decode_bound_ms(q, k, lengths)
-    decode["shape"] = f"B={b} S_max={smax} live={live} H={h} KH={kh} hd={hd} bf16"
+    d["bound_ms"], d["bound_by"] = decode_bound_ms(q, k, lengths)
+    d["n_split"], d["chunk"] = kdecode.split_plan(smax, b, kh)
+    d["shape"] = f"B={b} S_max={smax} live={live} H={h} KH={kh} hd={hd} bf16"
     got = kdecode.decode_attention(q, k, v, lengths)
-    decode["max_abs_err"] = (got.float() - ref.grouped_decode_ref(
+    d["max_abs_err"] = (got.float() - ref.grouped_decode_ref(
         q, k, v, lengths).float()).abs().max().item()
-    torch.cuda.synchronize()
-    for name, d in (("flash_attention", flash), ("decode_attention", decode)):
-        log("kernels.time", kernel=name, **d)
-    flash["max_abs_err_f32"] = errs["flash"]["float32"]
-    decode["max_abs_err_f32"] = errs["decode"]["float32"]
-    return {"flash_attention": flash, "decode_attention": decode}
+    return d
 
 
 def router_bound_ms(logits, top_k: int) -> tuple:

@@ -126,6 +126,14 @@ def function(lib: str, symbol: str, argtypes: list):
     return fn
 
 
+def aligned16(t) -> bool:
+    """Whether every (.., row) of ``t`` starts on 16 bytes: the kernels
+    copy rows in 16-byte chunks."""
+    es = t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all((st * es) % 16 == 0 for st in t.stride()[:-1]))
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA kernel launch failed with "

@@ -8,9 +8,16 @@ over KV tiles with float32 running max, sum and accumulator, causal
 
 Unlike the Pallas kernel it reads grouped-query K/V directly (query head
 ``h`` uses KV head ``h // G``), so the caller needs no repeated K/V copy, and
-it masks ragged tails instead of asserting block multiples.  What bounds it
-on the card and what the design does about it is written at the top of the
-CUDA source.  The plain version is ``ref.grouped_flash_ref``.
+it masks ragged tails instead of asserting block multiples.
+
+The source holds two hand-written kernels, and the C entry point picks one
+by the input type: bfloat16 (the serving path) runs on the tensor cores
+through ``wgmma``; float32 runs on the CUDA cores, because ``wgmma`` on
+float32 is TF32 (about three decimal digits) and the float32 model checks
+hold the kernel to 1e-4.  Both are this wrapper's launches, counted alike;
+neither is a fallback for the other.  What bounds them on the card and what
+the designs do about it is written at the top of the CUDA source.  The
+plain version is ``ref.grouped_flash_ref``.
 """
 from __future__ import annotations
 
@@ -69,6 +76,12 @@ def _check(q, k, v) -> None:
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim must be "
                              "contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not build.aligned16(t):
+                raise ValueError(f"flash_attention: bfloat16 {name} is copied "
+                                 "in 16-byte chunks and must be 16-byte "
+                                 "aligned, with strides that keep every row so")
     b, _, h, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")

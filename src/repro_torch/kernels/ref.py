@@ -5,7 +5,8 @@ kernel is held against.
 * ``grouped_flash_ref`` / ``grouped_decode_ref`` -- dense attention (K1,
   K2) in the model's layout, q (B, S, H, hd) and k, v (B, Sk, KH, hd) with
   query head ``h`` reading KV head ``h // G``; ``ops`` serves the reference
-  package's (BH, S, D) signatures through them;
+  package's (BH, S, D) signatures through them; ``grouped_decode_split_ref``
+  is K2's split-and-merge arithmetic, for the tests;
 * ``moe_topk_ref`` -- the MoE router (K4);
 * ``mlstm_chunkwise_ref`` -- the chunkwise mLSTM scan (K3), and
   ``mlstm_scan_ref``, the step-by-step recurrence both chunkwise forms are
@@ -52,6 +53,44 @@ def grouped_decode_ref(q, k, v, lengths, *, scale: float | None = None):
     scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def grouped_decode_split_ref(q, k, v, lengths, *, n_split: int, chunk: int,
+                             scale: float | None = None):
+    """K2's split and merge in plain PyTorch (tests only): split ``i``
+    attends over positions ``[i * chunk, (i + 1) * chunk)`` below the row's
+    length and keeps a partial (max m, sum l, unnormalised acc); the
+    partials merge in split order by log-sum-exp.  A split with no live
+    position has m = -inf, l = 0 and weight 0, so a row of length 0 gets 0,
+    as the Pallas kernel gives (the dense ``grouped_decode_ref`` gives the
+    mean of V there).  Same arguments as ``grouped_decode_ref``."""
+    b, _, h, hd = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    qg = q.float().reshape(b, kh, h // kh, hd) * scale
+    lengths = lengths.to(q.device).clamp(0, s)
+    parts = []
+    for i in range(n_split):
+        lo, hi = i * chunk, min(s, (i + 1) * chunk)
+        sc = torch.einsum("bkgd,bskd->bkgs", qg, k[:, lo:hi].float())
+        live = (torch.arange(lo, hi, device=q.device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        sc = torch.where(live, sc, -torch.inf)
+        m = sc.amax(-1)
+        p = torch.where(live, torch.exp(sc - m.nan_to_num(neginf=0.0)[..., None]),
+                        0.0)
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgs,bskd->bkgd", p, v[:, lo:hi].float())))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    l_tot = torch.zeros_like(big)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l_i, a_i in parts:
+        w = torch.where(l_i > 0, torch.exp(m - big), 0.0)
+        l_tot = l_tot + w * l_i
+        acc = acc + w[..., None] * a_i
+    out = torch.where(l_tot[..., None] > 0,
+                      acc / l_tot.clamp(min=1e-30)[..., None], 0.0)
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 

@@ -171,3 +171,60 @@ def test_ops_dispatch_by_device():
     with pytest.raises(ValueError, match="no path"):
         tops.grouped_decode(q[:, :1].to("meta"), k.to("meta"), k.to("meta"),
                             torch.ones((1,), dtype=torch.int32))
+
+
+# ------------------------------------------------------ K2's split plan
+@pytest.mark.parametrize("s_max,b,kh", [
+    (1024, 8, 8),        # llama3.2-1b decode step: 64 (row, KV head) pairs
+    (1024, 8, 16),       # qwen2-moe-a2.7b: 128 pairs
+    (1024, 8, 2),        # qwen2-0.5b
+    (1000, 3, 2),        # S_max not a multiple of the tile
+    (64, 1, 1),          # one tile
+    (5, 2, 2),           # shorter than a tile
+    (512, 64, 16),       # more pairs than blocks wanted: one split
+    (131072, 1, 1),      # a long cache
+])
+def test_split_plan_covers_the_cache_once(s_max, b, kh):
+    n_split, chunk = tdecode.split_plan(s_max, b, kh)
+    assert n_split >= 1 and chunk % tdecode.SPLIT_TILE == 0
+    covered = np.zeros(s_max, np.int32)
+    for i in range(n_split):
+        lo, hi = i * chunk, min(s_max, (i + 1) * chunk)
+        assert lo < hi                        # no split is empty by shape
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    target = tdecode.BLOCKS_PER_SM * tdecode.H100_SMS
+    assert n_split == 1 or n_split * b * kh <= 1.5 * target
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,lengths", [
+    (2, 256, 8, 2, 16, [100, 256]),         # G = 4, S_max in full
+    (3, 200, 14, 2, 32, [0, 1, 129]),       # G = 7, lengths 0 and 1
+    (2, 192, 4, 4, 64, [63, 65]),           # split boundary -1, +1
+    (2, 100, 16, 1, 16, [64, 99]),          # G = 16
+])
+def test_split_ref_matches_dense_and_pallas(b, s, h, kh, d, lengths):
+    """K2's split-and-merge arithmetic, on the split plan, against the dense
+    plain version (rows with live positions) and the reference's Pallas
+    kernel in interpret mode on the head-expanded (BH, 1, D) form (every
+    row, length 0 included: both give 0 there)."""
+    q, k, v = rand((b, 1, h, d), 13), rand((b, s, kh, d), 14), rand((b, s, kh, d), 15)
+    lens = np.array(lengths, np.int32)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    n_split, chunk = tdecode.split_plan(s, b, kh)
+    assert n_split > 1
+    o = tref.grouped_decode_split_ref(tq, tk, tv, torch.from_numpy(lens),
+                                      n_split=n_split, chunk=chunk)
+    dense = tref.grouped_decode_ref(tq, tk, tv, torch.from_numpy(lens))
+    live = lens > 0
+    assert (o - dense)[live].abs().max().item() < 2e-5
+    assert (o[~live] == 0).all()
+    g = h // kh
+    qf = q.transpose(0, 2, 1, 3).reshape(b * h, 1, d)
+    kf = np.repeat(k.transpose(0, 2, 1, 3), g, axis=1).reshape(b * h, s, d)
+    vf = np.repeat(v.transpose(0, 2, 1, 3), g, axis=1).reshape(b * h, s, d)
+    r = jops.decode_attention(jnp.asarray(qf), jnp.asarray(kf), jnp.asarray(vf),
+                              jnp.asarray(np.repeat(lens, h)),
+                              backend="interpret", block_k=s)
+    r = np.asarray(r).reshape(b, h, 1, d).transpose(0, 2, 1, 3)
+    assert np.max(np.abs(o.numpy() - r)) < 2e-5

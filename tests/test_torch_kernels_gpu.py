@@ -44,6 +44,12 @@ def _randn(shape, dtype, device, seed):
     (2, 64, 256, 4, 4, 32, False, 0),       # non-causal, Sq != Sk
     (3, 128, 128, 3, 3, 16, True, 0),
     (1, 512, 512, 1, 1, 128, True, 0),
+    (8, 256, 256, 16, 16, 128, True, 0),    # qwen2-moe-a2.7b prefill
+    (2, 64, 200, 8, 2, 64, True, 48),       # one 64-row tile, Sq != Sk, window
+    (1, 500, 500, 14, 2, 128, True, 0),     # ragged, G = 7, hd 128
+    (2, 100, 300, 4, 2, 32, False, 0),      # non-causal, ragged Sq != Sk
+    (2, 200, 200, 4, 1, 16, True, 64),      # hd 16, window
+    (1, 300, 300, 14, 2, 32, True, 100),    # G = 7, window
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kh, hd,
                                     causal, window):
@@ -79,6 +85,58 @@ def test_decode_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, lengths):
     assert kdecode.launches.count == n + 1
     want = ref.grouped_decode_ref(q, k, v, lens)
     assert (out.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+def _edge_lengths(s, b, kh):
+    """0, 1, the first split boundary -1, 0, +1, and S_max, cycled over the
+    batch rows."""
+    _, chunk = kdecode.split_plan(s, b, kh)
+    edge = [0, 1, chunk - 1, chunk, chunk + 1, s]
+    return [min(s, edge[i % len(edge)]) for i in range(b)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh,hd", [
+    (8, 1024, 16, 16, 128),     # qwen2-moe-a2.7b decode, G = 1
+    (8, 1024, 32, 8, 64),       # llama3.2-1b, G = 4
+    (6, 1024, 14, 2, 64),       # qwen2-0.5b, G = 7
+    (6, 512, 32, 2, 64),        # G = 16 (MAX_GROUP)
+    (6, 512, 16, 1, 128),       # G = 16, hd 128
+    (6, 700, 8, 2, 32),         # S_max not a multiple of the tile
+    (6, 256, 8, 8, 16),         # hd 16
+])
+def test_decode_kernel_split_edges(cuda, dtype, b, s, h, kh, hd):
+    """Lengths at the split plan's edges.  A row of length 0 gets 0, as the
+    Pallas kernel gives; the dense plain version gives the mean of V there,
+    so those rows are held to 0 instead."""
+    q = _randn((b, 1, h, hd), dtype, cuda, 13)
+    k = _randn((b, s, kh, hd), dtype, cuda, 14)
+    v = _randn((b, s, kh, hd), dtype, cuda, 15)
+    lens = torch.tensor(_edge_lengths(s, b, kh), dtype=torch.int32, device=cuda)
+    out = kdecode.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    want = ref.grouped_decode_ref(q, k, v, lens)
+    live = lens > 0
+    assert (out.float() - want.float())[live].abs().max().item() < TOL[dtype]
+    assert (out[~live] == 0).all()
+
+
+def test_decode_kernel_is_deterministic_and_leaves_counters_zero(cuda):
+    """Two back-to-back calls on one stream give bit-identical outputs: the
+    arrival counters are back at 0 after each call, and the last block
+    merges the splits in split order, whichever block it is."""
+    b, s, h, kh, hd = 8, 1024, 32, 8, 64
+    q = _randn((b, 1, h, hd), torch.bfloat16, cuda, 16)
+    k = _randn((b, s, kh, hd), torch.bfloat16, cuda, 17)
+    v = _randn((b, s, kh, hd), torch.bfloat16, cuda, 18)
+    lens = torch.tensor([700, 1, 1024, 129, 128, 127, 500, 64],
+                        dtype=torch.int32, device=cuda)
+    first = kdecode.decode_attention(q, k, v, lens)
+    second = kdecode.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not kdecode._counter_buffer(q.device, stream, b * kh).any()
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
