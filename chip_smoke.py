@@ -11,7 +11,9 @@ against its plain PyTorch version.  Phases, each printed on its own line
 and each fatal:
 
 1. device   -- the card's name and power limit, compute capability 9.0
-2. build    -- compile the CUDA kernels from ``src/repro_torch/csrc``
+2. build    -- compile the CUDA kernels from ``src/repro_torch/csrc``;
+               ptxas must report no spill in the mLSTM scan, and its
+               tensor-core kernels' SASS must hold HGMMA (cuobjdump)
 3. kernels  -- each kernel against its plain version over the serving
                shapes and the reference test shapes: attention (K1, K2)
                float32 to 1e-4 and bfloat16 to 3e-2; the MoE router (K4)
@@ -20,9 +22,12 @@ and each fatal:
                CUDA-event times of back-to-back calls of the kernel, the
                plain version and (for attention) one library call, and the
                kernel's own device time from the profiler (K1 and K2: each
-               call is one launch, and no other kernel runs), beside the
+               call is one launch, and no other kernel runs; K3: the sum
+               over the one to three launches of its plan), beside the
                kernel's bound;
-               K1 and K2 at llama3.2-1b's and qwen2-moe-a2.7b's shapes
+               K1 and K2 at llama3.2-1b's and qwen2-moe-a2.7b's shapes, K3
+               at xlstm-350m's admission and bulk-prefill shapes under
+               both of its plans (single pass, chunk-parallel)
 4. model    -- float32, kernel path against the plain path (logits to
                1e-3, greedy tokens identical) over prefill_batch on ragged
                prompts and 8 decode steps: llama3.2-1b and xlstm-350m at
@@ -33,7 +38,9 @@ and each fatal:
                each of the three (qwen2-moe at capacity factor 64, where no
                expert overflows; xlstm on a prompt of one whole length
                bucket, so no pad token enters its state)
-6. serving  -- per model, at full width and depth in bfloat16: 8
+6. serving  -- per model, at full width and depth in bfloat16 (xlstm-350m
+               first prints its prefill_batch logits, kernel path against
+               plain path, as max abs error): 8
                time-sensitive requests and 2 background bulk prefills under
                UFS; every request must finish, and the kernels of that path
                must have been launched on it (counts set to 0 just before)
@@ -48,6 +55,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +73,30 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 ROUTER_TOL = 1e-6                  # weights; indices must be identical
 SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}   # bf16: x max(1, |ref|)
 MODEL_TOL = 1e-3
+
+
+def check_scan_build(build, built) -> None:
+    """ptxas reports no spill in the mLSTM scan (when this run built it),
+    and its bf16 kernels' SASS holds tensor-core instructions (HGMMA)."""
+    path, _, log_ = built["mlstm_scan"]
+    spills = [ln.strip() for ln in log_.splitlines()
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    hgmma, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            hgmma[name] = 0
+        elif name and "HGMMA" in ln:
+            hgmma[name] += 1
+    wgmma = {n: c for n, c in hgmma.items() if "mlstm_wgmma_kernel" in n}
+    log("build.mlstm_scan", spill_lines=spills, hgmma_per_kernel=wgmma,
+        built_here=bool(log_))
+    if spills or not wgmma or not all(wgmma.values()):
+        raise AssertionError(f"mlstm_scan: spills {spills}, HGMMA {hgmma}")
 
 
 def log(phase: str, **fields) -> None:
@@ -92,6 +124,27 @@ def cuda_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled(fn, kernel: str, iters: int):
+    """A profiler window over ``iters`` calls of ``fn`` (after one call
+    outside it).  The profiler can lose a whole window's device events, so
+    up to three windows are tried until one holds a launch of ``kernel``;
+    the callers check what the window holds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA and e.count and kernel in e.key
+               for e in prof.key_averages()):
+            break
+    return prof
+
+
 def device_ms(fn, kernel: str, iters: int = 20, alone: bool = False) -> float:
     """Mean device time of one launch of the CUDA kernel whose name contains
     ``kernel``, from a profiler window over ``iters`` calls of ``fn``: the
@@ -101,13 +154,7 @@ def device_ms(fn, kernel: str, iters: int = 20, alone: bool = False) -> float:
     drop an event); with ``alone``, no other kernel may run in it, so each
     call is that one launch."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(fn, kernel, iters)
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.count]
     mine = [e for e in rows if kernel in e.key]
@@ -119,6 +166,48 @@ def device_ms(fn, kernel: str, iters: int = 20, alone: bool = False) -> float:
     if alone and others:
         raise AssertionError(f"calls of {kernel} also ran {others}")
     return sum(e.self_device_time_total for e in mine) / count / 1e3
+
+
+def device_ms_per_call(fn, kernel: str, iters: int = 5,
+                       max_per_call: int = 3) -> tuple:
+    """Device time of one call of ``fn`` summed over the launches of every
+    CUDA kernel whose name contains ``kernel``, those launches per call,
+    and each such kernel's grid, from a profiler window over ``iters``
+    calls.  Each kernel name counts its mean time a launch times its
+    launches a call (rounded, as the profiler can drop an event); a call
+    must launch one to ``max_per_call`` of them."""
+    from torch.autograd import DeviceType
+    prof = profiled(fn, kernel, iters)
+    mine = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count and kernel in e.key]
+    per_call = {e.key: round(e.count / iters) for e in mine}
+    n = sum(per_call.values())
+    if not 0 < n <= max_per_call:
+        raise AssertionError(f"profiler saw {per_call} launches of {kernel} "
+                             f"a call in {iters} calls")
+    ms = sum(e.self_device_time_total / e.count * per_call[e.key]
+             for e in mine) / 1e3
+    return ms, n, kernel_grids(prof, kernel)
+
+
+def kernel_grids(prof, kernel: str) -> dict:
+    """The launch grid of each kernel whose name contains ``kernel``, as
+    the profiler's trace of the device records it: {short name: [x, y, z]}.
+    """
+    path = ROOT / "build" / "profile_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    grids = {}
+    for e in events:
+        name, grid = e.get("name", ""), e.get("args", {}).get("grid")
+        if str(e.get("cat")).lower() == "kernel" and kernel in name and grid:
+            grids[name[name.index(kernel):].split("(")[0]] = grid
+    if not grids:
+        raise AssertionError(f"the profiler's trace holds no {kernel} launch "
+                             "with a grid")
+    return grids
 
 
 def free_device_memory() -> None:
@@ -327,14 +416,14 @@ def router_bound_ms(logits, top_k: int) -> tuple:
 def scan_bound_ms(q, v) -> tuple:
     """q, k, v read once, out written once, the two float32 gates read
     once; 4 dk dv operations a step for q C and the update of C, at the
-    float32 rate: the reference carries the state in float32."""
+    peak rate of the inputs' type (bf16 tensor cores, float32 CUDA cores)."""
     bh, s, dk = q.shape
     dv = v.shape[-1]
     es = q.element_size()
     nbytes = (2 * q.numel() + 2 * v.numel()) * es + 2 * bh * s * 4
     ops = 4 * bh * s * dk * dv
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -397,8 +486,10 @@ def router_scan_phase(ref, kmoe, kscan) -> dict:
         worst_s[str(dt).replace("torch.", "")] = worst
     torch.cuda.synchronize()
     log("kernels.parity.k3k4", cases_router=n_router,
-        shapes_scan=len(scan_shapes), chunk_len={dk: kscan.chunk_len(dk)
-                                                 for dk in (16, 32, 64, 512)},
+        shapes_scan=len(scan_shapes),
+        chunk_len_f32={dk: kscan.chunk_len(dk) for dk in (16, 32, 64, 512)},
+        plans_bf16={str(sh[:4]): kscan.scan_plan(*sh[:4]).design
+                    for sh in scan_shapes},
         max_abs_err={"moe_topk": worst_w, "mlstm_scan": worst_s},
         tolerance={"moe_topk": "indices identical, weights 1e-6",
                    "mlstm_scan": "float32 1e-3, bfloat16 3e-2 x max(1, |ref|)"})
@@ -425,15 +516,30 @@ def router_scan_phase(ref, kmoe, kscan) -> dict:
     router["shape"] = "T=8 (decode; _prefill: T=2048) E=64 k=4 n_valid=60 bf16"
     router["library_ms"] = None
 
+    # K3 under its own plan ("ms", "device_ms") and under each plan forced
+    # ("*_single", "*_chunk_parallel"), at both shapes.
     scan = {}
     for tag, (bh, s) in (("", (32, 256)), ("_bulk", (4, 500))):
         q, k, v, logf, i = scan_inputs(bh, s, 512, 512, dt, 400 + s)
-        scan["ms" + tag] = cuda_ms(lambda: kscan.mlstm_scan(q, k, v, logf, i),
-                                   iters=20, warmup=3)
+        own = kscan.scan_plan(bh, s, 512, 512)
+        scan["plan" + tag] = own.design
+        for design in ("single", "chunk_parallel"):
+            call = (lambda design=design: kscan.mlstm_scan(q, k, v, logf, i,
+                                                           design=design))
+            scan[f"ms{tag}_{design}"] = cuda_ms(call, iters=20, warmup=3)
+            (scan[f"device_ms{tag}_{design}"],
+             scan[f"launches_per_call{tag}_{design}"],
+             scan[f"grid{tag}_{design}"]) = device_ms_per_call(call, "mlstm_")
+            got = call()
+            want = ref.mlstm_chunkwise_ref(q, k, v, logf, i)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err < SCAN_TOL[dt] * max(1.0, want.float().abs().max().item()):
+                raise AssertionError(f"mlstm_scan {design} at BH={bh} S={s}: "
+                                     f"max err {err}")
+        for key in ("ms", "device_ms", "launches_per_call", "grid"):
+            scan[key + tag] = scan[f"{key}{tag}_{own.design}"]
         scan["plain_ms" + tag] = cuda_ms(
             lambda: ref.mlstm_chunkwise_ref(q, k, v, logf, i), iters=20, warmup=3)
-        scan["device_ms" + tag] = device_ms(
-            lambda: kscan.mlstm_scan(q, k, v, logf, i), "mlstm_kernel", iters=5)
         b, by = scan_bound_ms(q, v)
         scan["bound_ms" + tag] = b
         if not tag:
@@ -441,8 +547,16 @@ def router_scan_phase(ref, kmoe, kscan) -> dict:
             got = kscan.mlstm_scan(q, k, v, logf, i)
             want = ref.mlstm_chunkwise_ref(q, k, v, logf, i)
             scan["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+    # At the bulk shape the chunk-parallel design's (a) local states and (c)
+    # outputs each launch at least 128 blocks, by the traced grids.
+    blocks = {n: int(np.prod(g))
+              for n, g in scan["grid_bulk_chunk_parallel"].items()
+              if "wgmma" in n}
+    if len(blocks) != 2 or min(blocks.values()) < 128:
+        raise AssertionError(f"mlstm_scan chunk-parallel at the bulk shape "
+                             f"launched {blocks} blocks")
     scan["shape"] = ("BH=32 S=256 dk=dv=512 (B=8 H=4 admission; _bulk: BH=4 "
-                     "S=500) bf16")
+                     "S=500, B=1 bulk prefill) bf16")
     scan["library_ms"] = None
     torch.cuda.synchronize()
     for name, d in (("moe_topk", router), ("mlstm_scan", scan)):
@@ -544,6 +658,43 @@ def engine_phase(model, params, build_kernel, InferenceEngine, Request,
 
 
 # ---------------------------------------------------------------- phase 6
+def bf16_prefill_phase(model, params, ops, ref, vocab: int) -> None:
+    """bfloat16 prefill_batch of 8 ragged prompts at full width and depth,
+    kernel path against plain path: the logits' max abs error is printed
+    (the float32 check of phase 4 is the one held to a tolerance).  Beside
+    it, as the yardstick of what bfloat16 alone moves, both paths against
+    the plain path of a float32 copy of the model on the same weights."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import tree_map
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n in (64, 100, 128, 180, 200, 220, 240, 256)]
+    lengths = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros((len(prompts), int(lengths.max())), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    batch = {"tokens": toks, "lengths": lengths}
+    lk, _ = model.prefill_batch(params, batch, 256)
+    with plain_kernels(ops, ref):
+        lp, _ = model.prefill_batch(params, batch, 256)
+    model32 = Model(dataclasses.replace(model.cfg, dtype="float32"),
+                    device="cuda")
+    params32 = tree_map(lambda t: t.float(), params)
+    with plain_kernels(ops, ref):
+        l32, _ = model32.prefill_batch(params32, batch, 256)
+    del model32, params32
+    lk, lp = lk.float(), lp.float()
+    finite = bool(torch.isfinite(lk).all())
+    log("model.bf16_prefill", arch=model.cfg.name, dtype="bfloat16",
+        logits_shape=list(lk.shape), max_abs_err=(lk - lp).abs().max().item(),
+        max_abs_plain=lp.abs().max().item(),
+        kernel_vs_float32_plain=(lk - l32).abs().max().item(),
+        plain_vs_float32_plain=(lp - l32).abs().max().item(), finite=finite)
+    if not finite:
+        raise AssertionError(f"{model.cfg.name}: bf16 prefill_batch logits "
+                             "are not finite")
+
+
 def pct(xs, p: float) -> float:
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
@@ -650,6 +801,7 @@ def main() -> int:
              for name, (_, _, log_) in built.items()}
     log("build", seconds=time.monotonic() - t0,
         per_source={n: s for n, (_, s, _) in built.items()}, ptxas=ptxas)
+    check_scan_build(build, built)
 
     t0 = time.monotonic()
     timed = kernel_phase(ref, kflash, kdecode)
@@ -694,6 +846,8 @@ def main() -> int:
         t0 = time.monotonic()
         model = Model(cfg, device="cuda")
         params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        if cfg.ssm is not None:
+            bf16_prefill_phase(model, params, ops, ref, cfg.vocab_size)
         by_path[name] = serving_phase(model, params, core, InferenceEngine,
                                       Request, counters, required,
                                       cfg.vocab_size)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 its own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
 checkout's ``build/kernels/`` directory, which ``.gitignore`` lists.  A
 library's file name carries a hash of its source and the compiler flags, so
-an edited source is rebuilt and an unchanged one is reused.  All missing
+an edited source is rebuilt and an unchanged one is reused; extra flags
+(a diagnostic build's ``-D``) give a library of their own.  All missing
 libraries are compiled in parallel, one ``nvcc`` process per source.
 
 Serving threads may race to a kernel's first use, so the build runs under a
@@ -61,15 +62,16 @@ def nvcc_path() -> str:
         "compiled at first use and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, flags: tuple = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=None) -> dict:
+def build(names=None, flags: tuple = ()) -> dict:
     """Compile every library in ``names`` (default: every ``csrc/*.cu``)
-    that is not built yet, all at once.  Returns ``{name: (path, seconds,
+    that is not built yet, all at once, with ``flags`` added to
+    ``NVCC_FLAGS``.  Returns ``{name: (path, seconds,
     compiler_log)}``; a library that was already built reports 0 seconds
     and an empty log.  Raises ``RuntimeError`` with the compiler's output
     if a build fails."""
@@ -80,20 +82,21 @@ def build(names=None) -> dict:
         with open(BUILD_DIR / "lock", "w") as lockf:
             fcntl.flock(lockf, fcntl.LOCK_EX)
             try:
-                return _build_locked(names)
+                return _build_locked(names, tuple(flags))
             finally:
                 fcntl.flock(lockf, fcntl.LOCK_UN)
 
 
-def _build_locked(names) -> dict:
+def _build_locked(names, flags: tuple) -> dict:
     out, procs = {}, {}
     for name in names:
-        path = _lib_path(name)
+        path = _lib_path(name, flags)
         if path.exists():
             out[name] = (path, 0.0, "")
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        path, tmp, time.perf_counter())
@@ -111,13 +114,14 @@ def _build_locked(names) -> dict:
     return out
 
 
-def function(lib: str, symbol: str, argtypes: list):
-    """The C entry point ``symbol`` of library ``lib``, building and loading
-    the library on first use.  Its result is a ``cudaError_t`` as int."""
-    key = (lib, symbol)
+def function(lib: str, symbol: str, argtypes: list, flags: tuple = ()):
+    """The C entry point ``symbol`` of library ``lib`` (built with the
+    extra ``flags``), building and loading the library on first use.  Its
+    result is a ``cudaError_t`` as int."""
+    key = (lib, symbol, tuple(flags))
     fn = _libs.get(key)
     if fn is None:
-        path, _, _ = build((lib,))[lib]
+        path, _, _ = build((lib,), flags)[lib]
         with _lock:
             fn = getattr(ctypes.CDLL(str(path)), symbol)
             fn.argtypes = argtypes

@@ -1,12 +1,24 @@
-"""Chunkwise mLSTM scan -- the Hopper kernel's wrapper.
+"""Chunkwise mLSTM scan -- the Hopper kernels' wrapper.
 
-The kernel is ``csrc/mlstm_scan.cu``, hand-written CUDA C++ for ``sm_90a``.
-It replaces the reference package's Pallas TPU kernel ``mlstm_scan_pallas``
-(kernels/mlstm_scan.py): the mLSTM/SSD recurrence with a float32 matrix
-state ``C`` (dk x dv) and normaliser ``n`` (dk), evaluated a chunk at a
-time.  The TPU kernel keeps the whole of ``C`` in VMEM; here each block
-keeps a 64-column slice of it in shared memory, so the grid is (BH,
-ceil(dv / 64)), and the chunk length is chosen by the kernel from dk.
+The kernels are in ``csrc/mlstm_scan.cu``, hand-written CUDA C++ for
+``sm_90a``.  They replace the reference package's Pallas TPU kernel
+``mlstm_scan_pallas`` (kernels/mlstm_scan.py): the mLSTM/SSD recurrence with
+a float32 matrix state ``C`` (dk x dv) and normaliser ``n`` (dk), evaluated a
+chunk at a time.  The TPU kernel keeps the whole of ``C`` in VMEM; here a
+block owns 64 of its value columns.
+
+* bfloat16 runs on the tensor cores (``wgmma``) in chunks of 64 steps, by
+  the plan ``scan_plan`` draws from the shapes alone: a **single pass**
+  (grid (BH, dv / 64), each block walks every chunk with its slice of ``C``
+  in registers), or, for a few row-heads over many chunks,
+  **chunk-parallel** (each chunk's own state, then one pass in chunk order
+  over those states in float32 scratch, then every chunk's output in
+  parallel: three launches).
+  ``ref.mlstm_chunk_parallel_ref`` is the chunk-parallel arithmetic in plain
+  PyTorch.
+* float32 runs the first design, on the CUDA cores: one launch, chunk
+  length from dk (``chunk_len``).
+
 Unlike the Pallas kernel it takes any sequence length.  What bounds it on
 the card is written at the top of the CUDA source.  The plain version is
 ``ref.mlstm_chunkwise_ref``.
@@ -14,48 +26,119 @@ the card is written at the top of the CUDA source.  The plain version is
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DESIGNS = {"single": 0, "chunk_parallel": 1}
+CHUNK = 64          # steps a chunk of the bfloat16 kernels (one m64 tile)
+COLS = 64           # value columns a block
+MAX_DK = 512        # the bfloat16 kernels' largest head dim (8 tiles of 64)
+# Where chunk-parallel is the faster design: at most this many single-pass
+# blocks, at least this many chunks, and at most this much float32 scratch.
+CP_MAX_BLOCKS = 32
+CP_MIN_CHUNKS = 4
+CP_MAX_SCRATCH = 64 << 20
 
 launches = build.LaunchCounter()
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_int,
-                                           ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+             + [ctypes.c_longlong] * 10
+             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+class ScanPlan(NamedTuple):
+    """How the bfloat16 scan runs: ``design`` is ``"single"`` or
+    ``"chunk_parallel"``; chunk ``c`` covers steps ``[c * chunk, min(s, (c +
+    1) * chunk))`` of ``n_chunks``; a block owns ``cols`` value columns."""
+    design: str
+    chunk: int
+    cols: int
+    n_chunks: int
+
+
+def scan_plan(bh: int, s: int, dk: int, dv: int, *,
+              design: str | None = None) -> ScanPlan:
+    """The plan for a (BH, S, dk) x (BH, S, dv) bfloat16 scan.  The single
+    pass keeps one block for each of the ``bh * ceil(dv / 64)`` column
+    slices and walks the chunks in order; the chunk-parallel design writes,
+    carries and reads back ``(n_chunks - 1) * bh * dk * dv`` floats of
+    chunk states to run the chunks side by side.  Timed on the H100 at dk =
+    dv = 512 over BH 1-32 and S 128-2048, chunk-parallel was faster only at
+    BH <= 4 (32 blocks) with 4 chunks or more (1.6-4.6x at BH 1-2, 1.0-1.3x
+    at BH 4), and 1.3-3.8x slower from BH 8 (64 blocks) on, so it is picked
+    there while its scratch is at most ``CP_MAX_SCRATCH`` bytes.  ``design``
+    forces one (the tests hold the two against each other).  Depends on
+    shapes only."""
+    n_chunks = max(1, -(-s // CHUNK))
+    if design is None:
+        scratch = (n_chunks - 1) * bh * dk * dv * 4
+        few = (bh * -(-dv // COLS) <= CP_MAX_BLOCKS
+               and n_chunks >= CP_MIN_CHUNKS and scratch <= CP_MAX_SCRATCH)
+        design = "chunk_parallel" if few else "single"
+    if design not in DESIGNS:
+        raise ValueError(f"mlstm_scan: no design {design!r}")
+    return ScanPlan(design, CHUNK, COLS, n_chunks)
 
 
 def chunk_len(dk: int) -> int:
-    """The chunk length the kernel uses at head dim ``dk`` (0: no fit)."""
+    """The chunk length the float32 kernel uses at head dim ``dk`` (0: no
+    fit); the bfloat16 kernels use ``CHUNK``."""
     return build.function("mlstm_scan", "mlstm_scan_chunk", [ctypes.c_int])(dk)
 
 
-def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
+def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None,
+               design: str | None = None):
     """q, k: (BH, S, dk); v: (BH, S, dv), CUDA tensors of one type, float32
     or bfloat16, feature dim contiguous; logf, i: (BH, S) gates (cast to
-    float32).  Returns h (BH, S, dv) in q's type."""
+    float32).  Returns h (BH, S, dv) in q's type.  bfloat16 runs
+    ``scan_plan`` of the shapes, with ``design`` forced if given; float32
+    has the single pass only."""
+    out = run(q, k, v, logf, i, scale=scale, design=design)
+    launches.add()
+    return out
+
+
+def run(q, k, v, logf, i, *, scale: float | None = None,
+        design: str | None = None, flags: tuple = ()):
+    """``mlstm_scan`` on the library built with the extra nvcc ``flags``
+    (a diagnostic build), without counting a launch."""
     _check(q, k, v, logf, i)
     bh, s, dk = q.shape
     dv = v.shape[-1]
     scale = dk ** -0.5 if scale is None else scale
     logf = logf.float().contiguous()
     i = i.float().contiguous()
-    if chunk_len(dk) == 0:
-        raise ValueError(f"mlstm_scan: head dim {dk} leaves no room for a "
-                         "chunk beside the state slice in shared memory")
     out = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
-    fn = build.function("mlstm_scan", "mlstm_scan_fwd", _ARGTYPES)
+    scratch = [None, None, None]
+    if q.dtype == torch.float32:
+        if design not in (None, "single"):
+            raise ValueError("mlstm_scan: float32 runs the single-pass "
+                             "CUDA-core kernel only")
+        if chunk_len(dk) == 0:
+            raise ValueError(f"mlstm_scan: head dim {dk} leaves no room for "
+                             "a chunk beside the state slice in shared memory")
+        design, chunk = 0, 0
+    else:
+        plan = scan_plan(bh, s, dk, dv, design=design)
+        design, chunk = DESIGNS[plan.design], plan.chunk
+        if design and plan.n_chunks > 1:
+            slots = (plan.n_chunks - 1) * bh
+            scratch = [torch.empty(n, dtype=torch.float32, device=q.device)
+                       for n in (slots * dk * dv, slots * dk, slots)]
+    fn = build.function("mlstm_scan", "mlstm_scan_fwd", _ARGTYPES, flags)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), logf.data_ptr(),
-             i.data_ptr(), out.data_ptr(), bh, s, dk, dv,
+             i.data_ptr(), out.data_ptr(),
+             *(0 if t is None else t.data_ptr() for t in scratch),
+             bh, s, dk, dv,
              q.stride(0), q.stride(1), k.stride(0), k.stride(1),
              v.stride(0), v.stride(1), logf.stride(0), i.stride(0),
              out.stride(0), out.stride(1), float(scale), DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             design, chunk, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "mlstm_scan")
-    launches.add()
     return out
 
 
@@ -74,11 +157,22 @@ def _check(q, k, v, logf, i) -> None:
             raise ValueError(f"mlstm_scan: {name} must be 3-D (BH, S, D) "
                              f"with a contiguous last dim, got {tuple(t.shape)}")
     bh, s, dk = q.shape
+    dv = v.shape[-1]
     if k.shape != q.shape or v.shape[:2] != (bh, s):
         raise ValueError(f"mlstm_scan: q {tuple(q.shape)}, k {tuple(k.shape)}"
                          f" and v {tuple(v.shape)} do not match")
     if dk % 4:
         raise ValueError(f"mlstm_scan: head dim {dk} is not a multiple of 4")
+    if q.dtype == torch.bfloat16:
+        if dk % 8 or dv % 8 or dk > MAX_DK:
+            raise ValueError(f"mlstm_scan: bfloat16 takes dk and dv that are "
+                             f"multiples of 8 and dk <= {MAX_DK}, got dk {dk}"
+                             f" and dv {dv}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if not build.aligned16(t):
+                raise ValueError(f"mlstm_scan: bfloat16 {name} is copied in "
+                                 "16-byte chunks and must be 16-byte aligned,"
+                                 " with strides that keep every row so")
     for name, t in (("logf", logf), ("i", i)):
         if tuple(t.shape) != (bh, s):
             raise ValueError(f"mlstm_scan: {name} must be (BH, S) = "

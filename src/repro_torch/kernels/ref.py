@@ -8,9 +8,9 @@ kernel is held against.
   package's (BH, S, D) signatures through them; ``grouped_decode_split_ref``
   is K2's split-and-merge arithmetic, for the tests;
 * ``moe_topk_ref`` -- the MoE router (K4);
-* ``mlstm_chunkwise_ref`` -- the chunkwise mLSTM scan (K3), and
-  ``mlstm_scan_ref``, the step-by-step recurrence both chunkwise forms are
-  tested against.
+* ``mlstm_chunkwise_ref`` -- the chunkwise mLSTM scan (K3);
+  ``mlstm_chunk_parallel_ref``, the arithmetic of K3's chunk-parallel plan,
+  and ``mlstm_scan_ref``, the step-by-step recurrence, for the tests.
 """
 from __future__ import annotations
 
@@ -198,3 +198,53 @@ def mlstm_chunkwise_ref(q, k, v, logf, i, *, scale: float | None = None,
         c = total.exp()[:, None, None] * c + (kb * w[..., None]).transpose(1, 2) @ vb
         n = total.exp()[:, None] * n + (w[:, None, :] @ kb)[:, 0]
     return torch.cat(hs, dim=1)[:, :s].to(q.dtype)
+
+
+def mlstm_chunk_parallel_ref(q, k, v, logf, i, *, scale: float | None = None,
+                             chunk: int = 64):
+    """K3's chunk-parallel plan in plain PyTorch, float32 (tests only): (a)
+    every chunk's own state ``dC = (k o w)^T v``, ``dn = w^T k`` with ``w =
+    i exp(total - la)``, all chunks at once; (b) one pass in chunk order,
+    ``C_{c+1} = exp(total_c) C_c + dC_c``, giving the state each chunk
+    starts from; (c) every chunk's output from its starting state, all at
+    once, as ``mlstm_chunkwise_ref`` computes it.  Any S, padded as there.
+    Same arguments; returns h (BH, S, dv) in q's dtype."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    scale = scale if scale is not None else dk ** -0.5
+    nc = max(1, -(-s // chunk))
+    pad = nc * chunk - s
+
+    def tail(x):
+        x = x.float()
+        return torch.nn.functional.pad(x, (0, 0, 0, pad) if x.dim() == 3
+                                       else (0, pad))
+
+    qc = (tail(q) * scale).reshape(bh, nc, chunk, dk)
+    kc = tail(k).reshape(bh, nc, chunk, dk)
+    vc = tail(v).reshape(bh, nc, chunk, dv)
+    ic = tail(i).reshape(bh, nc, chunk)
+    la = torch.cumsum(tail(logf).reshape(bh, nc, chunk), dim=-1)
+    total = la[..., -1]                                       # (BH, nc)
+    # (a) local states
+    w = ic * (total[..., None] - la).exp()
+    d_c = (kc * w[..., None]).transpose(-1, -2) @ vc          # (BH, nc, dk, dv)
+    d_n = (w[..., None, :] @ kc)[..., 0, :]                   # (BH, nc, dk)
+    # (b) carried states: the state before chunk c
+    c_prev = torch.zeros((bh, nc, dk, dv), dtype=torch.float32, device=q.device)
+    n_prev = torch.zeros((bh, nc, dk), dtype=torch.float32, device=q.device)
+    for j in range(1, nc):
+        g = total[:, j - 1].exp()
+        c_prev[:, j] = g[:, None, None] * c_prev[:, j - 1] + d_c[:, j - 1]
+        n_prev[:, j] = g[:, None] * n_prev[:, j - 1] + d_n[:, j - 1]
+    # (c) outputs
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+    qd = qc * la.exp()[..., None]
+    inter = qd @ c_prev                                       # (BH, nc, L, dv)
+    n_inter = (qd @ n_prev[..., None])[..., 0]                # (BH, nc, L)
+    dmat = torch.where(causal, (la[..., :, None] - la[..., None, :]).exp()
+                       * ic[..., None, :], 0.0)
+    smat = (qc @ kc.transpose(-1, -2)) * dmat
+    den = (n_inter + smat.sum(-1)).abs().clamp(min=1.0)
+    h = (inter + smat @ vc) / den[..., None]
+    return h.reshape(bh, nc * chunk, dv)[:, :s].to(q.dtype)

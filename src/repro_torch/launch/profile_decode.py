@@ -6,8 +6,9 @@ Builds the model (``--arch``, default llama3.2-1b) at its published widths
 and depth in bfloat16 with random weights (seed 0) and random caches at the
 serving engine's largest batch (8 rows, 1024 positions, 700 live for
 attention caches; random recurrent states for xLSTM), then times
-``decode_step`` and ``prefill_batch`` (8 prompts of 256 tokens) as the
-engine calls them: host wall time per call (ending in a synchronize), and a
+``decode_step``, ``prefill_batch`` (8 prompts of 256 tokens) and the bulk
+prefill (``prefill`` of one 500-token prompt, as the engine runs a
+background request) as the engine calls them: host wall time per call (ending in a synchronize), and a
 ``torch.profiler`` window that gives the device's busy share and the
 device time by kernel.  MoE layers run at the reference's default capacity
 factors (1.25 for prefill, 2.0 for decode).  Prints one JSON line per
@@ -60,7 +61,7 @@ def _device_table(prof, n_calls: int, wall_ms: float, top: int) -> dict:
     }
 
 
-BATCH, MAX_LEN, LIVE, PROMPT_LEN = 8, 1024, 700, 256
+BATCH, MAX_LEN, LIVE, PROMPT_LEN, BULK_LEN = 8, 1024, 700, 256, 500
 ITERS, TOP = 20, 12
 
 
@@ -84,9 +85,12 @@ def main(argv=None) -> None:
     batch = {"tokens": rng.integers(0, cfg.vocab_size,
                                     (BATCH, PROMPT_LEN)).astype(np.int32),
              "lengths": np.full((BATCH,), PROMPT_LEN, np.int32)}
+    bulk = {"tokens": rng.integers(0, cfg.vocab_size,
+                                   (1, BULK_LEN)).astype(np.int32)}
     calls = {
         "decode_step": lambda: model.decode_step(params, caches, tok, LIVE),
         "prefill_batch": lambda: model.prefill_batch(params, batch, MAX_LEN),
+        "bulk_prefill": lambda: model.prefill(params, bulk, MAX_LEN),
     }
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,9 +1,11 @@
 """The port's kernel plain versions against the reference package's: the
 dense oracles in ``repro.kernels.ref``, the Pallas kernels run in interpret
-mode, and the reference's grouped attention helpers.  Same numpy inputs
+mode, and the reference's grouped attention helpers; K2's and K3's plans
+and the arithmetic of their split designs.  Same numpy inputs
 into both packages; float32 to 2e-5, bfloat16 to 3e-2 (the tolerances of
 tests/test_kernels.py).  The CUDA kernels themselves are held against these
 plain versions on the card (tests/test_torch_kernels_gpu.py)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import mlstm_scan as tscan
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -228,3 +231,124 @@ def test_split_ref_matches_dense_and_pallas(b, s, h, kh, d, lengths):
                               backend="interpret", block_k=s)
     r = np.asarray(r).reshape(b, h, 1, d).transpose(0, 2, 1, 3)
     assert np.max(np.abs(o.numpy() - r)) < 2e-5
+
+
+# -------------------------------------------------------- K3's scan plan
+@pytest.mark.parametrize("bh,s,dk,dv", [
+    (4, 500, 512, 512),      # xlstm-350m bulk prefill, B = 1
+    (32, 256, 512, 512),     # xlstm-350m admission, B = 8
+    (200, 256, 16, 64),      # hymba's SSD heads
+    (2, 256, 32, 32),
+    (3, 37, 32, 96),         # one ragged chunk, dv not a multiple of 64
+    (1, 1, 64, 64),
+    (1, 129, 128, 8),
+    (8, 1024, 512, 512),
+])
+def test_scan_plan_covers_the_sequence_and_columns_once(bh, s, dk, dv):
+    plan = tscan.scan_plan(bh, s, dk, dv)
+    steps = np.zeros(s, np.int32)
+    for c in range(plan.n_chunks):
+        lo, hi = c * plan.chunk, min(s, (c + 1) * plan.chunk)
+        assert lo < hi                        # no chunk is empty
+        steps[lo:hi] += 1
+    assert (steps == 1).all()
+    cols = np.zeros(dv, np.int32)
+    for y in range(-(-dv // plan.cols)):
+        cols[y * plan.cols:(y + 1) * plan.cols] += 1
+    assert (cols == 1).all()
+    few = (bh * -(-dv // plan.cols) <= tscan.CP_MAX_BLOCKS
+           and plan.n_chunks >= tscan.CP_MIN_CHUNKS
+           and (plan.n_chunks - 1) * bh * dk * dv * 4 <= tscan.CP_MAX_SCRATCH)
+    assert plan.design == ("chunk_parallel" if few else "single")
+
+
+def test_scan_plan_picks_chunk_parallel_for_bulk_prefill():
+    bulk = tscan.scan_plan(4, 500, 512, 512)
+    assert (bulk.design, bulk.chunk, bulk.n_chunks) == ("chunk_parallel", 64, 8)
+    assert 4 * (512 // bulk.cols) * (bulk.n_chunks - 1) >= 128   # (a) local
+    admit = tscan.scan_plan(32, 256, 512, 512)
+    assert (admit.design, admit.n_chunks) == ("single", 4)
+    assert tscan.scan_plan(4, 500, 512, 512, design="single").design == "single"
+    with pytest.raises(ValueError, match="no design"):
+        tscan.scan_plan(4, 500, 512, 512, design="sequential")
+
+
+@pytest.mark.parametrize("bh,s,design", [
+    # the faster design in the H100 timings of both (dk = dv = 512)
+    (1, 128, "single"), (1, 256, "chunk_parallel"), (2, 2048, "chunk_parallel"),
+    (4, 256, "chunk_parallel"), (8, 256, "single"), (8, 2048, "single"),
+    (16, 500, "single"), (16, 1024, "single"), (32, 2048, "single"),
+    (4, 4096, "single"),     # past the scratch cap, not timed
+])
+def test_scan_plan_follows_the_measured_crossover(bh, s, design):
+    assert tscan.scan_plan(bh, s, 512, 512).design == design
+
+
+def _scan_arrays(bh, s, dk, dv, seed):
+    q, k = rand((bh, s, dk), seed) * 0.5, rand((bh, s, dk), seed + 1) * 0.5
+    v = rand((bh, s, dv), seed + 2)
+    logf = np.array(jax.nn.log_sigmoid(rand((bh, s), seed + 3) + 2.0))
+    i = np.array(jax.nn.sigmoid(rand((bh, s), seed + 4)))
+    return q, k, v, logf, i
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,scale", [
+    (2, 256, 32, 32, None),
+    (3, 100, 16, 64, 1.0),       # ragged; hymba's scale
+    (1, 500, 16, 16, None),      # the bulk prefill's length
+    (2, 37, 32, 24, None),       # one ragged chunk
+    (1, 129, 8, 8, None),        # one step past two chunks
+])
+@pytest.mark.parametrize("against", ["chunkwise", "interpret"])
+def test_chunk_parallel_ref_matches_chunkwise_and_pallas(bh, s, dk, dv, scale,
+                                                         against):
+    """K3's chunk-parallel arithmetic (local states, one carried pass,
+    parallel outputs) against the chunkwise plain version and the Pallas
+    kernel in interpret mode, chunks of 64, float32.  The Pallas kernel
+    takes whole chunks only: its inputs are padded with logf = 0 and i = 0,
+    which is exact, and the padded rows are cut."""
+    arrs = _scan_arrays(bh, s, dk, dv, 40)
+    o = tref.mlstm_chunk_parallel_ref(*(torch.from_numpy(a) for a in arrs),
+                                      scale=scale, chunk=64)
+    assert o.shape == (bh, s, dv) and o.dtype == torch.float32
+    if against == "chunkwise":
+        r = tref.mlstm_chunkwise_ref(*(torch.from_numpy(a) for a in arrs),
+                                     scale=scale, chunk=64).numpy()
+    else:
+        pad = -s % 64
+        padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+                  for a in arrs]
+        r = np.asarray(jops.mlstm_scan(*(jnp.asarray(a) for a in padded),
+                                       chunk=64, scale=scale,
+                                       backend="interpret"))[:, :s]
+    assert np.max(np.abs(o.numpy() - r)) < 2e-5
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,scale", [
+    (2, 129, 16, 64, 1.0),       # hymba's head dims and scale, ragged
+    (1, 64, 32, 32, None),       # one whole chunk
+])
+def test_scan_study_emulation_unrounded_is_the_chunkwise_ref(bh, s, dk, dv,
+                                                             scale):
+    """scan_study's float32 emulation of the tensor-core arithmetic, with
+    no operand rounded, is the chunkwise plain version at chunks of 64."""
+    from repro_torch.launch import scan_study
+    q, k, v, logf, i = (torch.from_numpy(a)
+                        for a in _scan_arrays(bh, s, dk, dv, 50))
+    sc = dk ** -0.5 if scale is None else scale
+    got = scan_study.emulate(q, k, v, logf, i, sc, ())
+    want = tref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale, chunk=64)
+    assert got.shape == (bh, s, dv)
+    assert torch.max(torch.abs(got - want)).item() < 2e-5
+    rounded = scan_study.emulate(q, k, v, logf, i, sc, ("scores",))
+    assert 0 < torch.max(torch.abs(rounded - want)).item() < 3e-2
+
+
+def test_build_flags_give_a_library_of_their_own():
+    """A diagnostic build (-DMLSTM_STAMPS) never replaces the served
+    library: the flags are part of the hashed file name."""
+    from repro_torch.kernels import build
+    plain = build._lib_path("mlstm_scan")
+    stamped = build._lib_path("mlstm_scan", ("-DMLSTM_STAMPS",))
+    assert plain != stamped and plain.parent == stamped.parent
+    assert plain == build._lib_path("mlstm_scan", ())

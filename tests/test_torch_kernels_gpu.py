@@ -8,7 +8,7 @@ another order and uses the device ``exp``), bfloat16 to 3e-2.  Router:
 indices identical, weights to 1e-6.  mLSTM scan: float32 to 1e-3 (the
 reference's bound for chunkwise against the recurrence; kernel and plain
 version cut the sequence into chunks of different lengths), bfloat16 to
-3e-2 of max(1, max |plain|)."""
+3e-2 of max(1, max |plain|), under both of its plans."""
 import pytest
 import torch
 
@@ -211,3 +211,76 @@ def test_scan_kernel_matches_recurrence(cuda):
     out = kscan.mlstm_scan(q, k, v, logf, i)
     want = ref.mlstm_scan_ref(q, k, v, logf, i)
     assert (out - want).abs().max().item() < 1e-3
+
+
+def _scan_close(out, want):
+    tol = 3e-2 * max(1.0, want.float().abs().max().item())
+    return (out.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,scale", [
+    (32, 256, 512, 512, None),       # admission: single pass by plan
+    (4, 500, 512, 512, None),        # bulk prefill: chunk-parallel by plan
+    (200, 256, 16, 64, 1.0),         # hymba's SSD heads
+    (2, 129, 128, 64, None),
+    (3, 37, 32, 96, None),           # one chunk
+])
+def test_scan_kernel_plans_agree(cuda, bh, s, dk, dv, scale):
+    """The single pass and the chunk-parallel design, each forced, against
+    each other and the plain version in bfloat16; one launch counted a
+    call whatever runs."""
+    q, k, v, logf, i = _scan_inputs(bh, s, dk, dv, torch.bfloat16, cuda)
+    outs = {}
+    for design in ("single", "chunk_parallel"):
+        n = kscan.launches.count
+        outs[design] = kscan.mlstm_scan(q, k, v, logf, i, scale=scale,
+                                        design=design)
+        torch.cuda.synchronize()
+        assert kscan.launches.count == n + 1
+    want = ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale)
+    assert _scan_close(outs["single"], outs["chunk_parallel"])
+    assert _scan_close(outs["single"], want)
+    assert _scan_close(outs["chunk_parallel"], want)
+
+
+@pytest.mark.parametrize("design", ["single", "chunk_parallel"])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 129])
+def test_scan_kernel_chunk_edges(cuda, design, s):
+    q, k, v, logf, i = _scan_inputs(2, s, 512, 512, torch.bfloat16, cuda)
+    out = kscan.mlstm_scan(q, k, v, logf, i, design=design)
+    torch.cuda.synchronize()
+    assert out.shape == (2, s, 512)
+    assert _scan_close(out, ref.mlstm_chunkwise_ref(q, k, v, logf, i))
+
+
+@pytest.mark.parametrize("design", ["single", "chunk_parallel"])
+def test_scan_kernel_gates_at_their_extremes(cuda, design):
+    """i = 0 everywhere leaves the state at 0 and every output exactly 0;
+    logf far below 0 forgets everything but the step itself."""
+    q, k, v, logf, i = _scan_inputs(4, 200, 512, 512, torch.bfloat16, cuda)
+    out = kscan.mlstm_scan(q, k, v, logf, torch.zeros_like(i), design=design)
+    torch.cuda.synchronize()
+    assert (out == 0).all()
+    far = torch.full_like(logf, -1e4)
+    out = kscan.mlstm_scan(q, k, v, far, i, design=design)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert _scan_close(out, ref.mlstm_chunkwise_ref(q, k, v, far, i))
+
+
+@pytest.mark.parametrize("design", ["single", "chunk_parallel"])
+def test_scan_kernel_is_deterministic(cuda, design):
+    q, k, v, logf, i = _scan_inputs(4, 500, 512, 512, torch.bfloat16, cuda)
+    first = kscan.mlstm_scan(q, k, v, logf, i, design=design)
+    second = kscan.mlstm_scan(q, k, v, logf, i, design=design)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_scan_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, logf, i = _scan_inputs(2, 64, 12, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kscan.mlstm_scan(q, k, v, logf, i)
+    q, k, v, logf, i = _scan_inputs(2, 64, 32, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        kscan.mlstm_scan(q, k, v, logf, i, design="chunk_parallel")
