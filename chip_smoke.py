@@ -17,7 +17,9 @@ and each fatal:
 3. kernels  -- each kernel against its plain version over the serving
                shapes and the reference test shapes: attention (K1, K2)
                float32 to 1e-4 and bfloat16 to 3e-2; the MoE router (K4)
-               indices identical and weights to 1e-6; the mLSTM scan (K3)
+               with its dispatch plan: indices, slots, slot tokens and
+               counts identical, weights to 1e-6, probability sums to 1e-5
+               relative; the mLSTM scan (K3)
                float32 to 1e-3 and bfloat16 to 3e-2 of max(1, max |plain|).
                CUDA-event times of back-to-back calls of the kernel, the
                plain version and (for attention) one library call, and the
@@ -27,7 +29,8 @@ and each fatal:
                kernel's bound;
                K1 and K2 at llama3.2-1b's and qwen2-moe-a2.7b's shapes, K3
                at xlstm-350m's admission and bulk-prefill shapes under
-               both of its plans (single pass, chunk-parallel)
+               both of its plans (single pass, chunk-parallel), K4 at
+               qwen2-moe's decode and admission shapes (one launch a call)
 4. model    -- float32, kernel path against the plain path (logits to
                1e-3, greedy tokens identical) over prefill_batch on ragged
                prompts and 8 decode steps: llama3.2-1b and xlstm-350m at
@@ -71,6 +74,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 ROUTER_TOL = 1e-6                  # weights; indices must be identical
+ROUTE_SUM_RTOL = 1e-5              # prob_sum; slots and counts identical
 SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}   # bf16: x max(1, |ref|)
 MODEL_TOL = 1e-3
 
@@ -400,17 +404,31 @@ def time_decode(ref, kdecode, b, smax, live, h, kh, hd) -> dict:
     return d
 
 
-def router_bound_ms(logits, top_k: int) -> tuple:
-    """Each logit read once, weights and indices written once; (5 + 2k)
-    float32 operations a logit (mask, max, exp, sum, divide; a compare and
-    a select per argmax pass), at the float32 rate: the reference computes
-    the router in float32."""
+def router_bound_ms(logits, top_k: int, cap: int) -> tuple:
+    """Each logit read once; weights, indices and slots (T, k), the slot
+    tokens (E, C), the probability sums and counts (E,) written once; (5 +
+    2k) float32 operations a logit (mask, max, exp, sum, divide; a compare
+    and a select per argmax pass), at the float32 rate: the reference
+    computes the router in float32."""
     t, e = logits.shape
-    nbytes = logits.numel() * logits.element_size() + t * top_k * 8
+    nbytes = (logits.numel() * logits.element_size() + t * top_k * 12
+              + e * cap * 4 + e * 8)
     ops = t * e * (5 + 2 * top_k)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[torch.float32] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def route_errors(got, want) -> tuple:
+    """(integer outputs identical, weights' max abs error, probability
+    sums' max relative error) of a ``Route`` against the plain one."""
+    ints = all(torch.equal(getattr(got, n), getattr(want, n))
+               for n in ("idx", "slot", "slot_tok", "counts"))
+    w_err = (got.weights - want.weights).abs().max().item()
+    rel = ((got.prob_sum - want.prob_sum).abs()
+           / want.prob_sum.abs().clamp(min=1e-30))
+    rel = torch.where(got.prob_sum == want.prob_sum, 0.0, rel)
+    return ints, w_err, rel.max().item()
 
 
 def scan_bound_ms(q, v) -> tuple:
@@ -437,14 +455,14 @@ def scan_inputs(bh, s, dk, dv, dtype, seed):
     return q, k, v, logf, i
 
 
-def router_scan_phase(ref, kmoe, kscan) -> dict:
+def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
     """Parity of K4 and K3 over their shapes, then times at the serving
     shapes.  Returns the per-kernel entries of the kernels line."""
-    worst_w = {}
-    n_router = 0
+    worst_w, worst_rel = {}, {}
+    n_router = n_route = 0
     for dt in (torch.float32, torch.bfloat16):
-        worst = 0.0
-        for t in (8, 512, 2048, 500):
+        worst = worst_r = 0.0
+        for t in (8, 512, 2048, 500, 8192):
             for j, (e, k, n_valid) in enumerate(((64, 4, 60), (256, 8, 256),
                                                  (16, 2, 16))):
                 logits = randn((t, e), dt, 100 + t + j)
@@ -457,7 +475,24 @@ def router_scan_phase(ref, kmoe, kscan) -> dict:
                         f"indices equal {torch.equal(idx, ridx)}, max err {err}")
                 worst = max(worst, err)
                 n_router += 1
+                # the dispatch plan at capacities that drop pairs (0.5), at
+                # the prefill (1.25) and decode (2.0) defaults
+                for cap in sorted({capacity(t, k, cf, e)
+                                   for cf in (0.5, 1.25, 2.0)}):
+                    got = kmoe.moe_route(logits, k, capacity=cap,
+                                         n_valid=n_valid)
+                    ints, w_err, rel = route_errors(got, ref.moe_route_ref(
+                        logits, k, capacity=cap, n_valid=n_valid))
+                    if not (ints and w_err < ROUTER_TOL
+                            and rel <= ROUTE_SUM_RTOL):
+                        raise AssertionError(
+                            f"moe_route {dt} T={t} E={e} k={k} C={cap}: "
+                            f"integers identical {ints}, weights err {w_err},"
+                            f" prob_sum rel err {rel}")
+                    worst, worst_r = max(worst, w_err), max(worst_r, rel)
+                    n_route += 1
         worst_w[str(dt).replace("torch.", "")] = worst
+        worst_rel[str(dt).replace("torch.", "")] = worst_r
     scan_shapes = [
         # bh, s, dk, dv, scale
         (32, 64, 512, 512, None),      # xlstm-350m admission, B=8 H=4
@@ -485,35 +520,51 @@ def router_scan_phase(ref, kmoe, kscan) -> dict:
             worst = max(worst, err)
         worst_s[str(dt).replace("torch.", "")] = worst
     torch.cuda.synchronize()
-    log("kernels.parity.k3k4", cases_router=n_router,
+    log("kernels.parity.k3k4", cases_router=n_router, cases_route=n_route,
         shapes_scan=len(scan_shapes),
         chunk_len_f32={dk: kscan.chunk_len(dk) for dk in (16, 32, 64, 512)},
         plans_bf16={str(sh[:4]): kscan.scan_plan(*sh[:4]).design
                     for sh in scan_shapes},
         max_abs_err={"moe_topk": worst_w, "mlstm_scan": worst_s},
-        tolerance={"moe_topk": "indices identical, weights 1e-6",
+        max_rel_err_prob_sum=worst_rel,
+        tolerance={"moe_topk": "indices, slots, slot tokens, counts "
+                               "identical; weights 1e-6; prob_sum 1e-5 rel",
                    "mlstm_scan": "float32 1e-3, bfloat16 3e-2 x max(1, |ref|)"})
 
     # Times at the serving shapes, bfloat16 as served.  The router runs at
-    # every MoE layer of every decode step (T = 8) and admission prefill
-    # (T = 8 x 256); the scan at admission (B = 8 x H = 4 row-heads, S =
-    # 256) and bulk prefill (B = 1, S = 500).
+    # every MoE layer of every decode step (T = 8, one slot an expert at the
+    # decode capacity factor 2.0) and admission prefill (T = 8 x 256, 160
+    # slots at 1.25); the scan at admission (B = 8 x H = 4 row-heads, S =
+    # 256) and bulk prefill (B = 1, S = 500).  K4's "ms" and "device_ms"
+    # time the whole plan (``moe_route``), one launch a call; the
+    # "_topk_only" entry is the same kernel with the plan switched off.
     dt = torch.bfloat16
     router = {}
-    for tag, t in (("", 8), ("_prefill", 2048)):
+    for tag, t, cf in (("", 8, 2.0), ("_prefill", 2048, 1.25)):
         logits = randn((t, 64), dt, 300 + t)
-        router["ms" + tag] = cuda_ms(lambda: kmoe.moe_topk(logits, 4, 60))
-        router["plain_ms" + tag] = cuda_ms(lambda: ref.moe_topk_ref(logits, 4, 60))
-        router["device_ms" + tag] = device_ms(
-            lambda: kmoe.moe_topk(logits, 4, 60), "router_kernel")
-        b, by = router_bound_ms(logits, 4)
+        cap = capacity(t, 4, cf, 64)
+        route = (lambda logits=logits, cap=cap: kmoe.moe_route(
+            logits, 4, capacity=cap, n_valid=60))
+        router["capacity" + tag] = cap
+        router["ms" + tag] = cuda_ms(route)
+        router["plain_ms" + tag] = cuda_ms(lambda: ref.moe_route_ref(
+            logits, 4, capacity=cap, n_valid=60))
+        router["device_ms" + tag] = device_ms(route, "router_kernel",
+                                              alone=True)
+        _, n, router["grid" + tag] = device_ms_per_call(
+            route, "router_kernel", max_per_call=1)
+        router["launches_per_call" + tag] = n
+        router["device_ms_topk_only" + tag] = device_ms(
+            lambda: kmoe.moe_topk(logits, 4, 60), "router_kernel", alone=True)
+        b, by = router_bound_ms(logits, 4, cap)
         router["bound_ms" + tag] = b
         if not tag:
             router["bound_by"] = by
-            w, idx = kmoe.moe_topk(logits, 4, 60)
-            rw, _ = ref.moe_topk_ref(logits, 4, 60)
-            router["max_abs_err"] = (w - rw).abs().max().item()
-    router["shape"] = "T=8 (decode; _prefill: T=2048) E=64 k=4 n_valid=60 bf16"
+            _, w_err, _ = route_errors(route(), ref.moe_route_ref(
+                logits, 4, capacity=cap, n_valid=60))
+            router["max_abs_err"] = w_err
+    router["shape"] = ("T=8 C=1 (decode; _prefill: T=2048 C=160) E=64 k=4 "
+                       "n_valid=60 bf16, whole plan")
     router["library_ms"] = None
 
     # K3 under its own plan ("ms", "device_ms") and under each plan forced
@@ -571,9 +622,10 @@ def router_scan_phase(ref, kmoe, kscan) -> dict:
 def plain_kernels(ops, ref):
     """Swap every kernel for its plain version, on the card.  Used only
     here, to hold the kernel path against the plain path."""
-    names = ("grouped_flash", "grouped_decode", "mlstm_scan", "moe_topk")
+    names = ("grouped_flash", "grouped_decode", "mlstm_scan", "moe_topk",
+             "moe_route")
     plain = (ref.grouped_flash_ref, ref.grouped_decode_ref,
-             ref.mlstm_chunkwise_ref, ref.moe_topk_ref)
+             ref.mlstm_chunkwise_ref, ref.moe_topk_ref, ref.moe_route_ref)
     saved = [getattr(ops, n) for n in names]
     for n, f in zip(names, plain):
         setattr(ops, n, f)
@@ -779,6 +831,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import mlstm_scan as kscan
     from repro_torch.kernels import moe_topk as kmoe
+    from repro_torch.models.moe import capacity
     from repro_torch.models.transformer import Model
     from repro_torch.serving.engine import InferenceEngine, Request
 
@@ -808,7 +861,7 @@ def main() -> int:
     log("kernels.done", seconds=time.monotonic() - t0)
 
     t0 = time.monotonic()
-    timed.update(router_scan_phase(ref, kmoe, kscan))
+    timed.update(router_scan_phase(ref, kmoe, kscan, capacity))
     log("kernels.k3k4.done", seconds=time.monotonic() - t0)
 
     # Float32 checks: kernel path against plain path, engine against a
@@ -872,7 +925,8 @@ def main() -> int:
         "flash_attention": (f"bf16 {TOL[torch.bfloat16]:g}, "
                             f"f32 {TOL[torch.float32]:g} max abs"),
         "mlstm_scan": "bf16 3e-2 x max(1, max|plain|), f32 1e-3 max abs",
-        "moe_topk": "indices identical, weights 1e-6 max abs"}
+        "moe_topk": ("indices, slots, slot tokens, counts identical; "
+                     "weights 1e-6 max abs; prob_sum 1e-5 relative")}
     tolerance["decode_attention"] = tolerance["flash_attention"]
     kernels = []
     for name, d in timed.items():

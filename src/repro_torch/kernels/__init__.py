@@ -5,8 +5,8 @@ that counts its launches and a plain PyTorch version in ``ref``:
 * decode_attention -- single-token attention over the KV cache
   (``csrc/decode_attention.cu``)
 * mlstm_scan       -- chunkwise mLSTM recurrence (``csrc/mlstm_scan.cu``)
-* moe_topk         -- MoE router: softmax, top-k, renormalise
-  (``csrc/moe_topk.cu``)
+* moe_topk         -- MoE router: softmax, top-k, renormalise, and the
+  capacity dispatch plan, in one launch (``csrc/moe_topk.cu``)
 
 ``ops`` dispatches by device; ``build`` compiles the CUDA sources at first
 use.

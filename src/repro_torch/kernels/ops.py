@@ -8,7 +8,8 @@ from a failed build or launch.
 * ``grouped_flash`` / ``flash_attention``   -- prefill attention (K1)
 * ``grouped_decode`` / ``decode_attention`` -- decode attention (K2)
 * ``mlstm_scan``                            -- chunkwise mLSTM scan (K3)
-* ``moe_topk``                              -- MoE router (K4)
+* ``moe_route``                             -- MoE router and dispatch plan (K4)
+* ``moe_topk``                              -- the router's top k alone (K4)
 
 The ``grouped_*`` forms take the model's layout (``(B, S, H, hd)`` queries,
 ``(B, S, KH, hd)`` keys and values); the others the reference package's
@@ -20,6 +21,7 @@ from . import ref
 from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
 from .mlstm_scan import mlstm_scan as _mlstm_cuda
+from .moe_topk import moe_route as _moe_route_cuda
 from .moe_topk import moe_topk as _moe_topk_cuda
 
 
@@ -73,3 +75,14 @@ def moe_topk(logits, top_k: int, n_valid: int | None = None):
     if _on_cuda(logits, "moe_topk"):
         return _moe_topk_cuda(logits, top_k, n_valid=n_valid)
     return ref.moe_topk_ref(logits, top_k, n_valid=n_valid)
+
+
+def moe_route(logits, top_k: int, *, capacity: int, n_valid: int | None = None,
+              router_scale: float = 1.0):
+    """logits: (T, E) -> ``ref.Route``: weights, idx, slot (T, k), slot_tok
+    (E, capacity), prob_sum and counts (E,)."""
+    if _on_cuda(logits, "moe_route"):
+        return _moe_route_cuda(logits, top_k, capacity=capacity,
+                               n_valid=n_valid, router_scale=router_scale)
+    return ref.moe_route_ref(logits, top_k, capacity=capacity, n_valid=n_valid,
+                             router_scale=router_scale)

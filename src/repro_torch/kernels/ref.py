@@ -7,12 +7,17 @@ kernel is held against.
   query head ``h`` reading KV head ``h // G``; ``ops`` serves the reference
   package's (BH, S, D) signatures through them; ``grouped_decode_split_ref``
   is K2's split-and-merge arithmetic, for the tests;
-* ``moe_topk_ref`` -- the MoE router (K4);
+* ``moe_topk_ref`` -- the MoE router's top k (K4); ``moe_route_ref``, the
+  router with the dispatch plan the reference builds by a stable sort, and
+  ``moe_route_blocked_ref``, the kernel's count-based arithmetic for that
+  plan, for the tests;
 * ``mlstm_chunkwise_ref`` -- the chunkwise mLSTM scan (K3);
   ``mlstm_chunk_parallel_ref``, the arithmetic of K3's chunk-parallel plan,
   and ``mlstm_scan_ref``, the step-by-step recurrence, for the tests.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -107,10 +112,7 @@ def moe_topk_ref(logits, top_k: int, n_valid: int | None = None):
     index as in the reference (``torch.topk`` leaves the order of ties
     unspecified, and bfloat16 logits over 64 experts do tie)."""
     t, e = logits.shape
-    n_valid = e if n_valid is None else n_valid
-    eidx = torch.arange(e, device=logits.device)
-    probs = torch.softmax(torch.where(eidx < n_valid, logits.float(), NEG_INF),
-                          dim=-1)
+    probs = _router_probs(logits, e if n_valid is None else n_valid)
     weights = torch.empty((t, top_k), dtype=torch.float32, device=logits.device)
     idx = torch.empty((t, top_k), dtype=torch.int32, device=logits.device)
     total = torch.zeros((t,), dtype=torch.float32, device=logits.device)
@@ -122,6 +124,89 @@ def moe_topk_ref(logits, top_k: int, n_valid: int | None = None):
         total = total + bestp[:, 0]
         probs = probs.scatter(-1, best, NEG_INF)
     return weights / total.clamp(min=1e-9)[:, None], idx
+
+
+class Route(NamedTuple):
+    """The router's outputs and the dispatch plan of one MoE layer."""
+    weights: torch.Tensor   # (T, k) float32, renormalised, times the scale
+    idx: torch.Tensor       # (T, k) int32 experts
+    slot: torch.Tensor      # (T, k) int32 row e * C + pos; E * C if dropped
+    slot_tok: torch.Tensor  # (E, C) int32 token in each slot; T if empty
+    prob_sum: torch.Tensor  # (E,) float32 softmax probabilities over tokens
+    counts: torch.Tensor    # (E,) int32 pairs routed to each expert
+
+
+def _router_probs(logits, n_valid):
+    e = logits.shape[1]
+    eidx = torch.arange(e, device=logits.device)
+    return torch.softmax(torch.where(eidx < n_valid, logits.float(), NEG_INF),
+                         dim=-1)
+
+
+def moe_route_ref(logits, top_k: int, *, capacity: int,
+                  n_valid: int | None = None, router_scale: float = 1.0):
+    """The router and its dispatch plan as the reference computes them:
+    ``moe_topk_ref`` times ``router_scale``; a stable argsort of the (token,
+    choice) pairs by expert, each pair's position in its expert's run by
+    ``searchsorted``, kept iff below ``capacity``; a bincount of the pairs
+    and the softmax summed over tokens.  Returns a ``Route``."""
+    t, e = logits.shape
+    n_valid = e if n_valid is None else n_valid
+    w, idx = moe_topk_ref(logits, top_k, n_valid=n_valid)
+    dev = logits.device
+    flat = idx.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    eid_s = flat[order]
+    pos_s = torch.arange(t * top_k, device=dev) - torch.searchsorted(eid_s, eid_s)
+    dropped = e * capacity
+    slot_s = torch.where(pos_s < capacity, eid_s * capacity + pos_s, dropped)
+    slot = torch.empty_like(flat).scatter_(0, order, slot_s)
+    # dropped pairs land in one extra cell, cut off after
+    slot_tok = torch.full((dropped + 1,), t, dtype=torch.long, device=dev) \
+        .scatter_(0, slot_s, order // top_k)[:dropped]
+    return Route(w * router_scale, idx, slot.reshape(t, top_k).int(),
+                 slot_tok.reshape(e, capacity).int(),
+                 _router_probs(logits, n_valid).sum(dim=0),
+                 torch.bincount(flat, minlength=e).int())
+
+
+def moe_route_blocked_ref(logits, top_k: int, *, capacity: int,
+                          tokens_per_block: int, n_valid: int | None = None,
+                          router_scale: float = 1.0):
+    """K4's plan arithmetic in plain PyTorch (tests only): the tokens cut
+    into blocks of ``tokens_per_block``; in each block a pair's rank among
+    the block's earlier tokens that picked its expert, and each expert's
+    count; the position is the rank plus the counts of the blocks before
+    (an exclusive prefix in block order).  Probabilities are summed by
+    block, the blocks' sums then in block order.  No sort.  Same
+    arguments as ``moe_route_ref`` and the same ``Route``."""
+    t, e = logits.shape
+    n_valid = e if n_valid is None else n_valid
+    w, idx = moe_topk_ref(logits, top_k, n_valid=n_valid)
+    dev = logits.device
+    nb = max(1, -(-t // tokens_per_block))
+    pad = nb * tokens_per_block - t
+    picks = torch.zeros((t + pad, e), dtype=torch.long, device=dev)
+    picks[:t].scatter_(1, idx.long(), 1)        # a token picks an expert once
+    picks = picks.reshape(nb, tokens_per_block, e)
+    rank = picks.cumsum(dim=1) - picks          # earlier tokens in the block
+    per_block = picks.sum(dim=1)                # (nb, E)
+    before = per_block.cumsum(dim=0) - per_block
+    pos_te = (rank + before[:, None, :]).reshape(-1, e)[:t]
+    pos = pos_te.gather(1, idx.long())          # (T, k)
+    dropped = e * capacity
+    slot = torch.where(pos < capacity, idx.long() * capacity + pos, dropped)
+    tok = torch.arange(t, device=dev)[:, None].expand(t, top_k)
+    slot_tok = torch.full((dropped + 1,), t, dtype=torch.long, device=dev) \
+        .scatter_(0, slot.reshape(-1), tok.reshape(-1))[:dropped]
+    probs = torch.nn.functional.pad(_router_probs(logits, n_valid), (0, 0, 0, pad))
+    block_sums = probs.reshape(nb, tokens_per_block, e).sum(dim=1)
+    prob_sum = block_sums[0]
+    for b in range(1, nb):
+        prob_sum = prob_sum + block_sums[b]
+    return Route(w * router_scale, idx, slot.int(),
+                 slot_tok.reshape(e, capacity).int(), prob_sum,
+                 per_block.sum(dim=0).int())
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,9 @@ attention caches; random recurrent states for xLSTM), then times
 prefill (``prefill`` of one 500-token prompt, as the engine runs a
 background request) as the engine calls them: host wall time per call (ending in a synchronize), and a
 ``torch.profiler`` window that gives the device's busy share and the
-device time by kernel.  MoE layers run at the reference's default capacity
-factors (1.25 for prefill, 2.0 for decode).  Prints one JSON line per
-measurement.
+device time by kernel (the 40 largest).  MoE layers run at the reference's
+default capacity factors (1.25 for prefill, 2.0 for decode).  Prints one
+JSON line per measurement.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ def _device_table(prof, n_calls: int, wall_ms: float, top: int) -> dict:
 
 
 BATCH, MAX_LEN, LIVE, PROMPT_LEN, BULK_LEN = 8, 1024, 700, 256, 500
-ITERS, TOP = 20, 12
+ITERS, TOP = 20, 40
 
 
 def main(argv=None) -> None:

@@ -1,22 +1,32 @@
 """Mixture-of-experts FFN: shared + routed experts, top-k gating, capacity
-dispatch (sort + scatter: top-k FLOPs, no dense all-expert compute).
+dispatch (top-k FLOPs, no dense all-expert compute).
 
-The router runs the MoE router kernel (``ops.moe_topk``, K4).  Padding
-experts (expert-parallel divisibility, e.g. qwen2-moe 60 -> 64) are masked
-out of the softmax and never receive tokens.
+One call of ``ops.moe_route`` (K4) takes the router's logits to the whole
+dispatch plan: the weights and experts of each token, each (token, choice)
+pair's slot in the (E, C) grid, the token in each slot, and the softmax
+probabilities and pairs summed by expert.  Padding experts (expert-parallel
+divisibility, e.g. qwen2-moe 60 -> 64) are masked out of the softmax and
+never receive tokens.
 
-Dispatch follows the reference step for step, because which token a full
+The plan is the reference's step for step, because which token a full
 expert drops depends on it:
 
 * capacity ``int(max(1, round(T * k * cf / E)))``, Python's ``round`` on
   the same float expression (at decode, B = 8 and cf = 2 give one slot an
   expert);
-* a stable sort of the (token, choice) pairs by expert, so the tokens an
-  expert keeps are its first ``capacity`` in token order;
-* dropped pairs add zeros at slot 0 of their expert (``index_put_`` with
-  ``accumulate``), and the weighted expert outputs are summed back per token
-  with ``index_add_``, whose order of summation on CUDA can vary from run
-  to run, so results on the card agree to a tolerance, not bit for bit.
+* a pair's position in its expert is the number of earlier tokens that
+  picked it -- the reference's stable sort by expert, as a count, since a
+  token picks an expert at most once -- and the pair is kept iff that is
+  below capacity.  Every kept pair owns one slot.
+
+So the reference's scatter of tokens into the (E, C, d) buffer is a row
+gather through ``slot_tok`` (empty slots read a zero row), and its
+scatter-add of the weighted expert outputs back to tokens is a gather
+through ``slot`` and a sum over the k choices: no sort, no accumulating
+index op, the same result on the card from call to call.  A dropped pair
+reads a zero row placed after the expert outputs, so it adds exactly 0, as
+the reference's ``where`` makes it, whatever the experts computed.  The aux
+loss comes from the kernel's sums.
 
 The expert products ``ecd,edf->ecf`` are batched matrix products, which the
 reference also leaves to its compiler.  Every expert's weights are read at
@@ -63,45 +73,33 @@ def moe_forward(cfg, p, x, *, capacity_factor: float = 1.25):
     xf = x.reshape(t, d)
 
     logits = xf @ p["router"]["w"].to(xf.dtype)                     # (T, E)
-    weights, idx = ops.moe_topk(logits, m.top_k, n_valid=m.n_routed)
-    weights = weights * m.router_scale
-
-    # load-balance aux loss (Switch-style) over the valid experts
-    valid = torch.arange(e, device=x.device) < m.n_routed
-    probs = torch.softmax(torch.where(valid, logits.float(), -1e30), dim=-1)
-    me = probs.mean(dim=0)                                          # (E,)
-    counts = torch.zeros(e, dtype=torch.float32, device=x.device)
-    counts.index_add_(0, idx.reshape(-1).long(),
-                      torch.ones(t * m.top_k, device=x.device))
-    aux = m.n_routed * torch.sum(me * counts / t)
-
-    # ---- capacity dispatch: sort tokens by expert, scatter to (E, C, d)
     cap = capacity(t, m.top_k, capacity_factor, e)
-    flat_eid = idx.reshape(-1).long()                               # (T*k,)
-    flat_w = weights.reshape(-1)
-    flat_tok = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
-    order = torch.argsort(flat_eid, stable=True)
-    eid_s, tok_s, w_s = flat_eid[order], flat_tok[order], flat_w[order]
-    # position of each routed token within its expert's block: its index
-    # minus the index of the expert's first entry in the sorted list
-    pos_s = (torch.arange(t * m.top_k, device=x.device)
-             - torch.searchsorted(eid_s, eid_s))
-    keep = pos_s < cap                                              # drop overflow
-    slot = torch.where(keep, pos_s, 0)
-    buf = torch.zeros((e, cap, d), dtype=xf.dtype, device=x.device)
-    buf.index_put_((eid_s, slot),
-                   torch.where(keep[:, None], xf[tok_s], 0.0), accumulate=True)
+    r = ops.moe_route(logits, m.top_k, capacity=cap, n_valid=m.n_routed,
+                      router_scale=m.router_scale)
 
-    # ---- expert compute (E, C, d) -> (E, C, d)
+    # load-balance aux loss (Switch-style) over the valid experts:
+    # n_routed * sum_e mean_t(probs) * mean_t(picks)
+    aux = (r.prob_sum * r.counts).sum() * (m.n_routed / (t * t))
+
+    # ---- dispatch: slot (e, c) holds token slot_tok[e, c]; T, an empty
+    # slot, reads the zero row after the tokens
+    xz = torch.cat([xf, xf.new_zeros((1, d))])
+    buf = xz.index_select(0, r.slot_tok.reshape(-1)).reshape(e, cap, d)
+
+    # ---- expert compute (E, C, d) -> (E, C, d), written above one zero row
     w_exp = p["experts"]
     h = F.silu(torch.bmm(buf, w_exp["gate"].to(buf.dtype)))
     h = h * torch.bmm(buf, w_exp["up"].to(buf.dtype))
-    yexp = torch.bmm(h, w_exp["down"].to(buf.dtype))
+    yexp = xf.new_empty((e * cap + 1, d))
+    yexp[-1].zero_()
+    torch.bmm(h, w_exp["down"].to(buf.dtype), out=yexp[:-1].view(e, cap, d))
 
-    # ---- combine back, weighted
-    gathered = torch.where(keep[:, None], yexp[eid_s, slot], 0.0) \
-        * w_s[:, None].to(xf.dtype)
-    y = torch.zeros_like(xf).index_add_(0, tok_s, gathered)
+    # ---- combine: each token's k rows (a dropped pair's is the zero row),
+    # weighted and summed over k by one (1, k) x (k, d) product a token.
+    # The product sums the k terms in its own order and rounds once; the
+    # reference adds the pairs one by one in its sorted order instead.
+    rows = yexp.index_select(0, r.slot.reshape(-1)).reshape(t, m.top_k, d)
+    y = torch.bmm(r.weights.to(xf.dtype)[:, None, :], rows)[:, 0]
 
     if "shared" in p:
         y = y + L.swiglu(p["shared"], xf)

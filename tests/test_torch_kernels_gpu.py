@@ -8,15 +8,21 @@ another order and uses the device ``exp``), bfloat16 to 3e-2.  Router:
 indices identical, weights to 1e-6.  mLSTM scan: float32 to 1e-3 (the
 reference's bound for chunkwise against the recurrence; kernel and plain
 version cut the sequence into chunks of different lengths), bfloat16 to
-3e-2 of max(1, max |plain|), under both of its plans."""
+3e-2 of max(1, max |plain|), under both of its plans.  Router with its
+dispatch plan: indices, slots, slot tokens and counts identical, weights to
+1e-6, probability sums to 1e-5 relative (summed in another order)."""
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import mlstm_scan as kscan
 from repro_torch.kernels import moe_topk as kmoe
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.models import moe as tmoe
 
 pytestmark = pytest.mark.gpu
 
@@ -169,6 +175,96 @@ def test_router_kernel_ties_go_to_lowest_index(cuda):
     rw, ridx = ref.moe_topk_ref(logits, 4, 60)
     assert torch.equal(idx, ridx)
     assert (w - rw).abs().max().item() < 1e-6
+
+
+def _route_close(got, want):
+    for name in ("idx", "slot", "slot_tok", "counts"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert (got.weights - want.weights).abs().max().item() < 1e-6
+    err = (got.prob_sum - want.prob_sum).abs()
+    assert (err <= 1e-5 * want.prob_sum.abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 3, 8, 37, 500, 2048, 8192])
+@pytest.mark.parametrize("e,k,n_valid", [(8, 1, 8), (16, 2, 12), (64, 4, 60),
+                                         (256, 8, 256)])
+def test_route_kernel_matches_plain(cuda, dtype, t, e, k, n_valid):
+    """All six outputs, one launch a call, at capacities that drop pairs,
+    the prefill default, the decode default and one that drops none."""
+    logits = _randn((t, e), dtype, cuda, 19)
+    caps = {tmoe.capacity(t, k, cf, e) for cf in (0.5, 1.25, 2.0)} | {t}
+    for cap in sorted(caps):
+        n = kmoe.launches.count
+        got = kmoe.moe_route(logits, k, capacity=cap, n_valid=n_valid,
+                             router_scale=2.5)
+        torch.cuda.synchronize()
+        assert kmoe.launches.count == n + 1
+        _route_close(got, ref.moe_route_ref(logits, k, capacity=cap,
+                                            n_valid=n_valid, router_scale=2.5))
+
+
+@pytest.mark.parametrize("t", [8, 2048])
+def test_route_kernel_ties_and_strided_logits(cuda, t):
+    """bfloat16 logits rounded to halves (ties go to the lowest index), read
+    through a row stride wider than the experts."""
+    wide = (torch.randint(-2, 3, (t, 80), device=cuda) / 2).bfloat16()
+    logits = wide[:, :64]
+    cap = tmoe.capacity(t, 4, 1.25, 64)
+    _route_close(kmoe.moe_route(logits, 4, capacity=cap, n_valid=60),
+                 ref.moe_route_ref(logits, 4, capacity=cap, n_valid=60))
+
+
+@pytest.mark.parametrize("t,cap", [(8, 1), (2048, 160), (8192, 40)])
+def test_route_kernel_is_deterministic(cuda, t, cap):
+    """Repeated calls give identical bits: no atomics, every sum in a fixed
+    order, and no counter or scratch carried from one call to the next."""
+    logits = _randn((t, 64), torch.bfloat16, cuda, 20)
+    first = kmoe.moe_route(logits, 4, capacity=cap, n_valid=60)
+    for _ in range(3):
+        again = kmoe.moe_route(logits, 4, capacity=cap, n_valid=60)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_route_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((8, 300), device=cuda)
+    with pytest.raises(ValueError, match="experts"):
+        kmoe.moe_route(x, 4, capacity=1)
+    x = torch.zeros((8, 64), device=cuda)
+    with pytest.raises(ValueError, match="top_k"):
+        kmoe.moe_route(x, 9, capacity=1)
+    with pytest.raises(ValueError, match="capacity"):
+        kmoe.moe_route(x, 4, capacity=0)
+    with pytest.raises(TypeError):
+        kmoe.moe_route(x.half(), 4, capacity=1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,cf", [(8, 1, 2.0), (4, 64, 1.25), (2, 64, 0.5)])
+def test_moe_forward_on_the_card_is_bit_identical(cuda, monkeypatch, dtype,
+                                                  b, s, cf):
+    """No accumulating scatter: two calls of the layer give identical bits;
+    in float32 the layer matches itself run through the plain router."""
+    base = get_arch("qwen2-moe-a2.7b").reduced()
+    cfg = dataclasses.replace(
+        base, dtype=dtype, moe=dataclasses.replace(
+            base.moe, n_routed=60, padded_routed=64, top_k=4))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    p = tmoe.moe_init(gen, cfg)
+    p["router"]["w"] = p["router"]["w"] * 50     # experts fill and drop
+    x = _randn((b, s, cfg.d_model), p["router"]["w"].dtype, cuda, 21)
+    n = kmoe.launches.count
+    y1, aux1 = tmoe.moe_forward(cfg, p, x, capacity_factor=cf)
+    y2, aux2 = tmoe.moe_forward(cfg, p, x, capacity_factor=cf)
+    torch.cuda.synchronize()
+    assert kmoe.launches.count == n + 2
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+    if dtype == "float32":
+        monkeypatch.setattr(ops, "moe_route", ref.moe_route_ref)
+        yp, auxp = tmoe.moe_forward(cfg, p, x, capacity_factor=cf)
+        assert (y1 - yp).abs().max().item() < 1e-4
+        assert abs(aux1.item() - auxp.item()) < 2e-5
 
 
 def _scan_inputs(bh, s, dk, dv, dtype, device):

@@ -1,10 +1,11 @@
 """The port's MoE path against the reference package on the same weights and
 inputs (float32, CPU): the router's plain version (K4) against the
-reference oracle and the Pallas kernel in interpret mode, ``moe_forward``
-with drops at capacity, and the whole qwen2-moe model at a reduced size
-with padded experts.  Router indices equal and weights to 1e-6 (the bound
-of tests/test_kernels.py), layers to 2e-5, model logits to 1e-4, greedy
-tokens identical."""
+reference oracle and the Pallas kernel in interpret mode, its dispatch plan
+against the reference's sort rule, ``moe_forward`` with drops at capacity,
+and the whole qwen2-moe model at a reduced size with padded experts.
+Router indices, slots and counts equal, weights to 1e-6 (the bound of
+tests/test_kernels.py), probability sums to 1e-5 relative, layers and the
+aux loss to 2e-5, model logits to 1e-4, greedy tokens identical."""
 import dataclasses
 import functools
 
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_arch
 from repro.kernels import ops as jops
@@ -130,6 +132,117 @@ def test_router_dispatch_by_device():
         tops.moe_topk(x.to("meta"), 2)
 
 
+# ------------------------------------------------------- dispatch plan
+ROUTE_SHAPES = [(8, 1, 8), (16, 2, 12), (64, 4, 60), (256, 8, 256)]
+
+
+def _reference_plan(idx, e, cap):
+    """The reference's rule (models/moe.py) on the same indices: JAX's
+    stable argsort of the pairs by expert, bincount and cumsum for each
+    run's start.  Returns slot (T, k) as ``Route`` has it, slot_tok (E, C)
+    and counts (E,) as numpy."""
+    t, k = idx.shape
+    flat = idx.reshape(-1)
+    order = np.asarray(jnp.argsort(jnp.asarray(flat)))
+    eid_s = flat[order]
+    group = np.bincount(eid_s, minlength=e)
+    pos_s = np.arange(t * k) - (np.cumsum(group) - group)[eid_s]
+    keep_s = pos_s < cap
+    slot = np.empty(t * k, np.int64)
+    slot[order] = np.where(keep_s, eid_s * cap + pos_s, e * cap)
+    slot_tok = np.full((e, cap), t, np.int64)
+    slot_tok[eid_s[keep_s], pos_s[keep_s]] = order[keep_s] // k
+    return slot.reshape(t, k), slot_tok, group
+
+
+def _route_capacities(t, e, k):
+    """One that drops, the prefill default, and one that drops nothing."""
+    return sorted({TM.capacity(t, k, cf, e) for cf in (0.5, 1.25)} | {t})
+
+
+@pytest.mark.parametrize("e,k,n_valid", ROUTE_SHAPES)
+@pytest.mark.parametrize("t", [1, 3, 8, 37, 500, 2048])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_plain_matches_reference_rule(dtype, t, e, k, n_valid):
+    """Slots, kept pairs, slot tokens and counts identical to the
+    reference's sort rule; weights to 1e-6 of the oracle times the scale;
+    probability sums to 1e-5 relative of JAX's softmax summed.  bfloat16
+    logits rounded to halves tie often."""
+    x = _logits(t, e, 11, dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jx = jnp.asarray(x).astype(jnp.dtype(dtype)).astype(jnp.float32)
+    probs = jax.nn.softmax(jnp.where(jnp.arange(e) < n_valid, jx, -1e30), -1)
+    want_sum = np.asarray(jnp.sum(probs, axis=0))
+    rw, _ = jref.moe_topk_ref(jx, k, n_valid=n_valid)
+    for cap in _route_capacities(t, e, k):
+        r = tops.moe_route(tx, k, capacity=cap, n_valid=n_valid,
+                           router_scale=2.5)
+        assert [v.dtype for v in r] == [torch.float32] + [torch.int32] * 3 + \
+            [torch.float32, torch.int32]
+        slot, slot_tok, counts = _reference_plan(r.idx.numpy(), e, cap)
+        assert np.array_equal(r.slot.numpy(), slot)
+        assert np.array_equal(r.slot_tok.numpy(), slot_tok)
+        assert np.array_equal(r.counts.numpy(), counts)
+        close(r.weights, np.asarray(rw) * 2.5, 1e-6)
+        got = r.prob_sum.numpy()
+        assert np.all(np.abs(got - want_sum) <= 1e-5 * np.abs(want_sum))
+        if cap == TM.capacity(t, k, 0.5, e) and t * k > e:
+            assert (r.slot == e * cap).any(), "this capacity must drop pairs"
+        assert not (r.slot == e * cap).any() or cap < t
+
+
+@pytest.mark.parametrize("tokens_per_block", [1, 7, 32, 128, 500, "plan"])
+@pytest.mark.parametrize("t,e,k,n_valid", [(37, 16, 2, 12), (500, 64, 4, 60),
+                                           (2048, 64, 4, 60), (300, 256, 8, 256)])
+def test_route_blocked_arithmetic_matches_plain(t, e, k, n_valid,
+                                                tokens_per_block):
+    """The kernel's arithmetic (ranks in blocks of tokens, then a prefix of
+    the blocks' counts) gives the sort's plan for any block size, a last
+    block cut short included; "plan" is the block size the kernel takes."""
+    if tokens_per_block == "plan":
+        tokens_per_block = kmoe.route_plan(t, e).tokens_per_block
+    x = torch.from_numpy(_logits(t, e, 12, "bfloat16")).to(torch.bfloat16)
+    for cap in _route_capacities(t, e, k):
+        want = tref.moe_route_ref(x, k, capacity=cap, n_valid=n_valid)
+        got = tref.moe_route_blocked_ref(x, k, capacity=cap, n_valid=n_valid,
+                                         tokens_per_block=tokens_per_block)
+        for name in ("weights", "idx", "slot", "slot_tok", "counts"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.allclose(got.prob_sum, want.prob_sum, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("t,e", [(0, 64), (1, 64), (8, 64), (8, 256), (37, 16),
+                                 (500, 64), (2048, 64), (2048, 256),
+                                 (8192, 64), (100000, 8)])
+def test_route_plan_covers_every_token_in_one_cluster(t, e):
+    """At most 16 blocks (one cluster) of at most 512 threads, every token in
+    a block; a token's lanes hold all experts in at most one warp.  Decode
+    (8 tokens, 64 experts) takes a warp a token in one block; prefill
+    (2048) 16 blocks of 128 tokens at 4 lanes a token."""
+    plan = kmoe.route_plan(t, e)
+    g = kmoe.group_lanes(e, plan.values_per_lane)
+    assert 1 <= plan.blocks <= kmoe.MAX_BLOCKS
+    assert plan.blocks * plan.tokens_per_block >= t
+    assert (plan.blocks - 1) * plan.tokens_per_block < max(t, 1)
+    assert g * plan.values_per_lane >= e and g <= 32
+    assert plan.values_per_lane in (2, 4, 8, 16)
+    if (t, e) == (8, 64):
+        assert plan == kmoe.Plan(1, 8, 2) and g == 32
+    if (t, e) == (2048, 64):
+        assert plan == kmoe.Plan(16, 128, 16) and g == 4
+
+
+def test_route_wrapper_refuses_cpu_tensors_and_dispatches_by_device():
+    with pytest.raises(ValueError, match="CUDA"):
+        kmoe.moe_route(torch.zeros((4, 16)), 2, capacity=1)
+    x = torch.from_numpy(rand((8, 16), 3))
+    got = tops.moe_route(x, 2, capacity=2)
+    want = tref.moe_route_ref(x, 2, capacity=2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="no path"):
+        tops.moe_route(x.to("meta"), 2, capacity=2)
+
+
 # ------------------------------------------------------------- moe layer
 def _moe_cfg(n_routed=6, padded=8, top_k=2, n_shared=1):
     base = get_arch("qwen2-moe-a2.7b").reduced()
@@ -202,6 +315,87 @@ def test_decode_batch_of_8_keeps_one_token_per_expert():
     jy, _ = JM.moe_forward(cfg, jp, x, capacity_factor=2.0, backend="xla")
     ty, _ = TM.moe_forward(cfg, tp, torch.from_numpy(x), capacity_factor=2.0)
     close(ty, jy, 2e-5)
+
+
+@pytest.mark.parametrize("b,s,cf", [(4, 125, 1.25), (2, 64, 0.5), (8, 1, 2.0)])
+def test_moe_aux_loss_from_route_sums_matches_reference(b, s, cf):
+    """The aux loss from the router's probability sums and counts against
+    JAX's softmax mean and one-hot mean, 60 experts padded to 64, top 4."""
+    cfg = _moe_cfg(n_routed=60, padded=64, top_k=4)
+    jp, tp = _moe_params(cfg, seed=2)
+    x = rand((b, s, cfg.d_model), 8)
+    _, jaux = JM.moe_forward(cfg, jp, x, capacity_factor=cf, backend="xla")
+    _, taux = TM.moe_forward(cfg, tp, torch.from_numpy(x), capacity_factor=cf)
+    assert taux.dtype == torch.float32 and taux.shape == ()
+    close(taux, jaux, 2e-5)
+
+
+def test_dropped_pair_adds_exactly_zero_where_expert_rows_are_not_finite():
+    """NaN expert weights make every output row of those experts NaN.  A
+    token whose pair to such an expert was dropped still gets a finite
+    output, equal to the reference's (its ``where``), and exactly the NaN
+    rows of the reference are NaN."""
+    cfg = _moe_cfg()
+    jp, tp = _moe_params(cfg)
+    x = rand((2, 16, cfg.d_model), 5)
+    cf = 0.5
+    r = tops.moe_route(torch.from_numpy(x).reshape(-1, cfg.d_model)
+                       @ tp["router"]["w"], cfg.moe.top_k, capacity=TM.capacity(
+                           32, cfg.moe.top_k, cf, cfg.moe.routed_total()),
+                       n_valid=cfg.moe.n_routed)
+    e_cap = r.slot_tok.numel()
+    dropped = r.slot == e_cap
+    busiest = int(torch.bincount(r.idx[dropped].long()).argmax())
+    bad = sorted({0, busiest})              # expert 0 holds flat row 0 too
+    down = np.asarray(jp["experts"]["down"]).copy()
+    down[bad] = np.nan
+    jp["experts"]["down"] = jnp.asarray(down)
+    tp["experts"]["down"] = torch.from_numpy(down)
+    jy, _ = JM.moe_forward(cfg, jp, x, capacity_factor=cf, backend="xla")
+    ty, _ = TM.moe_forward(cfg, tp, torch.from_numpy(x), capacity_factor=cf)
+    jy = np.asarray(jy).reshape(32, -1)
+    ty = ty.reshape(32, -1).numpy()
+    assert np.array_equal(np.isnan(ty), np.isnan(jy))
+    kept_bad = np.isin(r.idx.numpy(), bad) & ~dropped.numpy()
+    dropped_bad = np.isin(r.idx.numpy(), bad) & dropped.numpy()
+    spared = dropped_bad.any(1) & ~kept_bad.any(1)
+    assert spared.any(), "some token must drop its pair to a NaN expert"
+    assert np.isfinite(ty[spared]).all()
+    assert np.isnan(ty[kept_bad.any(1)]).all()
+    fin = np.isfinite(jy)
+    assert float(np.max(np.abs(ty[fin] - jy[fin]))) < 2e-5
+
+
+class _AtenOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def test_moe_forward_runs_no_sort_or_scatter(monkeypatch):
+    """Around the router (whose plain version sorts by the reference's rule)
+    the layer gathers and multiplies: no sort, search, scatter or
+    accumulating index op, on the decode shape (8 tokens, top 4 of 60
+    experts padded to 64, one slot an expert)."""
+    cfg = _moe_cfg(n_routed=60, padded=64, top_k=4)
+    _, tp = _moe_params(cfg, seed=1)
+    x = torch.from_numpy(rand((8, 1, cfg.d_model), 6))
+    want, _ = TM.moe_forward(cfg, tp, x, capacity_factor=2.0)
+    route = tops.moe_route(x.reshape(8, -1) @ tp["router"]["w"], 4,
+                           capacity=1, n_valid=60)
+    monkeypatch.setattr(tops, "moe_route", lambda *a, **kw: route)
+    with _AtenOps() as seen:
+        y, _ = TM.moe_forward(cfg, tp, x, capacity_factor=2.0)
+    assert torch.equal(y, want)
+    assert {"index_select", "bmm"} <= seen.names
+    banned = {"sort", "argsort", "searchsorted", "index_put", "index_put_",
+              "index_add", "index_add_", "scatter", "scatter_", "scatter_add",
+              "scatter_add_", "bincount"}
+    assert not banned & seen.names, sorted(seen.names)
 
 
 def test_moe_forward_bfloat16_runs_in_input_dtype():
