@@ -31,7 +31,10 @@
 // Inside a block.  Each cache row is read by hd / 8 neighbouring lanes, 8
 // elements a lane: one 16-byte load for bf16 (two for float32), so a warp
 // reads 32 / (hd / 8) whole rows at once, and each lane has U rows (4 bf16,
-// 2 float32) of K and V in flight before it computes.  Each group of lanes
+// 2 float32) of K and V in flight before it computes.  At hd 80 a row's 10
+// lanes do not divide a warp: a row takes a group of 16 lanes, of which
+// the last 6 load nothing and add zeros to the score's butterfly sum (two
+// rows a warp at once, 62.5% of the lanes loading).  Each group of lanes
 // keeps its own online-softmax state (m, l and 8 accumulator columns per
 // head), in base 2 (the scale folds log2 e); a score is the lane group's
 // butterfly sum.  At the end the states merge across lane groups
@@ -84,6 +87,13 @@ struct Params {
   long long o_sb, o_sh;
   float scale;
 };
+
+// Lanes a cache row is read by: hd / 8 when that divides a warp, else the
+// next power of two (16 at hd 80: 10 lanes load, 6 add zeros), so a row's
+// butterfly sum stays inside an aligned group of lanes of one warp.
+__host__ __device__ constexpr int lane_group(int hd) {
+  return hd <= 16 ? 2 : hd <= 32 ? 4 : hd <= 64 ? 8 : 16;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -143,7 +153,8 @@ struct Row8<float> {
 
 template <typename T, int HD, int MG>
 __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
-  constexpr int LPR = HD / 8;                // lanes per cache row
+  constexpr int LOADS = HD / 8;              // lanes that load a cache row
+  constexpr int LPR = lane_group(HD);        // lanes per cache row
   constexpr int RPW = 32 / LPR;              // rows a warp reads at once
   constexpr int U = sizeof(T) == 2 ? 4 : 2;  // rows in flight per lane
   constexpr int STEP = NW * RPW * U;         // positions per block step
@@ -157,6 +168,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
   const int lane = tid % 32, warp = tid / 32;
   const int rg = lane / LPR;  // row group in the warp
   const int li = lane % LPR;  // columns 8 li ... 8 li + 7
+  const bool loads = li < LOADS;  // the rest of a padded group adds zeros
   const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int n_split = gridDim.z;
   const int G = p.H / p.KH;
@@ -198,7 +210,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
       for (int u = 0; u < U; ++u) {
         const int pos = wbase + rg + u * NW * RPW;
         ok[u] = pos < s1;
-        if (ok[u]) {
+        if (ok[u] && loads) {
           kr[u].load(kp + pos * p.k_ss);
           vr[u].load(vp + pos * p.v_ss);
         } else {
@@ -209,8 +221,9 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
 #pragma unroll
       for (int g = 0; g < MG; ++g) {
         if (g < G) {
-          const float4 qa = *reinterpret_cast<const float4*>(&sq[g][li * 8]);
-          const float4 qb = *reinterpret_cast<const float4*>(&sq[g][li * 8 + 4]);
+          const int qc = loads ? li * 8 : 0;  // padding lanes' K rows are 0
+          const float4 qa = *reinterpret_cast<const float4*>(&sq[g][qc]);
+          const float4 qb = *reinterpret_cast<const float4*>(&sq[g][qc + 4]);
           const float qf[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
           float sc[U];
 #pragma unroll
@@ -284,8 +297,9 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
             sm_m[warp][g] = m[g];
             sm_l[warp][g] = l[g];
           }
+          if (loads)
 #pragma unroll
-          for (int e = 0; e < 8; ++e) sm_acc[warp][g][li * 8 + e] = acc[g][e];
+            for (int e = 0; e < 8; ++e) sm_acc[warp][g][li * 8 + e] = acc[g][e];
         }
       }
     }
@@ -369,6 +383,7 @@ cudaError_t dispatch_hd(const Params& p, int hd, int n_split,
     case 16: return dispatch_group<T, 16>(p, n_split, stream);
     case 32: return dispatch_group<T, 32>(p, n_split, stream);
     case 64: return dispatch_group<T, 64>(p, n_split, stream);
+    case 80: return dispatch_group<T, 80>(p, n_split, stream);
     case 128: return dispatch_group<T, 128>(p, n_split, stream);
     default: return cudaErrorInvalidValue;
   }

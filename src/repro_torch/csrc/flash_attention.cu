@@ -47,6 +47,16 @@
 //   on float32 is TF32, about three decimal digits, which cannot meet the
 //   1e-4 the float32 model checks hold the kernel to.
 //
+// Head dims: 16, 32, 64, 128 and 80 (stablelm-3b).  The float32 kernel
+// takes 80 as it is (20 accumulators a thread).  The bf16 kernel runs 80
+// padded to 128 inside the block: the tiles are laid out at 128 (a row of
+// 80 would be a 128-byte and a 32-byte panel, which one swizzle mode of the
+// descriptors cannot cover), Q K^T takes only the 5 k16 steps that hold
+// data, P V runs at n128 over V tiles whose columns 80-127 are zeroed
+// once, and only 80 columns are stored: P V does 1.6x the useful work,
+// Q K^T none extra.  A native n80 with a 64 + 16 panel split is left for
+// later (PERF.md has the padded kernel's time).
+//
 // What bounds it.  At the serving shapes (B = 8, S = 256) the bound is
 // bytes: q, k, v and the output are read or written once, 21-34 MB, against
 // a few GFLOP at 989 TFLOP/s of bf16 tensor cores.  The times are in
@@ -461,10 +471,18 @@ struct Layout {
   }
 };
 
+// The head dim a tile is laid out at: a power of two from 16 to 128.  A
+// head dim between (80) is padded to the next one inside the kernel: a
+// row's 160 bytes would be a 128-byte and a 32-byte panel, which one
+// descriptor swizzle mode cannot cover, and `wgmma_rs` has n16/32/64/128.
+__host__ __device__ constexpr int padded_hd(int hd) {
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+}
+
 // Rows [r0, r0 + R) of a row-major (rows x HD) bf16 matrix with row stride
-// ld into shared memory at dst in the layout above; rows at or past nrows
-// are zero-filled.
-template <int R, int HD>
+// ld into shared memory at dst in the layout of a padded row of HP; rows at
+// or past nrows are zero-filled.  Columns HD ... HP - 1 are not written.
+template <int R, int HD, int HP>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long ld, int r0, int nrows,
                                           int tid) {
@@ -476,7 +494,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
       const int r = i / (HD / 8), c8 = i % (HD / 8);
       const int row = r0 + r;
       const bool ok = row < nrows;
-      cp_async16(dst + Layout<HD>::template offset<R>(r, c8),
+      cp_async16(dst + Layout<HP>::template offset<R>(r, c8),
                  src + (ok ? row : 0) * ld + c8 * 8, ok);
     }
   }
@@ -484,17 +502,19 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
 
 template <int HD>
 constexpr int smem_bytes() {
-  // Q tile, then the stages of (K tile, V tile), all bf16.
-  return (BQ + 2 * STAGES * BK) * HD * 2;
+  // Q tile, then the stages of (K tile, V tile), all bf16, at the padded
+  // head dim.
+  return (BQ + 2 * STAGES * BK) * padded_hd(HD) * 2;
 }
 
 template <int HD>
 __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  constexpr int KV_BYTES = BK * HD * 2;
-  using L = Layout<HD>;
+  constexpr int HP = padded_hd(HD);  // the tiles' and the products' hd
+  constexpr int KV_BYTES = BK * HP * 2;
+  using L = Layout<HP>;
   const uint32_t sq = smem_addr(smem);
-  const uint32_t skv = sq + BQ * HD * 2;  // stage s: K at skv + 2 s KV_BYTES
+  const uint32_t skv = sq + BQ * HP * 2;  // stage s: K at skv + 2 s KV_BYTES
 
   const int tid = threadIdx.x;
   const int wgi = tid / 128;        // warpgroup: query rows 64 wgi ...
@@ -519,15 +539,32 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
   k_begin = (k_begin / BK) * BK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
+  // A padded head dim: P V runs at N = HP, so the V tiles' columns HD ...
+  // HP - 1 are zeroed once here (the copies never write them) and their
+  // output columns are not stored.  Q K^T reads only the first HD / 16 k16
+  // steps of Q and K, so their pad columns are never read.  The first
+  // iteration's proxy fence and barrier order these stores before any
+  // wgmma reads them.
+  if constexpr (HP != HD) {
+    constexpr int PAD8 = (HP - HD) / 8;
+    for (int i = tid; i < STAGES * BK * PAD8; i += NT) {
+      const int st = i / (BK * PAD8), r = (i / PAD8) % BK;
+      const uint32_t off = (skv - sq) + st * 2 * KV_BYTES + KV_BYTES +
+                           L::template offset<BK>(r, HD / 8 + i % PAD8);
+      *reinterpret_cast<uint4*>(smem + off) = make_uint4(0, 0, 0, 0);
+    }
+  }
+
   // Copy group t holds KV tile t (and group 0 the Q tile too); a group is
   // committed even when empty, so the wait count is the same every time.
-  load_tile<BQ, HD>(sq, q, p.q_ss, q0, p.Sq, tid);
+  load_tile<BQ, HD, HP>(sq, q, p.q_ss, q0, p.Sq, tid);
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
     if (t < n_tiles) {
       const uint32_t st = skv + t * 2 * KV_BYTES;
-      load_tile<BK, HD>(st, k, p.k_ss, k_begin + t * BK, p.Sk, tid);
-      load_tile<BK, HD>(st + KV_BYTES, v, p.v_ss, k_begin + t * BK, p.Sk, tid);
+      load_tile<BK, HD, HP>(st, k, p.k_ss, k_begin + t * BK, p.Sk, tid);
+      load_tile<BK, HD, HP>(st + KV_BYTES, v, p.v_ss, k_begin + t * BK, p.Sk,
+                            tid);
     }
     cp_async_commit();
   }
@@ -541,9 +578,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
   const float sl2 = p.scale * LOG2E;
   const uint32_t qa = sq + wgi * 64 * L::W;  // its 64 rows of the Q tile
 
-  float acc[HD / 2];
+  float acc[HP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HP / 2; ++i) acc[i] = 0.f;
   float m0 = NEG_BIG, m1 = NEG_BIG, l0 = 0.f, l1 = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -555,8 +592,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
     __syncthreads();
     if (j + STAGES - 1 < n_tiles) {
       const uint32_t st = skv + ((j + STAGES - 1) % STAGES) * 2 * KV_BYTES;
-      load_tile<BK, HD>(st, k, p.k_ss, t0 + (STAGES - 1) * BK, p.Sk, tid);
-      load_tile<BK, HD>(st + KV_BYTES, v, p.v_ss, t0 + (STAGES - 1) * BK, p.Sk, tid);
+      load_tile<BK, HD, HP>(st, k, p.k_ss, t0 + (STAGES - 1) * BK, p.Sk, tid);
+      load_tile<BK, HD, HP>(st + KV_BYTES, v, p.v_ss, t0 + (STAGES - 1) * BK,
+                            p.Sk, tid);
     }
     cp_async_commit();
     const uint32_t sk = skv + (j % STAGES) * 2 * KV_BYTES;
@@ -622,7 +660,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
     l0 = l0 * a0 + sum0;  // this thread's share; the quad sums at the end
     l1 = l1 * a1 + sum1;
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
+    for (int i = 0; i < HP / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
 
     // P as the A operand: n-blocks 2 kk and 2 kk + 1 of the score
     // accumulator are the k16 slice kk of the A fragment.
@@ -639,7 +677,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<HD>(acc, pa[kk], L::vmajor(sv, kk));
+      wgmma_rs<HP>(acc, pa[kk], L::vmajor(sv, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -686,6 +724,7 @@ cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
     case 16: return BF16 ? wg::launch<16>(p, stream) : f32::launch<16>(p, stream);
     case 32: return BF16 ? wg::launch<32>(p, stream) : f32::launch<32>(p, stream);
     case 64: return BF16 ? wg::launch<64>(p, stream) : f32::launch<64>(p, stream);
+    case 80: return BF16 ? wg::launch<80>(p, stream) : f32::launch<80>(p, stream);
     case 128: return BF16 ? wg::launch<128>(p, stream) : f32::launch<128>(p, stream);
     default: return cudaErrorInvalidValue;
   }

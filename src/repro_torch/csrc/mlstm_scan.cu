@@ -31,7 +31,11 @@
 //   1e-3 the float32 checks hold the scan to.  One block per (row-head, 64
 //   value columns) keeps its dk x 64 float32 slice of C and its own n in
 //   shared memory and walks the chunks in order; L is the largest of 64,
-//   32, 16 for which the q and k tiles fit beside C (16 at dk = 512).
+//   32, 16 for which the q and k tiles fit beside C (16 at dk = 512).  The
+//   cumulative log forget gate is summed in float64, so that a decay
+//   exp(la_t - la_j) keeps float32 precision where the sums are large
+//   (hymba's SSD gates); the bf16 designs keep float32 sums, whose error
+//   is far below bf16's.
 //
 // * bfloat16, `mlstm_wgmma_kernel`: tensor cores.  A chunk is L = 64 steps,
 //   one m64 tile; a block of two warpgroups owns one row-head and 64 value
@@ -165,10 +169,17 @@ constexpr int GROUPS = NT / TE;         // row groups (4)
 
 // Shared memory of one block, in floats: C slice, n, q and k tiles (rows
 // padded by 4 so that float4 reads of neighbouring rows spread over the
-// banks), v tile, scores, and six per-step vectors.
+// banks), v tile, scores, and seven per-step vectors.
 __host__ __device__ constexpr long long smem_floats(int dk, int L) {
   return 1LL * dk * TE + dk + 2LL * L * (dk + 4) + 1LL * L * TE + 1LL * L * L +
-         6LL * L;
+         7LL * L;
+}
+
+// The log decay from step j to step t of a chunk, la_t - la_j, from the
+// cumulative sums kept as float pairs (hi, lo).
+__device__ __forceinline__ float decay_log(const float* la, const float* lo,
+                                           int t, int j) {
+  return (la[t] - la[j]) + (lo[t] - lo[j]);
 }
 
 // Per chunk, thread (column e, group g) computes the output rows g, g + 4,
@@ -191,6 +202,7 @@ __global__ void __launch_bounds__(NT) mlstm_kernel(Params p) {
   float* wt = dec + L;          // i * exp(total - la)
   float* nint = wt + L;         // (q . n_prev) * exp(la)
   float* den = nint + L;        // max(|q . n_t|, 1)
+  float* lalo = den + L;        // la's float64 sum less its float32 value
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -230,27 +242,37 @@ __global__ void __launch_bounds__(NT) mlstm_kernel(Params p) {
     }
     __syncthreads();
 
-    // 2. Inclusive scan of the log forget gate (L <= 64: two per lane).
+    // 2. Inclusive scan of the log forget gate (L <= 64: two per lane), in
+    //    float64, kept as the pair (la, lalo).  A decay between two steps is
+    //    the difference of two sums: at SSD gates (decay up to e^-4.5 a
+    //    step) the sums reach -300 within a chunk, where the difference of
+    //    two float32 sums would be off by up to 2e-5.
     if (warp == 0) {
-      float a = lane < L ? la[lane] : 0.f;
-      float b = lane + 32 < L ? la[lane + 32] : 0.f;
+      double a = lane < L ? la[lane] : 0.0;
+      double b = lane + 32 < L ? la[lane + 32] : 0.0;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
-        const float ya = __shfl_up_sync(0xffffffffu, a, off);
-        const float yb = __shfl_up_sync(0xffffffffu, b, off);
+        const double ya = __shfl_up_sync(0xffffffffu, a, off);
+        const double yb = __shfl_up_sync(0xffffffffu, b, off);
         if (lane >= off) {
           a += ya;
           b += yb;
         }
       }
       b += __shfl_sync(0xffffffffu, a, 31);
-      if (lane < L) la[lane] = a;
-      if (lane + 32 < L) la[lane + 32] = b;
+      if (lane < L) {
+        la[lane] = static_cast<float>(a);
+        lalo[lane] = static_cast<float>(a - static_cast<float>(a));
+      }
+      if (lane + 32 < L) {
+        la[lane + 32] = static_cast<float>(b);
+        lalo[lane + 32] = static_cast<float>(b - static_cast<float>(b));
+      }
     }
     __syncthreads();
     if (tid < L) {
       dec[tid] = expf(la[tid]);
-      wt[tid] = igs[tid] * expf(la[L - 1] - la[tid]);
+      wt[tid] = igs[tid] * expf(decay_log(la, lalo, L - 1, tid));
     }
 
     // 3. Causal decay-weighted scores, and q . n_prev.
@@ -267,7 +289,7 @@ __global__ void __launch_bounds__(NT) mlstm_kernel(Params p) {
           s = fmaf(a.z, b.z, s);
           s = fmaf(a.w, b.w, s);
         }
-        s *= expf(la[t] - la[j]) * igs[j];
+        s *= expf(decay_log(la, lalo, t, j)) * igs[j];
       }
       Ss[x] = s;
     }

@@ -24,7 +24,7 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP = 16          # query heads per KV head (MAXG in the CUDA source)
 SPLIT_TILE = 64         # a split's range is a multiple of this many positions

@@ -27,7 +27,7 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = build.LaunchCounter()

@@ -10,10 +10,10 @@ block owns 64 of its value columns.
 * bfloat16 runs on the tensor cores (``wgmma``) in chunks of 64 steps, by
   the plan ``scan_plan`` draws from the shapes alone: a **single pass**
   (grid (BH, dv / 64), each block walks every chunk with its slice of ``C``
-  in registers), or, for a few row-heads over many chunks,
-  **chunk-parallel** (each chunk's own state, then one pass in chunk order
-  over those states in float32 scratch, then every chunk's output in
-  parallel: three launches).
+  in registers), or, where the H100 timed it faster (a few row-heads over
+  many chunks; more widely at small dk), **chunk-parallel** (each chunk's
+  own state, then one pass in chunk order over those states in float32
+  scratch, then every chunk's output in parallel: three launches).
   ``ref.mlstm_chunk_parallel_ref`` is the chunk-parallel arithmetic in plain
   PyTorch.
 * float32 runs the first design, on the CUDA cores: one launch, chunk
@@ -37,10 +37,19 @@ DESIGNS = {"single": 0, "chunk_parallel": 1}
 CHUNK = 64          # steps a chunk of the bfloat16 kernels (one m64 tile)
 COLS = 64           # value columns a block
 MAX_DK = 512        # the bfloat16 kernels' largest head dim (8 tiles of 64)
-# Where chunk-parallel is the faster design: at most this many single-pass
-# blocks, at least this many chunks, and at most this much float32 scratch.
+# Where chunk-parallel is the faster design (``scan_study plans`` on the
+# H100).  Large states (timed at dk = dv = 512): at most this many
+# single-pass blocks and at least this many chunks.
 CP_MAX_BLOCKS = 32
 CP_MIN_CHUNKS = 4
+# Small states (timed at dk = 16, dv = 64, applied up to dk = CP_SMALL_DK):
+# at one chunk, at up to CP_SMALL_MAX_BLOCKS single-pass blocks, or within
+# one wave (the H100's SMS blocks) from CP_SMALL_MIN_CHUNKS chunks.
+CP_SMALL_DK = 16
+CP_SMALL_MAX_BLOCKS = 64
+CP_SMALL_MIN_CHUNKS = 8
+SMS = 132
+# Either way, at most this much float32 scratch.
 CP_MAX_SCRATCH = 64 << 20
 
 launches = build.LaunchCounter()
@@ -69,16 +78,25 @@ def scan_plan(bh: int, s: int, dk: int, dv: int, *,
     chunk states to run the chunks side by side.  Timed on the H100 at dk =
     dv = 512 over BH 1-32 and S 128-2048, chunk-parallel was faster only at
     BH <= 4 (32 blocks) with 4 chunks or more (1.6-4.6x at BH 1-2, 1.0-1.3x
-    at BH 4), and 1.3-3.8x slower from BH 8 (64 blocks) on, so it is picked
-    there while its scratch is at most ``CP_MAX_SCRATCH`` bytes.  ``design``
-    forces one (the tests hold the two against each other).  Depends on
-    shapes only."""
+    at BH 4), and 1.3-3.8x slower from BH 8 (64 blocks) on.  At dk = 16, dv
+    = 64 (hymba's SSD heads) over BH 25-200 and S 64-2048, where a chunk
+    of the single pass is short and the carried states small,
+    chunk-parallel was faster at one chunk (1.27-1.30x), at BH <= 50
+    (1.06-3.9x) and at BH 100 from 8 chunks (1.19-1.35x), and up to 1.25x
+    slower elsewhere.  It is picked where it was faster while its scratch is at
+    most ``CP_MAX_SCRATCH`` bytes.  ``design`` forces one (the tests hold
+    the two against each other).  Depends on shapes only."""
     n_chunks = max(1, -(-s // CHUNK))
     if design is None:
+        blocks = bh * -(-dv // COLS)
+        if dk <= CP_SMALL_DK:
+            few = (n_chunks == 1 or blocks <= CP_SMALL_MAX_BLOCKS
+                   or (blocks <= SMS and n_chunks >= CP_SMALL_MIN_CHUNKS))
+        else:
+            few = blocks <= CP_MAX_BLOCKS and n_chunks >= CP_MIN_CHUNKS
         scratch = (n_chunks - 1) * bh * dk * dv * 4
-        few = (bh * -(-dv // COLS) <= CP_MAX_BLOCKS
-               and n_chunks >= CP_MIN_CHUNKS and scratch <= CP_MAX_SCRATCH)
-        design = "chunk_parallel" if few else "single"
+        design = ("chunk_parallel" if few and scratch <= CP_MAX_SCRATCH
+                  else "single")
     if design not in DESIGNS:
         raise ValueError(f"mlstm_scan: no design {design!r}")
     return ScanPlan(design, CHUNK, COLS, n_chunks)

@@ -268,18 +268,23 @@ def mlstm_chunkwise_ref(q, k, v, logf, i, *, scale: float | None = None,
     hs = []
     for j in range(nc):
         qb, kb, vb, ib = qc[:, j], kc[:, j], vc[:, j], ic[:, j]
-        la = torch.cumsum(lc[:, j], dim=-1)                 # (BH, ch)
+        # The decay between two steps is a difference of cumulative sums,
+        # taken in float64: at SSD gates (hymba's decay up to e^-4.5 a
+        # step) the float32 sums reach -300 within a chunk, where their
+        # differences would be off by up to 2e-5.
+        la64 = torch.cumsum(lc[:, j].double(), dim=-1)      # (BH, ch)
+        la = la64.float()
         total = la[:, -1]
         qd = qb * la.exp()[..., None]
         inter = qd @ c                                      # (BH, ch, dv)
         n_inter = (qd @ n[..., None])[..., 0]               # (BH, ch)
-        dmat = torch.where(causal, (la[:, :, None] - la[:, None, :]).exp()
-                           * ib[:, None, :], 0.0)
+        dmat = torch.where(causal, (la64[:, :, None] - la64[:, None, :])
+                           .float().exp() * ib[:, None, :], 0.0)
         smat = (qb @ kb.transpose(1, 2)) * dmat             # (BH, ch, ch)
         intra = smat @ vb
         den = (n_inter + smat.sum(-1)).abs().clamp(min=1.0)
         hs.append((inter + intra) / den[..., None])
-        w = ib * (total[:, None] - la).exp()                # (BH, ch)
+        w = ib * (la64[:, -1:] - la64).float().exp()        # (BH, ch)
         c = total.exp()[:, None, None] * c + (kb * w[..., None]).transpose(1, 2) @ vb
         n = total.exp()[:, None] * n + (w[:, None, :] @ kb)[:, 0]
     return torch.cat(hs, dim=1)[:, :s].to(q.dtype)

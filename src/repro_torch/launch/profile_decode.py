@@ -5,7 +5,8 @@
 Builds the model (``--arch``, default llama3.2-1b) at its published widths
 and depth in bfloat16 with random weights (seed 0) and random caches at the
 serving engine's largest batch (8 rows, 1024 positions, 700 live for
-attention caches; random recurrent states for xLSTM), then times
+attention caches, the ring of a sliding window included; random recurrent
+states for xLSTM and hymba's SSD heads), then times
 ``decode_step``, ``prefill_batch`` (8 prompts of 256 tokens) and the bulk
 prefill (``prefill`` of one 500-token prompt, as the engine runs a
 background request) as the engine calls them: host wall time per call (ending in a synchronize), and a

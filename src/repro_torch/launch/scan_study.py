@@ -2,7 +2,8 @@
 bfloat16 designs is faster where, and what its bf16 roundings cost.
 
   PYTHONPATH=src python -m repro_torch.launch.scan_study stamps [--bh 32 --s 256]
-  PYTHONPATH=src python -m repro_torch.launch.scan_study plans
+  PYTHONPATH=src python -m repro_torch.launch.scan_study plans \
+      [--dk 16 --dv 64 --bhs 25,50,100,200 --ss 64,128,256,500,1024,2048]
   PYTHONPATH=src python -m repro_torch.launch.scan_study rounding
 
 ``stamps``: builds ``csrc/mlstm_scan.cu`` with ``-DMLSTM_STAMPS`` (a
@@ -11,9 +12,10 @@ library of its own under ``build/kernels/``), runs the single pass once at
 cycles of each phase of the kernel in every chunk.
 
 ``plans``: device time of one call under each design, forced, over row-heads
-x sequence lengths at dk = dv = 512 (xlstm-350m's heads), from a profiler
-window (the sum over a call's kernels), beside the design ``scan_plan``
-picks.
+(``--bhs``) x sequence lengths (``--ss``) at key and value dims ``--dk`` and
+``--dv`` (default 512, xlstm-350m's heads; hymba-1.5b's SSD heads are dk 16,
+dv 64 at 25 row-heads a batch row), from a profiler window (the sum over a
+call's kernels), beside the design ``scan_plan`` picks.
 
 ``rounding``: at hymba's shape (BH 200, dk 16, dv 64, scale 1.0) the
 kernel's and the plain version's bf16 outputs against the float32 result
@@ -107,18 +109,18 @@ def device_ms(fn, iters: int = 5) -> float:
                ) / iters / 1e3
 
 
-def plans(card: str) -> None:
-    d = 512
-    for bh in PLAN_BH:
-        for s in PLAN_S:
-            q, k, v, logf, ig = scan_inputs(bh, s, d, d, bh * 7919 + s)
+def plans(card: str, dk: int = 512, dv: int = 512, bhs=PLAN_BH,
+          ss=PLAN_S) -> None:
+    for bh in bhs:
+        for s in ss:
+            q, k, v, logf, ig = scan_inputs(bh, s, dk, dv, bh * 7919 + s)
             ms = {design: device_ms(lambda design=design: kscan.run(
                       q, k, v, logf, ig, design=design))
                   for design in kscan.DESIGNS}
-            print(json.dumps({"study": "plans", "bh": bh, "s": s, "dk": d,
-                              "dv": d, "device_ms": ms,
+            print(json.dumps({"study": "plans", "bh": bh, "s": s, "dk": dk,
+                              "dv": dv, "device_ms": ms,
                               "faster": min(ms, key=ms.get),
-                              "plan": kscan.scan_plan(bh, s, d, d).design,
+                              "plan": kscan.scan_plan(bh, s, dk, dv).design,
                               "card": card}), flush=True)
             del q, k, v, logf, ig
             torch.cuda.empty_cache()
@@ -200,11 +202,21 @@ def rounding(card: str) -> None:
         "card": card}), flush=True)
 
 
+def _ints(text: str) -> tuple:
+    return tuple(int(x) for x in text.split(","))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("study", choices=("stamps", "plans", "rounding"))
     ap.add_argument("--bh", type=int, default=32)
     ap.add_argument("--s", type=int, default=256)
+    ap.add_argument("--dk", type=int, default=512)
+    ap.add_argument("--dv", type=int, default=512)
+    ap.add_argument("--bhs", type=_ints, default=PLAN_BH,
+                    help="plans: row-heads, comma-separated")
+    ap.add_argument("--ss", type=_ints, default=PLAN_S,
+                    help="plans: sequence lengths, comma-separated")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_study measures the CUDA device; none found")
@@ -212,7 +224,7 @@ def main(argv=None) -> None:
     if args.study == "stamps":
         stamps(args.bh, args.s, card)
     elif args.study == "plans":
-        plans(card)
+        plans(card, args.dk, args.dv, args.bhs, args.ss)
     else:
         rounding(card)
 

@@ -7,10 +7,10 @@ the CUDA device.
 Decode steps are CPU-bursty time-sensitive jobs; application hints guard
 the cache-slot allocator.  ``--reduced`` (the default) serves the tiny
 same-family config; ``--no-reduced`` serves the published widths and depth.
-Any ported family serves: dense (llama3.2-1b, qwen2-0.5b, ...), MoE
-(qwen2-moe-a2.7b) and xLSTM (xlstm-350m).  The
-background training lane of the reference driver waits for the trainer's
-port (ROADMAP.md).
+Any ported family serves: dense (llama3.2-1b, qwen2-0.5b, stablelm-3b,
+...), MoE (qwen2-moe-a2.7b), xLSTM (xlstm-350m) and hybrid (hymba-1.5b).
+The background training lane of the reference driver waits for the
+trainer's port (ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -1,22 +1,25 @@
-"""SSM mixers of xLSTM: the mLSTM block (matrix memory) and the sLSTM block
-(scalar memory).
+"""SSM mixers: xLSTM's mLSTM block (matrix memory) and sLSTM block (scalar
+memory), and the mamba-2/SSD-style heads of hymba's parallel SSM path.
 
-The mLSTM sequence mix runs the chunkwise mLSTM scan kernel
-(``ops.mlstm_scan``, K3); its decode step is one step of the recurrence in
-plain PyTorch, as in the reference.  The sLSTM block is a per-channel
-linear recurrence, which the reference evaluates with an associative scan
-that has no Pallas kernel; here it is a log-depth doubling scan over time
-with the same combine.  A closed form through the cumulative product
-of the forget gates is not used: over about a thousand steps that product
-underflows in float32.
+The mLSTM and SSD sequence mixes run the chunkwise mLSTM scan kernel
+(``ops.mlstm_scan``, K3; SSD with q = C, k = B, input weight dt, decay
+-exp(a_log) dt and scale 1.0); their decode steps are one step of the
+recurrence in plain PyTorch, as in the reference.  The sLSTM block is a
+per-channel linear recurrence, which the reference evaluates with an
+associative scan that has no Pallas kernel; here it is a log-depth
+doubling scan over time with the same combine.  A closed form through the
+cumulative product of the forget gates is not used: over about a thousand
+steps that product underflows in float32.
 
 Decode state conventions (per layer):
 * mLSTM : {"c": (B, H, hd, hd) f32, "n": (B, H, hd) f32}
+* SSD   : {"c": (B, H, n, hd) f32, "n": (B, H, n) f32}, n = ``ssm.state_dim``
 * sLSTM : {"c": (B, d) f32, "n": (B, d) f32}
 
 Decode steps write their new state into ``out`` (a dict of tensors of the
 state's shapes) when one is given, and never into the state they read.
-The SSD heads of hymba wait for a later slice (ROADMAP.md).
+The SSD heads' ``a_log`` is float32 whatever ``cfg.dtype`` is, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -108,6 +111,80 @@ def mlstm_decode(cfg, p, x, state, out=None):
     den = (qt * n).sum(-1).abs().clamp(min=1.0)
     hvec = (num / den[..., None]).to(x.dtype)
     hvec = L.rmsnorm(p["norm"], hvec).reshape(b, 1, di)
+    y = L.linear(p["wo"], hvec * F.silu(L.linear(p["gate"], x)))
+    return y, new
+
+
+# ---------------------------------------------------------------------------
+# SSD / mamba-2 heads (hymba's parallel path)
+# ---------------------------------------------------------------------------
+
+def ssd_init(gen, cfg, lead: tuple = ()):
+    d = cfg.d_model
+    h = cfg.n_heads
+    n = cfg.ssm.state_dim
+    hd = cfg.hd
+    dt = cfg.dtype
+    return {
+        "wv": L.linear_init(gen, d, h * hd, dt, lead=lead),      # u (values)
+        "wb": L.linear_init(gen, d, h * n, dt, lead=lead),       # B (k analogue)
+        "wc": L.linear_init(gen, d, h * n, dt, lead=lead),       # C (q analogue)
+        "wdt": L.linear_init(gen, d, h, dt, bias=True, lead=lead),
+        "wo": L.linear_init(gen, h * hd, d, dt, lead=lead),
+        "gate": L.linear_init(gen, d, h * hd, dt, lead=lead),
+        "a_log": torch.zeros((*lead, h), dtype=torch.float32,   # decay rates
+                             device=gen.device),
+    }
+
+
+def _ssd_proj(cfg, p, x):
+    b, s, d = x.shape
+    h = cfg.n_heads
+    n = cfg.ssm.state_dim
+    hd = cfg.hd
+
+    def heads(y, w):
+        return y.reshape(b, s, h, w).transpose(1, 2)             # (B,H,S,w)
+
+    v = heads(L.linear(p["wv"], x), hd)
+    kb = heads(L.linear(p["wb"], x), n)
+    qc = heads(L.linear(p["wc"], x), n)
+    dt = F.softplus(L.linear(p["wdt"], x).float()).transpose(1, 2)  # (B,H,S)
+    a = -torch.exp(p["a_log"])[None, :, None]                    # (1,H,1) < 0
+    logf = a * dt                                                # log decay
+    return qc, kb, v, logf, dt, (b, s, h, n, hd)
+
+
+def ssd_forward(cfg, p, x, *, return_state=False):
+    qc, kb, v, logf, ig, (b, s, h, n, hd) = _ssd_proj(cfg, p, x)
+    hseq = ops.mlstm_scan(qc.reshape(b * h, s, n), kb.reshape(b * h, s, n),
+                          v.reshape(b * h, s, hd), logf.reshape(b * h, s),
+                          ig.reshape(b * h, s), scale=1.0)
+    hseq = hseq.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
+    y = L.linear(p["wo"], hseq * F.silu(L.linear(p["gate"], x)))
+    if return_state:
+        return y, _mlstm_final_state(qc, kb, v, logf, ig)
+    return y
+
+
+def ssd_decode(cfg, p, x, state, out=None):
+    """Single-step recurrence, x: (B,1,d): no ``hd ** -0.5`` on q, and the
+    denominator max(|q . n|, 1)."""
+    qc, kb, v, logf, ig, (b, s, h, n, hd) = _ssd_proj(cfg, p, x)
+    qt = qc[:, :, 0].float()                              # (B,H,n)
+    kt = kb[:, :, 0].float()
+    vt = v[:, :, 0].float()                               # (B,H,hd)
+    f = torch.exp(logf[..., 0])                           # (B,H)
+    it = ig[..., 0]
+    new = out if out is not None else {k: torch.empty_like(t)
+                                       for k, t in state.items()}
+    c = torch.mul(state["c"], f[..., None, None], out=new["c"])
+    c.view(b * h, n, hd).baddbmm_((it[..., None] * kt).reshape(b * h, n, 1),
+                                  vt.reshape(b * h, 1, hd))
+    nrm = torch.add(f[..., None] * state["n"], it[..., None] * kt, out=new["n"])
+    num = (qt[..., None, :] @ c)[..., 0, :]               # (B,H,hd)
+    den = (qt * nrm).sum(-1).abs().clamp(min=1.0)
+    hvec = (num / den[..., None]).to(x.dtype).reshape(b, 1, h * hd)
     y = L.linear(p["wo"], hvec * F.silu(L.linear(p["gate"], x)))
     return y, new
 

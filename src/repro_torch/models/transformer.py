@@ -7,9 +7,11 @@ is heterogeneous (xLSTM's sLSTM blocks), stored without that axis.  A
 segment runs as a Python loop over its layers.
 
 Families ported: dense (GQA + SwiGLU), MoE without MLA (GQA + MoE FFN,
-leading dense layers per ``first_k_dense``) and SSM (xLSTM: groups of
-mLSTM blocks and one sLSTM block, no FFN).  The others raise
-``NotImplementedError`` naming their ROADMAP.md item.
+leading dense layers per ``first_k_dense``), SSM (xLSTM: groups of mLSTM
+blocks and one sLSTM block, no FFN) and hybrid (hymba: attention and SSD
+heads side by side in every layer, averaged; sliding-window attention in
+scanned runs, full attention in the ``"single"`` global layers).  The
+others raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 Modes:
 * ``prefill`` / ``prefill_batch`` : forward that also builds the caches
@@ -34,14 +36,13 @@ from .weights import tree_map
 class Segment:
     kind: str        # "scan" | "single"
     n: int
-    mixer: str       # "attn" | "mlstm" | "slstm"
+    mixer: str       # "attn" | "hybrid" | "mlstm" | "slstm"
     ffn: str         # "swiglu" | "moe" | "none"
     window: int = 0
     cross: bool = False
 
 
 _WAITING = {
-    "hybrid": "SSM/hybrid: hymba's SSD heads",
     "audio": "enc-dec/VLM",
     "vlm": "enc-dec/VLM",
 }
@@ -69,6 +70,19 @@ def build_plan(cfg: ArchConfig) -> list:
         if rem:
             plan.append(Segment("scan", rem, "mlstm", "none"))
         return plan
+    if cfg.family == "hybrid":                  # hymba
+        plan = []
+        prev = 0
+        for g in sorted(cfg.global_attn_layers):
+            if g > prev:
+                plan.append(Segment("scan", g - prev, "hybrid", "swiglu",
+                                    window=cfg.sliding_window))
+            plan.append(Segment("single", 1, "hybrid", "swiglu", window=0))
+            prev = g + 1
+        if prev < cfg.n_layers:
+            plan.append(Segment("scan", cfg.n_layers - prev, "hybrid", "swiglu",
+                                window=cfg.sliding_window))
+        return plan
     if cfg.moe is not None:
         plan = []
         if cfg.first_k_dense:
@@ -93,8 +107,10 @@ def _lead(seg: Segment) -> tuple:
 def _layer_init(gen, cfg: ArchConfig, seg: Segment, lead: tuple = ()):
     dev = gen.device
     p = {"norm1": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev, lead=lead)}
-    if seg.mixer == "attn":
+    if seg.mixer in ("attn", "hybrid"):
         p["attn"] = A.gqa_init(gen, cfg, lead=lead)
+    if seg.mixer == "hybrid":
+        p["ssd"] = S.ssd_init(gen, cfg, lead=lead)
     elif seg.mixer == "mlstm":
         p["mixer"] = S.mlstm_init(gen, cfg, lead=lead)
     elif seg.mixer == "slstm":
@@ -119,6 +135,17 @@ def _apply_mixer_seq(cfg, seg, lp, xn, positions, *, want_cache, smax,
                                           seg.window, quant=kv_quant)
         return A.gqa_forward(cfg, lp["attn"], xn, positions,
                              window=seg.window), None
+    if seg.mixer == "hybrid":
+        if want_cache:
+            ya, kv = A.gqa_forward(cfg, lp["attn"], xn, positions,
+                                   window=seg.window, return_cache=True)
+            ys, st = S.ssd_forward(cfg, lp["ssd"], xn, return_state=True)
+            cache = {"kv": A.gqa_prefill_cache(cfg, smax, kv["k"], kv["v"],
+                                               seg.window, quant=kv_quant),
+                     "ssd": st}
+            return 0.5 * (ya + ys), cache
+        ya = A.gqa_forward(cfg, lp["attn"], xn, positions, window=seg.window)
+        return 0.5 * (ya + S.ssd_forward(cfg, lp["ssd"], xn)), None
     if seg.mixer == "mlstm":
         if want_cache:
             return S.mlstm_forward(cfg, lp["mixer"], xn, return_state=True)
@@ -158,6 +185,13 @@ def _apply_layer_decode(cfg, seg, lp, x, cache, pos, *, out=None,
     if seg.mixer == "attn":
         y, new_cache = A.gqa_decode(cfg, lp["attn"], xn, cache, pos,
                                     window=seg.window, out=out)
+    elif seg.mixer == "hybrid":
+        ya, kv = A.gqa_decode(cfg, lp["attn"], xn, cache["kv"], pos,
+                              window=seg.window,
+                              out=None if out is None else out["kv"])
+        ys, st = S.ssd_decode(cfg, lp["ssd"], xn, cache["ssd"],
+                              out=None if out is None else out["ssd"])
+        y, new_cache = 0.5 * (ya + ys), {"kv": kv, "ssd": st}
     elif seg.mixer == "mlstm":
         y, new_cache = S.mlstm_decode(cfg, lp["mixer"], xn, cache, out=out)
     elif seg.mixer == "slstm":
@@ -343,6 +377,11 @@ class Model(nn.Module):
         if seg.mixer == "slstm":
             return {"c": z((b, cfg.d_model), torch.float32),
                     "n": z((b, cfg.d_model), torch.float32)}
+        if seg.mixer == "hybrid":   # no int8 variant here, as in the reference
+            h, n = cfg.n_heads, cfg.ssm.state_dim
+            return {"kv": {"k": z((b, s, kh, hd), dt), "v": z((b, s, kh, hd), dt)},
+                    "ssd": {"c": z((b, h, n, hd), torch.float32),
+                            "n": z((b, h, n), torch.float32)}}
         if self.kv_quant:
             return {"k": z((b, s, kh, hd), torch.int8),
                     "v": z((b, s, kh, hd), torch.int8),

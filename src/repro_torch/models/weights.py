@@ -40,15 +40,28 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+# Leaves the models keep in float32 whatever ``cfg.dtype`` is: the SSD
+# heads' decay rates, as the reference's ``ssd_init`` makes them.
+FLOAT32_LEAVES = frozenset({"a_log"})
+
+
 def params_from_numpy(tree, device="cuda", dtype=None):
     """numpy tree -> torch tree on ``device``; floating leaves are cast to
-    ``dtype`` when one is given, other leaves keep their type."""
+    ``dtype`` when one is given, except those named in ``FLOAT32_LEAVES``,
+    which stay float32; other leaves keep their type."""
     dt = dtype_of(dtype) if dtype is not None else None
 
-    def one(a):
+    def one(a, name):
         t = _to_tensor(a)
         if dt is not None and t.is_floating_point():
-            t = t.to(dt)
+            t = t.to(torch.float32 if name in FLOAT32_LEAVES else dt)
         return t.to(device)
 
-    return tree_map(one, tree)
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return one(node, name)
+
+    return walk(tree)

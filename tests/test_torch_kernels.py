@@ -256,9 +256,15 @@ def test_scan_plan_covers_the_sequence_and_columns_once(bh, s, dk, dv):
     for y in range(-(-dv // plan.cols)):
         cols[y * plan.cols:(y + 1) * plan.cols] += 1
     assert (cols == 1).all()
-    few = (bh * -(-dv // plan.cols) <= tscan.CP_MAX_BLOCKS
-           and plan.n_chunks >= tscan.CP_MIN_CHUNKS
-           and (plan.n_chunks - 1) * bh * dk * dv * 4 <= tscan.CP_MAX_SCRATCH)
+    blocks = bh * -(-dv // plan.cols)
+    if dk <= tscan.CP_SMALL_DK:
+        few = (plan.n_chunks == 1 or blocks <= tscan.CP_SMALL_MAX_BLOCKS
+               or (blocks <= tscan.SMS
+                   and plan.n_chunks >= tscan.CP_SMALL_MIN_CHUNKS))
+    else:
+        few = (blocks <= tscan.CP_MAX_BLOCKS
+               and plan.n_chunks >= tscan.CP_MIN_CHUNKS)
+    few = few and (plan.n_chunks - 1) * bh * dk * dv * 4 <= tscan.CP_MAX_SCRATCH
     assert plan.design == ("chunk_parallel" if few else "single")
 
 
@@ -282,6 +288,22 @@ def test_scan_plan_picks_chunk_parallel_for_bulk_prefill():
 ])
 def test_scan_plan_follows_the_measured_crossover(bh, s, design):
     assert tscan.scan_plan(bh, s, 512, 512).design == design
+
+
+@pytest.mark.parametrize("bh,s,design", [
+    # the faster design in the H100 timings of both at hymba's SSD heads
+    # (dk = 16, dv = 64): every point timed
+    *[(bh, s, "chunk_parallel") for bh in (25, 50)
+      for s in (64, 128, 256, 500, 1024, 2048)],
+    (100, 64, "chunk_parallel"), (100, 128, "single"), (100, 256, "single"),
+    (100, 500, "chunk_parallel"), (100, 1024, "chunk_parallel"),
+    (100, 2048, "chunk_parallel"),
+    (200, 64, "chunk_parallel"), *[(200, s, "single")
+                                   for s in (128, 256, 500, 1024, 2048)],
+])
+def test_scan_plan_follows_the_measured_crossover_at_small_states(bh, s,
+                                                                  design):
+    assert tscan.scan_plan(bh, s, 16, 64).design == design
 
 
 def _scan_arrays(bh, s, dk, dv, seed):

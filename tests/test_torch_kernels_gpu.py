@@ -3,8 +3,9 @@
 Run on a machine with an H100 (``pytest -m gpu tests/test_torch_kernels_gpu.py``);
 without a CUDA device every test skips.  Whether there is a device is decided
 in the ``cuda`` fixture, never at import, so every pytest-xdist worker
-collects the same tests.  Attention: float32 to 1e-4 (the kernel sums in
-another order and uses the device ``exp``), bfloat16 to 3e-2.  Router:
+collects the same tests.  Attention (head dims 16, 32, 64, 80 and 128):
+float32 to 1e-4 (the kernel sums in another order and uses the device
+``exp``), bfloat16 to 3e-2.  Router:
 indices identical, weights to 1e-6.  mLSTM scan: float32 to 1e-3 (the
 reference's bound for chunkwise against the recurrence; kernel and plain
 version cut the sequence into chunks of different lengths), bfloat16 to
@@ -56,6 +57,13 @@ def _randn(shape, dtype, device, seed):
     (2, 100, 300, 4, 2, 32, False, 0),      # non-causal, ragged Sq != Sk
     (2, 200, 200, 4, 1, 16, True, 64),      # hd 16, window
     (1, 300, 300, 14, 2, 32, True, 100),    # G = 7, window
+    (8, 256, 256, 32, 32, 80, True, 0),     # stablelm-3b prefill, hd 80
+    (1, 500, 500, 32, 32, 80, True, 0),     # hd 80, ragged
+    (2, 300, 300, 8, 8, 80, True, 100),     # hd 80, window, ragged
+    (2, 100, 300, 4, 2, 80, False, 0),      # hd 80, non-causal, Sq != Sk
+    (2, 64, 200, 8, 2, 80, True, 48),       # hd 80, one 64-row tile, window
+    (8, 256, 256, 25, 5, 64, True, 1024),   # hymba-1.5b prefill, G = 5
+    (1, 1100, 1100, 25, 5, 64, True, 1024), # hymba past its window
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kh, hd,
                                     causal, window):
@@ -79,6 +87,10 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kh, hd,
     (6, 512, 1, 1, 64, [1, 86, 171, 256, 341, 426]),      # (BH, 1, D) form
     (2, 2048, 1, 1, 128, [1, 1025]),
     (8, 256, 1, 1, 32, [1, 33, 65, 97, 129, 161, 193, 225]),
+    (8, 1024, 32, 32, 80, [700] * 8),                     # stablelm-3b, hd 80
+    (8, 1024, 32, 32, 80, [1, 63, 64, 65, 300, 700, 1000, 1024]),
+    (3, 300, 4, 2, 80, [300, 1, 150]),                    # hd 80, G = 2
+    (8, 1024, 25, 5, 64, [1024, 700, 1, 500, 64, 65, 900, 128]),  # hymba
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, lengths):
     q = _randn((b, 1, h, hd), dtype, cuda, 4)
@@ -110,6 +122,10 @@ def _edge_lengths(s, b, kh):
     (6, 512, 16, 1, 128),       # G = 16, hd 128
     (6, 700, 8, 2, 32),         # S_max not a multiple of the tile
     (6, 256, 8, 8, 16),         # hd 16
+    (8, 1024, 32, 32, 80),      # stablelm-3b decode, hd 80, G = 1
+    (6, 512, 32, 2, 80),        # hd 80, G = 16
+    (8, 1024, 25, 5, 64),       # hymba-1.5b, G = 5
+    (8, 2048, 25, 5, 64),       # hymba's global layers at S_max 2048
 ])
 def test_decode_kernel_split_edges(cuda, dtype, b, s, h, kh, hd):
     """Lengths at the split plan's edges.  A row of length 0 gets 0, as the
@@ -135,6 +151,23 @@ def test_decode_kernel_is_deterministic_and_leaves_counters_zero(cuda):
     q = _randn((b, 1, h, hd), torch.bfloat16, cuda, 16)
     k = _randn((b, s, kh, hd), torch.bfloat16, cuda, 17)
     v = _randn((b, s, kh, hd), torch.bfloat16, cuda, 18)
+    lens = torch.tensor([700, 1, 1024, 129, 128, 127, 500, 64],
+                        dtype=torch.int32, device=cuda)
+    first = kdecode.decode_attention(q, k, v, lens)
+    second = kdecode.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not kdecode._counter_buffer(q.device, stream, b * kh).any()
+
+
+def test_decode_kernel_at_head_dim_80_is_deterministic(cuda):
+    """hd 80 reads a row with 10 of a 16-lane group: two calls still give
+    bit-identical outputs, and the counters are back at 0."""
+    b, s, h, kh, hd = 8, 1024, 32, 32, 80
+    q = _randn((b, 1, h, hd), torch.bfloat16, cuda, 19)
+    k = _randn((b, s, kh, hd), torch.bfloat16, cuda, 20)
+    v = _randn((b, s, kh, hd), torch.bfloat16, cuda, 21)
     lens = torch.tensor([700, 1, 1024, 129, 128, 127, 500, 64],
                         dtype=torch.int32, device=cuda)
     first = kdecode.decode_attention(q, k, v, lens)
@@ -371,6 +404,24 @@ def test_scan_kernel_is_deterministic(cuda, design):
     second = kscan.mlstm_scan(q, k, v, logf, i, design=design)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def test_scan_kernel_float32_keeps_its_precision_at_ssd_decays(cuda):
+    """hymba's SSD gates (decay up to e^-5 a step, input weights up to 5,
+    scale 1.0): kernel (chunks of 64) and plain version (chunks of 256)
+    both take the decay between two steps from float64 sums, and agree to
+    5e-5 where outputs reach 20 and more; with float32 sums the plain
+    version misses that bound (tests/test_torch_ssm.py)."""
+    bh, s = 200, 512
+    q, k = (_randn((bh, s, 16), torch.float32, cuda, 40 + j) for j in range(2))
+    v = _randn((bh, s, 64), torch.float32, cuda, 42)
+    dt = torch.nn.functional.softplus(
+        _randn((bh, s), torch.float32, cuda, 43) * 1.5)
+    want = ref.mlstm_chunkwise_ref(q, k, v, -dt, dt, scale=1.0, chunk=256)
+    got = kscan.mlstm_scan(q, k, v, -dt, dt, scale=1.0)
+    torch.cuda.synchronize()
+    assert want.abs().max() > 20
+    assert (got - want).abs().max().item() < 5e-5
 
 
 def test_scan_kernel_refuses_what_it_does_not_take(cuda):

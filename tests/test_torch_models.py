@@ -16,7 +16,11 @@ from repro.configs import get_arch
 from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models.transformer import Model as JModel
+from repro_torch.configs import all_archs
 from repro_torch.configs import get_arch as tget_arch
+from repro_torch.kernels import decode_attention as kdecode
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import mlstm_scan as kscan
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models.transformer import Model as TModel
@@ -277,8 +281,79 @@ def test_params_from_numpy_keeps_bfloat16():
     assert np.array_equal(t.float().numpy(), np.asarray(j.astype(jnp.float32)))
 
 
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "hymba-1.5b",
-                                  "seamless-m4t-medium", "internvl2-1b"])
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "seamless-m4t-medium",
+                                  "internvl2-1b"])
 def test_build_plan_names_waiting_families(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_plan(tget_arch(name))
+
+
+@pytest.mark.parametrize("name", all_archs())
+def test_served_head_dims_are_kernel_head_dims(name):
+    """Every registered arch whose family the port serves gets its
+    full-size head dims through the kernels of its path: attention (K1,
+    K2) at ``cfg.hd``, the scan (K3) at its key and value dims in bfloat16.
+    MLA's query-key dim differs from its value dim, which the attention
+    kernels do not take: that family is named as waiting."""
+    cfg = tget_arch(name)
+    if cfg.mla is not None:
+        qk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        assert qk != cfg.mla.v_head_dim
+        with pytest.raises(NotImplementedError, match="MLA"):
+            build_plan(cfg)
+        return
+    try:
+        plan = build_plan(cfg)
+    except NotImplementedError as e:
+        assert "ROADMAP" in str(e)
+        return
+    mixers = {s.mixer for s in plan}
+    if mixers & {"attn", "hybrid"}:
+        assert cfg.hd in kflash.HEAD_DIMS and cfg.hd in kdecode.HEAD_DIMS
+    scans = []
+    if "mlstm" in mixers:
+        dk = cfg.ssm.expand * cfg.d_model // cfg.n_heads
+        scans.append((dk, dk))
+    if "hybrid" in mixers:
+        scans.append((cfg.ssm.state_dim, cfg.hd))
+    for dk, dv in scans:
+        assert dk % 8 == 0 and dv % 8 == 0 and dk <= kscan.MAX_DK
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_head_dim_80_model_matches_reference(batched):
+    """stablelm-3b's head dim, 80, on its reduced config: prefill (or a
+    ragged prefill_batch), then greedy decode steps."""
+    cfg = dataclasses.replace(get_arch("stablelm-3b").reduced(), head_dim=80)
+    tcfg = dataclasses.replace(tget_arch("stablelm-3b").reduced(), head_dim=80)
+    jm = JModel(cfg)
+    jp = jax.jit(jm.init_params)(jax.random.PRNGKey(0))
+    tm = TModel(tcfg, device="cpu")
+    tp = tm.adopt(params_from_numpy(np_tree(jp), "cpu"))
+    assert tp["segments"][0]["attn"]["wq"]["w"].shape[-1] == 4 * 80
+    rng = np.random.default_rng(3)
+    if batched:
+        lengths = np.array([4, 9, 6], np.int32)
+        toks = np.zeros((3, 9), np.int32)
+        for i, n in enumerate(lengths):
+            toks[i, :n] = rng.integers(1, cfg.vocab_size, n)
+        jl, jc = jm.prefill_batch(jp, {"tokens": jnp.asarray(toks),
+                                       "lengths": jnp.asarray(lengths)}, 24)
+        tl, tc = tm.prefill_batch(tp, {"tokens": torch.from_numpy(toks),
+                                       "lengths": torch.from_numpy(lengths)}, 24)
+    else:
+        toks = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 24)
+        tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, 24)
+    close(tl, jl, 1e-4)
+    cache_close(tc, jc, 1e-4)
+    pos = toks.shape[1]
+    for _ in range(6):
+        jt = np.asarray(jnp.argmax(jl[:, -1], -1)).astype(np.int32)[:, None]
+        tt = tl[:, -1].argmax(-1).numpy().astype(np.int32)[:, None]
+        assert np.array_equal(jt, tt)
+        jl, jc = jm.decode_step(jp, jc, jnp.asarray(jt), pos)
+        tl, tc = tm.decode_step(tp, tc, torch.from_numpy(tt), pos)
+        close(tl, jl, 1e-4)
+        pos += 1
+    cache_close(tc, jc, 1e-4)

@@ -108,6 +108,24 @@ def test_scan_oracle_matches_reference_oracle(scale):
           r, 1e-3)
 
 
+def test_scan_plain_keeps_its_precision_at_ssd_decays():
+    """hymba's SSD gates decay by up to e^-5 a step, so the cumulative log
+    decay of a 256-step chunk reaches several hundred; the decay between
+    two steps is still exact to float32 (differences of float64 sums),
+    where differences of float32 sums miss this bound several times over.
+    Against the step-by-step oracle."""
+    rng = np.random.default_rng(0)
+    q, k = (torch.from_numpy(rng.standard_normal((4, 512, 16)).astype(np.float32))
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((4, 512, 64)).astype(np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((4, 512)).astype(np.float32)) * 1.5)
+    want = tref.mlstm_scan_ref(q, k, v, -dt, dt, scale=1.0)
+    got = tref.mlstm_chunkwise_ref(q, k, v, -dt, dt, scale=1.0, chunk=256)
+    assert want.abs().max() > 20
+    assert (got - want).abs().max().item() < 5e-5
+
+
 def test_scan_plain_bfloat16_returns_input_dtype():
     arrs = scan_inputs(2, 64, 16, 16, seed=30)
     t = torch_of(*arrs)
