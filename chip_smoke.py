@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Drives the port's serving paths -- the UFS live scheduler, the
-continuous-batching engine and four models at their published widths:
+continuous-batching engine and the models at their published widths:
 llama3.2-1b (dense GQA), qwen2-moe-a2.7b (MoE), xlstm-350m (mLSTM and
-sLSTM blocks) and hymba-1.5b (attention and SSD heads side by side,
-sliding-window attention in 29 of 32 layers) -- on the card, and holds
-each hand-written Hopper kernel against its plain PyTorch version.
+sLSTM blocks), hymba-1.5b (attention and SSD heads side by side,
+sliding-window attention in 29 of 32 layers), internvl2-1b (the VLM
+backbone, text only through the engine), deepseek-v3-671b (MLA and MoE, 5
+of its 61 layers) and, at model level, seamless-m4t-medium (encoder over
+stub frames, cross-attention in every decoder layer) -- on the card, and
+holds each hand-written Hopper kernel against its plain PyTorch version.
 Phases, each printed on its own line and each fatal:
 
 1. device   -- the card's name and power limit, compute capability 9.0
@@ -23,17 +26,20 @@ Phases, each printed on its own line and each fatal:
                relative; the mLSTM scan (K3)
                float32 to 1e-3 and bfloat16 to 3e-2 of max(1, max |plain|).
                CUDA-event times of back-to-back calls of the kernel, the
-               plain version and (for attention) one library call, and the
-               kernel's own device time from the profiler (K1 and K2: each
-               call is one launch, and no other kernel runs; K3: the sum
-               over the one to three launches of its plan), beside the
-               kernel's bound;
+               plain version and (for attention) one library call, SDPA,
+               whose backend is named, and the kernel's own device time
+               from the profiler (K1 and K2: each call is one launch, and
+               no other kernel runs; K3: the sum over the one to three
+               launches of its plan), beside the kernel's bound;
                K1 and K2 at llama3.2-1b's, qwen2-moe-a2.7b's, stablelm-3b's
-               (head dim 80) and hymba-1.5b's shapes, K3 at xlstm-350m's
-               admission and bulk-prefill shapes under both of its plans
-               (single pass, chunk-parallel) and at hymba's SSD heads, K4
-               at qwen2-moe's decode and admission shapes (one launch a
-               call)
+               (head dim 80) and hymba-1.5b's shapes, K1 at deepseek-v3's
+               MLA admission (query-key dim 192, value dim 128) and
+               seamless's encoder, K1 beside K2 at seamless's
+               cross-attention decode (one query over 1024 positions), K3
+               at xlstm-350m's admission and bulk-prefill shapes under both
+               of its plans (single pass, chunk-parallel) and at hymba's
+               SSD heads, K4 at qwen2-moe's decode and admission shapes (one
+               launch a call)
 4. model    -- float32, kernel path against the plain path (logits to
                1e-3, greedy tokens identical) over prefill_batch on ragged
                prompts and 8 decode steps: llama3.2-1b and xlstm-350m at
@@ -43,19 +49,27 @@ Phases, each printed on its own line and each fatal:
                width on prompts up to 1300 tokens at S_max 2048, so that
                the ring of its windowed layers (1024) wraps: with 4 layers
                to 1e-3, at full depth tokens identical, its logits' error
-               printed beside the plain path's own noise floor
+               printed beside the plain path's own noise floor;
+               seamless-m4t-medium (frames from a seed) and internvl2-1b (a
+               256-token vision prefix from a seed, prompts of 260-400
+               tokens) at full size; deepseek-v3-671b at full width with
+               one dense and one MoE layer
 5. engine   -- the engine's tokens equal a direct prefill + decode loop, for
-               each of the five at the sizes above (hymba at full depth;
-               qwen2-moe at capacity factor 64, where no expert
-               overflows; xlstm and hymba on a prompt of one whole length
-               bucket, so no pad token enters a recurrent state or a ring)
-6. serving  -- per model, at full width and depth in bfloat16 (the models
-               with recurrent heads, xlstm-350m and hymba-1.5b, first print
-               their prefill_batch logits, kernel path against plain path,
-               as max abs error): 8
+               each of those at the sizes above but seamless (the engine
+               passes no frames; hymba at full depth; the MoE models at
+               capacity factor 64, where no expert overflows; xlstm and
+               hymba on a prompt of one whole length bucket, so no pad
+               token enters a recurrent state or a ring)
+6. serving  -- per model, at full width and depth in bfloat16 (deepseek-v3:
+               3 dense and 2 MoE layers) (the models with recurrent heads
+               or a stub frontend first print their prefill_batch logits,
+               kernel path against plain path, as max abs error): 8
                time-sensitive requests and 2 background bulk prefills under
                UFS; every request must finish, and the kernels of that path
-               must have been launched on it (counts set to 0 just before)
+               must have been launched on it (counts set to 0 just before);
+               seamless-m4t-medium's path at model level: prefill_batch of 8
+               prompts over their frames and 31 decode steps, its kernels'
+               counts set to 0 just before and read just after
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -248,12 +262,15 @@ def flash_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return n
 
 
-def flash_bound_ms(q, k, causal, window) -> tuple:
-    b, sq, h, hd = q.shape
-    sk = k.shape[1]
+def flash_bound_ms(q, k, v, causal, window) -> tuple:
+    """q, k and v read once and the output written once, each at its own
+    head dim; 2 dk operations a kept (query, key) pair for Q K^T and 2 dv
+    for P V, at the inputs' peak rate."""
+    b, sq, h, dk = q.shape
+    sk, dv = k.shape[1], v.shape[3]
     es = q.element_size()
-    nbytes = (2 * q.numel() + 2 * k.numel()) * es   # q, out, k, v
-    ops = 4 * b * h * hd * flash_pairs(sq, sk, causal, window)
+    nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * es
+    ops = 2 * b * h * (dk + dv) * flash_pairs(sq, sk, causal, window)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -295,6 +312,16 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
         (1, 500, 500, 32, 32, 80, True, 0),   # stablelm bulk prefill
         (8, 256, 256, 25, 5, 64, True, 1024), # hymba-1.5b admission, G = 5
         (1, 1300, 1300, 25, 5, 64, True, 1024),  # hymba past its window
+        # deepseek-v3 MLA: query-key dim 192, value dim 128 (a 9th entry),
+        # V a strided view as the model passes it
+        (8, 256, 256, 128, 128, 192, True, 0, 128),   # admission
+        (1, 500, 500, 128, 128, 192, True, 0, 128),   # ragged bulk prefill
+        (2, 100, 100, 4, 4, 192, True, 0, 128),       # a small MLA, H = 4
+        # seamless-m4t-medium (H = KH = 16, hd 64), unmasked
+        (8, 1024, 1024, 16, 16, 64, False, 0),  # encoder self-attention
+        (8, 256, 1024, 16, 16, 64, False, 0),   # cross-attention prefill
+        (8, 1, 1024, 16, 16, 64, False, 0),     # cross-attention decode
+        (8, 37, 1024, 16, 16, 64, False, 0),    # ragged Sq = 37, one tile
     ]
     decode_shapes = [
         # b, s, h, kh, hd, lengths
@@ -323,10 +350,12 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
     errs = {"flash": {}, "decode": {}}
     for dt in (torch.float32, torch.bfloat16):
         worst_f = worst_d = 0.0
-        for i, (b, sq, sk, h, kh, hd, causal, window) in enumerate(flash_shapes):
+        for i, (b, sq, sk, h, kh, hd, causal, window, *dv) in enumerate(
+                flash_shapes):
             q = randn((b, sq, h, hd), dt, 10 + i)
             k = randn((b, sk, kh, hd), dt, 20 + i)
-            v = randn((b, sk, kh, hd), dt, 30 + i)
+            v = (randn((b, sk, kh, 128 + dv[0]), dt, 30 + i)[..., 128:] if dv
+                 else randn((b, sk, kh, hd), dt, 30 + i))
             out = kflash.flash_attention(q, k, v, causal=causal, window=window)
             want = ref.grouped_flash_ref(q, k, v, causal=causal, window=window)
             err = (out.float() - want.float()).abs().max().item()
@@ -356,48 +385,105 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
 
     # Times at the serving shapes, bfloat16 as served: llama3.2-1b's, then
     # under a suffix qwen2-moe-a2.7b's, stablelm-3b's (hd 80) and
-    # hymba-1.5b's.
+    # hymba-1.5b's; K1 alone at deepseek-v3's MLA admission (192 / 128)
+    # and seamless-m4t-medium's encoder, and K1 beside K2 on the same
+    # inputs at seamless's cross-attention decode (Sq = 1 over the 1024
+    # encoder positions).
     flash, decode = time_flash(ref, kflash, 8, 256, 32, 8, 64), \
         time_decode(ref, kdecode, 8, 1024, 700, 32, 8, 64)
     for key, d in (("flash_attention", flash), ("decode_attention", decode)):
         log("kernels.time", kernel=key, **d)
+
+    def add(key, d, tag, more):
+        log("kernels.time", kernel=key, tag=tag, **more)
+        d.update({f"{k}_{tag}": v for k, v in more.items()})
+
     for tag, h, kh, hd in (("qwen2moe", 16, 16, 128), ("stablelm", 32, 32, 80),
                            ("hymba", 25, 5, 64)):
-        for key, d, more in (
-                ("flash_attention", flash,
-                 time_flash(ref, kflash, 8, 256, h, kh, hd)),
-                ("decode_attention", decode,
-                 time_decode(ref, kdecode, 8, 1024, 700, h, kh, hd))):
-            log("kernels.time", kernel=key, **more)
-            d.update({f"{k}_{tag}": v for k, v in more.items()})
+        add("flash_attention", flash, tag,
+            time_flash(ref, kflash, 8, 256, h, kh, hd))
+        add("decode_attention", decode, tag,
+            time_decode(ref, kdecode, 8, 1024, 700, h, kh, hd))
+    add("flash_attention", flash, "mla",
+        time_flash(ref, kflash, 8, 256, 128, 128, 192, dv=128))
+    add("flash_attention", flash, "seamless_encoder",
+        time_flash(ref, kflash, 8, 1024, 16, 16, 64, causal=False))
+    add("flash_attention", flash, "cross_decode",
+        time_flash(ref, kflash, 8, 1024, 16, 16, 64, causal=False, sq=1,
+                   seed=80))
+    add("decode_attention", decode, "cross_decode",
+        time_decode(ref, kdecode, 8, 1024, 1024, 16, 16, 64))
     flash["max_abs_err_f32"] = errs["flash"]["float32"]
     decode["max_abs_err_f32"] = errs["decode"]["float32"]
     return {"flash_attention": flash, "decode_attention": decode}
 
 
-def time_flash(ref, kflash, b, s, h, kh, hd) -> dict:
-    """K1 in bfloat16, causal, at one admission shape: CUDA-event times of
-    the kernel, the plain version and SDPA, and the wgmma kernel's own
-    device time (one launch a call)."""
+def sdpa_backend(fn) -> tuple:
+    """Which of SDPA's backends ``fn`` (one default SDPA call) ran, from the
+    names of the kernels a profiler window over one call saw: cudnn,
+    flash, efficient (memory-efficient) or math, and those names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.count})
+    low = " ".join(names).lower()
+    if not names:
+        backend = "not seen"
+    elif "cudnn" in low:
+        backend = "cudnn"
+    elif "flash" in low:
+        backend = "flash"
+    elif "fmha" in low or "memeff" in low or "efficient" in low:
+        backend = "efficient"
+    else:
+        backend = "math"
+    return backend, [n[:80] for n in names[:4]]
+
+
+def time_flash(ref, kflash, b, s, h, kh, hd, dv=None, causal=True,
+               sq=None, seed=70) -> dict:
+    """K1 in bfloat16 at one shape (Sk = s, Sq = ``sq`` or s; ``dv``: a
+    value dim of its own, V a strided view as MLA passes it; q, k and v
+    drawn from ``seed`` and the two seeds after it): CUDA-event times of
+    the kernel, the plain version and SDPA (its backend named), and the
+    wgmma kernel's own device time and launches a call (one)."""
     F = torch.nn.functional
     dt = torch.bfloat16
-    q, k, v = (randn((b, s, n, hd), dt, 70 + j)
-               for j, n in enumerate((h, kh, kh)))
+    sq = sq or s
+    q = randn((b, sq, h, hd), dt, seed)
+    k = randn((b, s, kh, hd), dt, seed + 1)
+    v = (randn((b, s, kh, 128 + dv), dt, seed + 2)[..., 128:] if dv
+         else randn((b, s, kh, hd), dt, seed + 2))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def call():
+        return kflash.flash_attention(q, k, v, causal=causal)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True, scale=hd ** -0.5)
     d = {
-        "ms": cuda_ms(lambda: kflash.flash_attention(q, k, v, causal=True)),
-        "plain_ms": cuda_ms(lambda: ref.grouped_flash_ref(q, k, v, causal=True)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        "device_ms": device_ms(
-            lambda: kflash.flash_attention(q, k, v, causal=True),
-            "flash_fwd_wgmma", alone=True),
+        "ms": cuda_ms(call),
+        "plain_ms": cuda_ms(lambda: ref.grouped_flash_ref(q, k, v,
+                                                          causal=causal)),
+        "library_ms": cuda_ms(library),
+        "device_ms": device_ms(call, "flash_fwd_wgmma", alone=True),
     }
-    d["bound_ms"], d["bound_by"] = flash_bound_ms(q, k, True, 0)
-    d["shape"] = f"B={b} S={s} H={h} KH={kh} hd={hd} causal bf16"
-    got = kflash.flash_attention(q, k, v, causal=True)
-    d["max_abs_err"] = (got.float() - ref.grouped_flash_ref(
-        q, k, v, causal=True).float()).abs().max().item()
+    _, d["launches_per_call"], _ = device_ms_per_call(
+        call, "flash_fwd_wgmma", max_per_call=1)
+    d["library_backend"], d["library_kernels"] = sdpa_backend(library)
+    d["bound_ms"], d["bound_by"] = flash_bound_ms(q, k, v, causal, 0)
+    d["shape"] = (f"B={b} Sq={sq} Sk={s} H={h} KH={kh} hd={hd}"
+                  f"{f' dv={dv}' if dv else ''} "
+                  f"{'causal' if causal else 'unmasked'} bf16")
+    d["max_abs_err"] = (call().float() - ref.grouped_flash_ref(
+        q, k, v, causal=causal).float()).abs().max().item()
     return d
 
 
@@ -421,6 +507,9 @@ def time_decode(ref, kdecode, b, smax, live, h, kh, hd) -> dict:
             lambda: kdecode.decode_attention(q, k, v, lengths),
             "decode_split_kernel", alone=True),
     }
+    _, d["launches_per_call"], _ = device_ms_per_call(
+        lambda: kdecode.decode_attention(q, k, v, lengths),
+        "decode_split_kernel", max_per_call=1)
     d["bound_ms"], d["bound_by"] = decode_bound_ms(q, k, lengths)
     d["n_split"], d["chunk"] = kdecode.split_plan(smax, b, kh)
     d["shape"] = f"B={b} S_max={smax} live={live} H={h} KH={kh} hd={hd} bf16"
@@ -680,16 +769,34 @@ def plain_kernels(ops, ref):
             setattr(ops, n, f)
 
 
+def stub_inputs(cfg, b: int, seed: int) -> dict:
+    """The stub frontends' inputs for ``b`` rows, from a seed: an
+    enc-dec's audio frames (b, encoder_len, d_model), N(0, 1), and a VLM's
+    vision embeddings (b, vision_tokens, d_model) at the token embeddings'
+    scale, 0.02; none for other families."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.encoder_layers:
+        out["frames"] = rng.standard_normal(
+            (b, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+    if cfg.vision_tokens:
+        out["vision_embeds"] = (0.02 * rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.d_model))).astype(np.float32)
+    return out
+
+
 def run_ragged(model, params, prompts, smax: int, steps: int):
-    """prefill_batch on right-padded prompts, then greedy decode steps at
-    the shared position the engine uses.  Returns the logits of every step
-    and the greedy tokens."""
+    """prefill_batch on right-padded prompts (with the family's stub
+    inputs from seed 4), then greedy decode steps at the shared position
+    the engine uses.  Returns the logits of every step and the greedy
+    tokens."""
     lengths = np.array([len(p) for p in prompts], np.int32)
     toks = np.zeros((len(prompts), int(lengths.max())), np.int32)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = p
     logits, caches = model.prefill_batch(
-        params, {"tokens": toks, "lengths": lengths}, smax)
+        params, {"tokens": toks, "lengths": lengths,
+                 **stub_inputs(model.cfg, len(prompts), 4)}, smax)
     out, tokens = [logits[:, 0]], []
     pos = int(lengths.max())
     for _ in range(steps):
@@ -715,16 +822,20 @@ def model_phase(model, params, ops, ref, vocab: int,
     with plain_kernels(ops, ref):
         lp, tp = run_ragged(model, params, prompts, smax, 8)
     err = (lk - lp).abs().max().item()
+    floor = noise_floor(model, params, ops, ref, prompts, smax, lp)
     finite = bool(torch.isfinite(lk).all())
-    log("model", arch=model.cfg.name, dtype="float32", layers=model.cfg.n_layers,
-        d_model=model.cfg.d_model, head_dim=model.cfg.hd,
+    cfg = model.cfg
+    log("model", arch=cfg.name, dtype="float32", layers=cfg.n_layers,
+        encoder_layers=cfg.encoder_layers, first_k_dense=cfg.first_k_dense,
+        stub_inputs=sorted(stub_inputs(cfg, 1, 4)),
+        d_model=cfg.d_model, head_dim=cfg.hd,
         prompt_lengths=list(lengths), smax=smax,
-        window=model.cfg.sliding_window, logits_shape=list(lk.shape),
+        window=cfg.sliding_window, logits_shape=list(lk.shape),
         max_abs_err=err, tolerance=MODEL_TOL if held else None,
-        noise_floor=noise_floor(model, params, ops, ref, prompts, smax, lp),
-        tokens_identical=bool(torch.equal(tk, tp)), finite=finite)
+        noise_floor=floor, tokens_identical=bool(torch.equal(tk, tp)),
+        finite=finite)
     if not (finite and (err < MODEL_TOL or not held) and torch.equal(tk, tp)):
-        raise AssertionError(f"{model.cfg.name}: kernel path disagrees with "
+        raise AssertionError(f"{cfg.name}: kernel path disagrees with "
                              f"the plain path: max err {err}, tokens "
                              f"{tk.tolist()} vs {tp.tolist()}")
 
@@ -784,22 +895,24 @@ def engine_phase(model, params, build_kernel, InferenceEngine, Request,
 
 
 # ---------------------------------------------------------------- phase 6
-def bf16_prefill_phase(model, params, ops, ref, vocab: int) -> None:
-    """bfloat16 prefill_batch of 8 ragged prompts at full width and depth,
-    kernel path against plain path: the logits' max abs error is printed
-    (the float32 check of phase 4 is the one held to a tolerance).  Beside
-    it, as the yardstick of what bfloat16 alone moves, both paths against
-    the plain path of a float32 copy of the model on the same weights."""
+def bf16_prefill_phase(model, params, ops, ref, vocab: int,
+                       lengths=(64, 100, 128, 180, 200, 220, 240, 256)) -> None:
+    """bfloat16 prefill_batch of 8 ragged prompts (with the family's stub
+    inputs) at full width and depth, kernel path against plain path: the
+    logits' max abs error is printed (the float32 check of phase 4 is the
+    one held to a tolerance).  Beside it, as the yardstick of what bfloat16
+    alone moves, both paths against the plain path of a float32 copy of the
+    model on the same weights."""
     from repro_torch.models.transformer import Model
     from repro_torch.models.weights import tree_map
     rng = np.random.default_rng(3)
-    prompts = [rng.integers(0, vocab, n).astype(np.int32)
-               for n in (64, 100, 128, 180, 200, 220, 240, 256)]
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lengths]
     lengths = np.array([len(p) for p in prompts], np.int32)
     toks = np.zeros((len(prompts), int(lengths.max())), np.int32)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = p
-    batch = {"tokens": toks, "lengths": lengths}
+    batch = {"tokens": toks, "lengths": lengths,
+             **stub_inputs(model.cfg, len(prompts), 5)}
     lk, _ = model.prefill_batch(params, batch, 256)
     with plain_kernels(ops, ref):
         lp, _ = model.prefill_batch(params, batch, 256)
@@ -812,6 +925,8 @@ def bf16_prefill_phase(model, params, ops, ref, vocab: int) -> None:
     lk, lp = lk.float(), lp.float()
     finite = bool(torch.isfinite(lk).all())
     log("model.bf16_prefill", arch=model.cfg.name, dtype="bfloat16",
+        prompt_lengths=lengths.tolist(), stub_inputs=sorted(
+            stub_inputs(model.cfg, 1, 5)),
         logits_shape=list(lk.shape), max_abs_err=(lk - lp).abs().max().item(),
         max_abs_plain=lp.abs().max().item(),
         kernel_vs_float32_plain=(lk - l32).abs().max().item(),
@@ -819,6 +934,50 @@ def bf16_prefill_phase(model, params, ops, ref, vocab: int) -> None:
     if not finite:
         raise AssertionError(f"{model.cfg.name}: bf16 prefill_batch logits "
                              "are not finite")
+
+
+def model_path_phase(model, params, counters, required, vocab: int) -> dict:
+    """An encoder-decoder's path at model level (the engine passes no
+    frames), bfloat16 at full width and depth: prefill_batch of 8 ragged
+    prompts over their stub frames, then 31 greedy decode steps (the
+    serving phase's 32 new tokens), with every count in ``counters`` set to
+    0 just before and read just after; each kernel in ``required`` must
+    have been launched, the logits must be finite and the tokens in the
+    vocabulary."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, int(rng.integers(64, 257)))
+               .astype(np.int32) for _ in range(8)]
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, tokens = run_ragged(model, params, prompts, 1024, 31)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    finite = bool(torch.isfinite(logits).all())
+    in_vocab = bool(((tokens >= 0) & (tokens < vocab)).all())
+    log("model.path", arch=model.cfg.name, dtype="bfloat16",
+        prompt_lengths=[len(p) for p in prompts], decode_steps=31,
+        wall_s=wall, launches=launches, finite=finite, in_vocab=in_vocab)
+    if not (finite and in_vocab):
+        raise AssertionError(f"{model.cfg.name}: logits finite {finite}, "
+                             f"tokens in the vocabulary {in_vocab}")
+    if not all(launches[n] > 0 for n in required):
+        raise AssertionError(f"{model.cfg.name}: a kernel of its path was "
+                             f"not launched: {launches}")
+    return launches
+
+
+def tree_bytes(tree, under: str | None = None) -> int:
+    """Bytes of the tensors in a parameter tree; with ``under``, only of
+    those below a dict key of that name."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v, None if k == under else under)
+                   for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v, under) for v in tree)
+    return 0 if under else tree.numel() * tree.element_size()
 
 
 def pct(xs, p: float) -> float:
@@ -840,6 +999,17 @@ def serving_phase(model, params, core, InferenceEngine, Request, counters,
                   .astype(np.int32) for _ in range(8)]
     torch.cuda.reset_peak_memory_stats()
     held_before = torch.cuda.memory_allocated()     # weights and cache pool
+    # A decode step of this design reads every weight but the embedding
+    # table (8 rows of it), every routed expert's too (one slot an expert),
+    # and takes at least those bytes over the card's memory rate.  A design
+    # that read only the experts a step routes to would read at most
+    # min(E, 8 k) of each MoE layer's E.
+    step_bytes = tree_bytes(params) - tree_bytes(params["embed"]["table"])
+    routed_bytes = step_bytes
+    if model.cfg.moe is not None:
+        e = model.cfg.moe.routed_total()
+        reached = min(e, engine.max_batch * model.cfg.moe.top_k)
+        routed_bytes -= tree_bytes(params, under="experts") * (1 - reached / e)
     for c in counters.values():
         c.reset()
     t0 = time.monotonic()
@@ -877,6 +1047,11 @@ def serving_phase(model, params, core, InferenceEngine, Request, counters,
         "itl_p50_ms": pct(itl, 50) * 1e3, "itl_p99_ms": pct(itl, 99) * 1e3,
         "bulk_ttft_ms": [(r.first_token - r.submitted) * 1e3 for r in bulk
                          if r.first_token],
+        "n_layers": model.cfg.n_layers,
+        "decode_step_weight_bytes": step_bytes,
+        "decode_step_weight_read_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "decode_step_routed_weight_read_ms":
+            routed_bytes / HBM_BYTES_PER_S * 1e3,
         "launches": launches,
         "memory_allocated_at_start_bytes": held_before,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -948,14 +1123,26 @@ def main() -> int:
     # full depth, embeddings moved by 1e-6 move the plain path's float32
     # logits by more than MODEL_TOL (PERF.md), so no kernel that sums in
     # another order can be held to it there.
+    #
+    # seamless-m4t-medium (12 + 12 layers, frames (4, 1024, 1024)) and
+    # internvl2-1b (24 layers, a 256-token vision prefix, prompts of 260-400
+    # tokens) run at full width and depth, held to MODEL_TOL.
+    # deepseek-v3-671b runs at full width with one dense and one MoE layer
+    # (55.8 GB in float32).  The engine check is text only (the engine
+    # passes only tokens); seamless, which needs frames, has none.
     long = {"lengths": (300, 700, 1100, 1300), "smax": 2048}
+    vlm = {"lengths": (260, 300, 350, 400), "smax": 512}
     checks = [("llama3.2-1b", {}, 50, {}),
               ("xlstm-350m", {}, 64, {}),
               ("qwen2-moe-a2.7b", {"n_layers": 4}, 50, {}),
               ("stablelm-3b", {"n_layers": 4}, 50, {}),
               ("hymba-1.5b", {"n_layers": 4, "global_attn_layers": (0, 3)},
                None, long),
-              ("hymba-1.5b", {}, 64, {**long, "held": False})]
+              ("hymba-1.5b", {}, 64, {**long, "held": False}),
+              ("seamless-m4t-medium", {}, None, {}),
+              ("internvl2-1b", {}, 50, vlm),
+              ("deepseek-v3-671b", {"n_layers": 2, "first_k_dense": 1}, 50,
+               {})]
     for name, cut, prompt_len, ragged in checks:
         cfg = get_arch(name)
         t0 = time.monotonic()
@@ -972,28 +1159,43 @@ def main() -> int:
         free_device_memory()
         log("model.done", arch=name, seconds=time.monotonic() - t0)
 
-    # Serving, bfloat16, full width and depth; each path's own kernels must
-    # run on it.
+    # Serving, bfloat16, full width and depth (deepseek-v3-671b: its 3
+    # dense layers and 2 of its 58 MoE layers, 53.2 GB, as the card's 80 GB
+    # allow); each path's own kernels must run on it.  seamless-m4t-medium's
+    # path runs at model level (prefill_batch over frames, then decode
+    # steps), as the engine passes no frames.  The models with recurrent
+    # heads and the two with stub frontends first print their bf16
+    # prefill_batch logits, kernel path against plain path.
     counters = {"flash_attention": kflash.launches,
                 "decode_attention": kdecode.launches,
                 "mlstm_scan": kscan.launches, "moe_topk": kmoe.launches}
-    paths = [("llama3.2-1b", ("flash_attention", "decode_attention")),
-             ("qwen2-moe-a2.7b", ("flash_attention", "decode_attention",
-                                  "moe_topk")),
-             ("xlstm-350m", ("mlstm_scan",)),
-             ("hymba-1.5b", ("flash_attention", "decode_attention",
-                             "mlstm_scan"))]
+    attn = ("flash_attention", "decode_attention")
+    vlm_lengths = (256, 272, 288, 304, 320, 352, 384, 400)
+    paths = [("llama3.2-1b", {}, attn),
+             ("qwen2-moe-a2.7b", {}, attn + ("moe_topk",)),
+             ("xlstm-350m", {}, ("mlstm_scan",)),
+             ("hymba-1.5b", {}, attn + ("mlstm_scan",)),
+             ("seamless-m4t-medium", {}, attn),
+             ("internvl2-1b", {}, attn),
+             ("deepseek-v3-671b", {"n_layers": 5},
+              ("flash_attention", "moe_topk"))]
     by_path = {}
-    for name, required in paths:
-        cfg = get_arch(name)
+    for name, cut, required in paths:
+        cfg = dataclasses.replace(get_arch(name), **cut)
         t0 = time.monotonic()
         model = Model(cfg, device="cuda")
         params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
-        if cfg.ssm is not None:
-            bf16_prefill_phase(model, params, ops, ref, cfg.vocab_size)
-        by_path[name] = serving_phase(model, params, core, InferenceEngine,
-                                      Request, counters, required,
-                                      cfg.vocab_size)
+        if cfg.ssm is not None or cfg.encoder_layers or cfg.vision_tokens:
+            bf16_prefill_phase(model, params, ops, ref, cfg.vocab_size,
+                               **({"lengths": vlm_lengths}
+                                  if cfg.vision_tokens else {}))
+        if cfg.encoder_layers:
+            by_path[name] = model_path_phase(model, params, counters,
+                                             required, cfg.vocab_size)
+        else:
+            by_path[name] = serving_phase(model, params, core,
+                                          InferenceEngine, Request, counters,
+                                          required, cfg.vocab_size)
         del model, params
         free_device_memory()
         log("serving.done", arch=name, seconds=time.monotonic() - t0,
@@ -1001,7 +1203,8 @@ def main() -> int:
 
     # Each kernel's launches are read on its own slice's path: K1, K2 on
     # llama3.2-1b, K4 on qwen2-moe, K3 on xlstm; every path is listed
-    # (hymba-1.5b's runs K1, K2 and K3).
+    # (hymba-1.5b's runs K1, K2 and K3; seamless-m4t-medium's and
+    # internvl2-1b's K1 and K2; deepseek-v3-671b's K1 at 192 / 128 and K4).
     own = {"flash_attention": "llama3.2-1b", "decode_attention": "llama3.2-1b",
            "moe_topk": "qwen2-moe-a2.7b", "mlstm_scan": "xlstm-350m"}
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

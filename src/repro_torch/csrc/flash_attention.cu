@@ -5,12 +5,14 @@
 // mask) V as an online softmax over KV tiles, with a float32 running max, sum
 // and accumulator.
 //
-// Layout.  q is (B, Sq, H, hd) and k, v are (B, Sk, KH, hd), read through
-// their strides (the last dim must be contiguous).  Query head h reads KV
-// head h / G with G = H / KH, so grouped-query attention needs no repeated
-// K/V copy in device memory, and G need not be a power of two.  The
-// reference's (BH, S, D) form is the KH = H case.  The output is
-// (B, Sq, H, hd) in the input type.
+// Layout.  q is (B, Sq, H, hd), k is (B, Sk, KH, hd) and v is (B, Sk, KH,
+// hdv), read through their strides (the last dim must be contiguous).
+// Query head h reads KV head h / G with G = H / KH, so grouped-query
+// attention needs no repeated K/V copy in device memory, and G need not be
+// a power of two.  The reference's (BH, S, D) form is the KH = H case.  The
+// output is (B, Sq, H, hdv) in the input type.  hdv = hd except for MLA's
+// prefill (hd 192 = 128 + 64 rotary, hdv 128), which the reference runs
+// through its blocked `xla` flash because its Pallas kernel takes one D.
 //
 // Masking.  causal keeps kpos <= qpos with the queries placed at the last Sq
 // positions of the key space (qpos = i + Sk - Sq); window > 0 keeps
@@ -47,15 +49,21 @@
 //   on float32 is TF32, about three decimal digits, which cannot meet the
 //   1e-4 the float32 model checks hold the kernel to.
 //
-// Head dims: 16, 32, 64, 128 and 80 (stablelm-3b).  The float32 kernel
-// takes 80 as it is (20 accumulators a thread).  The bf16 kernel runs 80
-// padded to 128 inside the block: the tiles are laid out at 128 (a row of
-// 80 would be a 128-byte and a 32-byte panel, which one swizzle mode of the
-// descriptors cannot cover), Q K^T takes only the 5 k16 steps that hold
-// data, P V runs at n128 over V tiles whose columns 80-127 are zeroed
-// once, and only 80 columns are stored: P V does 1.6x the useful work,
-// Q K^T none extra.  A native n80 with a 64 + 16 panel split is left for
-// later (PERF.md has the padded kernel's time).
+// Head dims: 16, 32, 64, 128 and 80 (stablelm-3b), and the pair (192, 128)
+// (deepseek-v3's MLA).  The float32 kernel takes each as it is (20
+// accumulators a thread at 80, 32 at a value dim of 128).  The bf16 kernel
+// lays Q and K out at 192 as three 128-byte swizzled panels and runs Q K^T
+// over its 12 k16 steps into the same m64n64 score tile; V has its own
+// layout at 128, and P V runs at n128 as for hd 128.  Shared memory at 192
+// / 128: Q 48 KB, and two stages of K 24 KB and V 16 KB, 128 KB in all;
+// registers as at hd 128 (the accumulator follows the value dim).  The
+// bf16 kernel runs 80 padded to 128 inside the block: the tiles are laid
+// out at 128 (a row of 80 would be a 128-byte and a 32-byte panel, which
+// one swizzle mode of the descriptors cannot cover), Q K^T takes only the
+// 5 k16 steps that hold data, P V runs at n128 over V tiles whose columns
+// 80-127 are zeroed once, and only 80 columns are stored: P V does 1.6x
+// the useful work, Q K^T none extra.  A native n80 with a 64 + 16 panel
+// split is left for later (PERF.md has the padded kernel's time).
 //
 // What bounds it.  At the serving shapes (B = 8, S = 256) the bound is
 // bytes: q, k, v and the output are read or written once, 21-34 MB, against
@@ -64,8 +72,7 @@
 // warp and `mbarrier`s).  A tensor map would have to be encoded on the host
 // for every call, since q, k and v are strided views of fresh activations,
 // and the serving step is already host-bound (about 20 us a launch).  A
-// backward pass for training and a value dim that differs from the key
-// dim (MLA) wait as well.
+// backward pass for training waits as well.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,26 +108,27 @@ constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per KV tile
 constexpr int NT = 256;  // threads per block: 4 per query row
 
-template <int HD>
+template <int DK, int DV>
 constexpr size_t smem_bytes() {
-  // Qs [BQ][HD+1], Ks [BK][HD+1], Vs [BK][HD], Ss [BQ][BK+1]
+  // Qs [BQ][DK+1], Ks [BK][DK+1], Vs [BK][DV], Ss [BQ][BK+1]
   return sizeof(float) *
-         (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
+         (BQ * (DK + 1) + BK * (DK + 1) + BK * DV + BQ * (BK + 1));
 }
 
 // Each KV tile is staged in shared memory; the score tile S = Q K^T goes
 // through shared memory; four threads own each query row's softmax state
-// and a quarter of its accumulator in registers.
-template <int HD>
+// and a quarter of its accumulator in registers.  DK is the query-key
+// head dim, DV the value (and output) head dim.
+template <int DK, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
-  constexpr int QS = HD + 1;  // padded row strides: no bank conflicts
-  constexpr int KS = HD + 1;
+  constexpr int QS = DK + 1;  // padded row strides: no bank conflicts
+  constexpr int KS = DK + 1;
   constexpr int SS = BK + 1;
   float* Qs = smem;
   float* Ks = Qs + BQ * QS;
   float* Vs = Ks + BK * KS;
-  float* Ss = Vs + BK * HD;
+  float* Ss = Vs + BK * DV;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -134,8 +142,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kh * p.v_sh;
   float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  for (int i = tid; i < BQ * HD; i += NT) {
-    const int r = i / HD, d = i % HD;
+  for (int i = tid; i < BQ * DK; i += NT) {
+    const int r = i / DK, d = i % DK;
     const int qi = q0 + r;
     Qs[r * QS + d] = qi < p.Sq ? q[qi * p.q_ss + d] * p.scale : 0.f;
   }
@@ -151,21 +159,24 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   const int r = tid / 4;   // query row in the tile
   const int part = tid % 4;  // columns part, part+4, part+8, ...
   float m_i = NEG_BIG, l_i = 0.f;
-  float acc[HD / 4];
+  float acc[DV / 4];
 #pragma unroll
-  for (int j = 0; j < HD / 4; ++j) acc[j] = 0.f;
+  for (int j = 0; j < DV / 4; ++j) acc[j] = 0.f;
 
   // Score-tile ownership: 4 rows x 4 columns per thread.
   const int ty = tid / 16, tx = tid % 16;
 
   for (int t0 = k_begin; t0 < k_end; t0 += BK) {
     __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < BK * HD; i += NT) {
-      const int c = i / HD, d = i % HD;
+    for (int i = tid; i < BK * DK; i += NT) {
+      const int c = i / DK, d = i % DK;
       const int kj = t0 + c;
-      const bool ok = kj < p.Sk;
-      Ks[c * KS + d] = ok ? k[kj * p.k_ss + d] : 0.f;
-      Vs[c * HD + d] = ok ? v[kj * p.v_ss + d] : 0.f;
+      Ks[c * KS + d] = kj < p.Sk ? k[kj * p.k_ss + d] : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += NT) {
+      const int c = i / DV, d = i % DV;
+      const int kj = t0 + c;
+      Vs[c * DV + d] = kj < p.Sk ? v[kj * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -176,7 +187,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
+      for (int d = 0; d < DK; ++d) {
         float a[4], bk[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * QS + d];
@@ -221,7 +232,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
       l_i = l_i * alpha + sum;
       m_i = m_new;
 #pragma unroll
-      for (int j = 0; j < HD / 4; ++j) acc[j] *= alpha;
+      for (int j = 0; j < DV / 4; ++j) acc[j] *= alpha;
     }
     __syncthreads();
 
@@ -230,9 +241,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
 #pragma unroll 4
       for (int c = 0; c < BK; ++c) {
         const float pv = prow[c];
-        const float* vrow = Vs + c * HD + part;
+        const float* vrow = Vs + c * DV + part;
 #pragma unroll
-        for (int j = 0; j < HD / 4; ++j) acc[j] = fmaf(pv, vrow[4 * j], acc[j]);
+        for (int j = 0; j < DV / 4; ++j) acc[j] = fmaf(pv, vrow[4 * j], acc[j]);
       }
     }
   }
@@ -242,21 +253,21 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
     const float inv = 1.f / fmaxf(l_i, 1e-30f);
     float* orow = o + qi * p.o_ss + part;
 #pragma unroll
-    for (int j = 0; j < HD / 4; ++j) orow[4 * j] = acc[j] * inv;
+    for (int j = 0; j < DV / 4; ++j) orow[4 * j] = acc[j] * inv;
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = smem_bytes<DK, DV>();
   // Above 48 KB a block's shared memory must be opted into, once per
   // instantiation (thread-safe static initialisation).
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  flash_fwd_kernel<HD><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_kernel<DK, DV><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -471,12 +482,13 @@ struct Layout {
   }
 };
 
-// The head dim a tile is laid out at: a power of two from 16 to 128.  A
+// The head dim a tile is laid out at: a power of two from 16 to 128, or
+// 192 (MLA's query-key dim: three 128-byte panels, read by Q K^T only).  A
 // head dim between (80) is padded to the next one inside the kernel: a
 // row's 160 bytes would be a 128-byte and a 32-byte panel, which one
 // descriptor swizzle mode cannot cover, and `wgmma_rs` has n16/32/64/128.
 __host__ __device__ constexpr int padded_hd(int hd) {
-  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128;
+  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 192;
 }
 
 // Rows [r0, r0 + R) of a row-major (rows x HD) bf16 matrix with row stride
@@ -500,21 +512,28 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 constexpr int smem_bytes() {
   // Q tile, then the stages of (K tile, V tile), all bf16, at the padded
-  // head dim.
-  return (BQ + 2 * STAGES * BK) * padded_hd(HD) * 2;
+  // head dims: Q and K at DK's, V at DV's.
+  return (BQ * padded_hd(DK) + STAGES * BK * (padded_hd(DK) + padded_hd(DV))) *
+         2;
 }
 
-template <int HD>
+// DK is the query-key head dim (Q, K and the product Q K^T), DV the value
+// and output head dim (V and P V); they differ only for MLA (192, 128).
+template <int DK, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  constexpr int HP = padded_hd(HD);  // the tiles' and the products' hd
-  constexpr int KV_BYTES = BK * HP * 2;
-  using L = Layout<HP>;
+  constexpr int KP = padded_hd(DK);  // the Q and K tiles' hd
+  constexpr int VP = padded_hd(DV);  // the V tiles' hd, P V's N
+  static_assert(KP == DK || KP == 128, "only 80 is padded, to 128");
+  constexpr int K_BYTES = BK * KP * 2;
+  constexpr int STAGE_BYTES = K_BYTES + BK * VP * 2;
+  using LK = Layout<KP>;
+  using LV = Layout<VP>;
   const uint32_t sq = smem_addr(smem);
-  const uint32_t skv = sq + BQ * HP * 2;  // stage s: K at skv + 2 s KV_BYTES
+  const uint32_t skv = sq + BQ * KP * 2;  // stage s: K at skv + s STAGE_BYTES
 
   const int tid = threadIdx.x;
   const int wgi = tid / 128;        // warpgroup: query rows 64 wgi ...
@@ -539,31 +558,31 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
   k_begin = (k_begin / BK) * BK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  // A padded head dim: P V runs at N = HP, so the V tiles' columns HD ...
-  // HP - 1 are zeroed once here (the copies never write them) and their
-  // output columns are not stored.  Q K^T reads only the first HD / 16 k16
+  // A padded value dim: P V runs at N = VP, so the V tiles' columns DV ...
+  // VP - 1 are zeroed once here (the copies never write them) and their
+  // output columns are not stored.  Q K^T reads only the first DK / 16 k16
   // steps of Q and K, so their pad columns are never read.  The first
   // iteration's proxy fence and barrier order these stores before any
   // wgmma reads them.
-  if constexpr (HP != HD) {
-    constexpr int PAD8 = (HP - HD) / 8;
+  if constexpr (VP != DV) {
+    constexpr int PAD8 = (VP - DV) / 8;
     for (int i = tid; i < STAGES * BK * PAD8; i += NT) {
       const int st = i / (BK * PAD8), r = (i / PAD8) % BK;
-      const uint32_t off = (skv - sq) + st * 2 * KV_BYTES + KV_BYTES +
-                           L::template offset<BK>(r, HD / 8 + i % PAD8);
+      const uint32_t off = (skv - sq) + st * STAGE_BYTES + K_BYTES +
+                           LV::template offset<BK>(r, DV / 8 + i % PAD8);
       *reinterpret_cast<uint4*>(smem + off) = make_uint4(0, 0, 0, 0);
     }
   }
 
   // Copy group t holds KV tile t (and group 0 the Q tile too); a group is
   // committed even when empty, so the wait count is the same every time.
-  load_tile<BQ, HD, HP>(sq, q, p.q_ss, q0, p.Sq, tid);
+  load_tile<BQ, DK, KP>(sq, q, p.q_ss, q0, p.Sq, tid);
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
     if (t < n_tiles) {
-      const uint32_t st = skv + t * 2 * KV_BYTES;
-      load_tile<BK, HD, HP>(st, k, p.k_ss, k_begin + t * BK, p.Sk, tid);
-      load_tile<BK, HD, HP>(st + KV_BYTES, v, p.v_ss, k_begin + t * BK, p.Sk,
+      const uint32_t st = skv + t * STAGE_BYTES;
+      load_tile<BK, DK, KP>(st, k, p.k_ss, k_begin + t * BK, p.Sk, tid);
+      load_tile<BK, DV, VP>(st + K_BYTES, v, p.v_ss, k_begin + t * BK, p.Sk,
                             tid);
     }
     cp_async_commit();
@@ -576,11 +595,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
   const int rA = wq0 + warp * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
   const float sl2 = p.scale * LOG2E;
-  const uint32_t qa = sq + wgi * 64 * L::W;  // its 64 rows of the Q tile
+  const uint32_t qa = sq + wgi * 64 * LK::W;  // its 64 rows of the Q tile
 
-  float acc[HP / 2];
+  float acc[VP / 2];
 #pragma unroll
-  for (int i = 0; i < HP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < VP / 2; ++i) acc[i] = 0.f;
   float m0 = NEG_BIG, m1 = NEG_BIG, l0 = 0.f, l1 = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -591,14 +610,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
     fence_async_smem();
     __syncthreads();
     if (j + STAGES - 1 < n_tiles) {
-      const uint32_t st = skv + ((j + STAGES - 1) % STAGES) * 2 * KV_BYTES;
-      load_tile<BK, HD, HP>(st, k, p.k_ss, t0 + (STAGES - 1) * BK, p.Sk, tid);
-      load_tile<BK, HD, HP>(st + KV_BYTES, v, p.v_ss, t0 + (STAGES - 1) * BK,
+      const uint32_t st = skv + ((j + STAGES - 1) % STAGES) * STAGE_BYTES;
+      load_tile<BK, DK, KP>(st, k, p.k_ss, t0 + (STAGES - 1) * BK, p.Sk, tid);
+      load_tile<BK, DV, VP>(st + K_BYTES, v, p.v_ss, t0 + (STAGES - 1) * BK,
                             p.Sk, tid);
     }
     cp_async_commit();
-    const uint32_t sk = skv + (j % STAGES) * 2 * KV_BYTES;
-    const uint32_t sv = sk + KV_BYTES;
+    const uint32_t sk = skv + (j % STAGES) * STAGE_BYTES;
+    const uint32_t sv = sk + K_BYTES;
 
     bool live = wq_last >= wq0;
     if (p.causal) live = live && t0 <= wq_last + offs;
@@ -609,9 +628,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(s, L::template kmajor<BQ>(qa, kk),
-                   L::template kmajor<BK>(sk, kk), kk > 0);
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_ss_n64(s, LK::template kmajor<BQ>(qa, kk),
+                   LK::template kmajor<BK>(sk, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -660,7 +679,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
     l0 = l0 * a0 + sum0;  // this thread's share; the quad sums at the end
     l1 = l1 * a1 + sum1;
 #pragma unroll
-    for (int i = 0; i < HP / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
+    for (int i = 0; i < VP / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
 
     // P as the A operand: n-blocks 2 kk and 2 kk + 1 of the score
     // accumulator are the k16 slice kk of the A fragment.
@@ -677,7 +696,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<HP>(acc, pa[kk], L::vmajor(sv, kk));
+      wgmma_rs<VP>(acc, pa[kk], LV::vmajor(sv, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -692,7 +711,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-  for (int jn = 0; jn < HD / 8; ++jn) {
+  for (int jn = 0; jn < DV / 8; ++jn) {
     const int col = 8 * jn + cq;
     if (rA < p.Sq)
       *reinterpret_cast<__nv_bfloat162*>(o + rA * p.o_ss + col) =
@@ -704,35 +723,44 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD>();
+  constexpr int smem = smem_bytes<DK, DV>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_wgmma_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  flash_fwd_wgmma_kernel<HD><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_wgmma_kernel<DK, DV><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace wg
 
+template <bool BF16, int DK, int DV>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  return BF16 ? wg::launch<DK, DV>(p, stream) : f32::launch<DK, DV>(p, stream);
+}
+
+// Equal query-key and value dims, or MLA's (192, 128).
 template <bool BF16>
-cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
+cudaError_t dispatch_hd(const Params& p, int hd, int hdv, cudaStream_t stream) {
+  if (hd == 192 && hdv == 128) return launch<BF16, 192, 128>(p, stream);
+  if (hd != hdv) return cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return BF16 ? wg::launch<16>(p, stream) : f32::launch<16>(p, stream);
-    case 32: return BF16 ? wg::launch<32>(p, stream) : f32::launch<32>(p, stream);
-    case 64: return BF16 ? wg::launch<64>(p, stream) : f32::launch<64>(p, stream);
-    case 80: return BF16 ? wg::launch<80>(p, stream) : f32::launch<80>(p, stream);
-    case 128: return BF16 ? wg::launch<128>(p, stream) : f32::launch<128>(p, stream);
+    case 16: return launch<BF16, 16, 16>(p, stream);
+    case 32: return launch<BF16, 32, 32>(p, stream);
+    case 64: return launch<BF16, 64, 64>(p, stream);
+    case 80: return launch<BF16, 80, 80>(p, stream);
+    case 128: return launch<BF16, 128, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  The bfloat16
+// dtype: 0 = float32, 1 = bfloat16; hd is the query-key head dim, hdv the
+// value and output head dim.  Strides are in elements.  The bfloat16
 // kernel copies 16-byte chunks, so q, k, v must be 16-byte aligned with row
 // and head strides that are multiples of 8 (the wrapper checks).  Returns
 // the launch's cudaError_t (0 on success).
@@ -742,7 +770,7 @@ extern "C" int flash_attention_fwd(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, float scale, int causal, int window, int dtype, int hd,
-    void* stream) {
+    int hdv, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || KH <= 0 || H % KH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q,    k,    v,    o,    B,    Sq,   Sk,   H,     KH,     q_sb,
@@ -751,9 +779,9 @@ extern "C" int flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_hd<false>(p, hd, st);
+    e = dispatch_hd<false>(p, hd, hdv, st);
   else if (dtype == 1)
-    e = dispatch_hd<true>(p, hd, st);
+    e = dispatch_hd<true>(p, hd, hdv, st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -8,7 +8,10 @@ over KV tiles with float32 running max, sum and accumulator, causal
 
 Unlike the Pallas kernel it reads grouped-query K/V directly (query head
 ``h`` uses KV head ``h // G``), so the caller needs no repeated K/V copy, and
-it masks ragged tails instead of asserting block multiples.
+it masks ragged tails instead of asserting block multiples.  It also takes a
+value dim other than the query-key dim for the one pair a model needs,
+MLA's (192, 128), which the reference runs through its blocked ``xla``
+flash because the Pallas kernel takes one D.
 
 The source holds two hand-written kernels, and the C entry point picks one
 by the input type: bfloat16 (the serving path) runs on the tensor cores
@@ -28,24 +31,28 @@ import torch
 from . import build
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
+# (query-key dim, value dim) pairs taken besides the equal ones: MLA's.
+DIM_PAIRS = ((192, 128),)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = build.LaunchCounter()
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_float]
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None):
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KH, hd) CUDA tensors with H a
-    multiple of KH.  Returns (B, Sq, H, hd) in q's dtype."""
+    """q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, hdv) CUDA
+    tensors with H a multiple of KH, and hdv = hd or (hd, hdv) in
+    ``DIM_PAIRS``.  Returns (B, Sq, H, hdv) in q's dtype; ``scale``
+    defaults to hd ** -0.5."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
-    sk, kh = k.shape[1], k.shape[2]
+    sk, kh, hdv = k.shape[1], k.shape[2], v.shape[3]
     scale = hd ** -0.5 if scale is None else scale
-    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, hdv), dtype=q.dtype, device=q.device)
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, sq, sk, h, kh,
@@ -54,7 +61,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
              v.stride(0), v.stride(1), v.stride(2),
              out.stride(0), out.stride(1), out.stride(2),
              float(scale), int(bool(causal)), int(window), DTYPES[q.dtype], hd,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             hdv, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     launches.add()
     return out
@@ -83,9 +90,13 @@ def _check(q, k, v) -> None:
                                  "in 16-byte chunks and must be 16-byte "
                                  "aligned, with strides that keep every row so")
     b, _, h, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+    hdv = v.shape[3]
+    if not ((hd == hdv and hd in HEAD_DIMS) or (hd, hdv) in DIM_PAIRS):
+        raise ValueError(f"flash_attention: head dims ({hd}, {hdv}) are "
+                         f"neither equal and in {HEAD_DIMS} nor in "
+                         f"{DIM_PAIRS}")
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b
+            or k.shape[3] != hd):
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if k.shape[2] == 0 or h % k.shape[2]:

@@ -35,7 +35,8 @@ def _on_cuda(t, op: str) -> bool:
 
 def grouped_flash(q, k, v, *, causal: bool = True, window: int = 0,
                   scale: float | None = None):
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KH, hd) -> (B, Sq, H, hd)."""
+    """q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, hdv) ->
+    (B, Sq, H, hdv); hdv differs from hd only for MLA (192, 128)."""
     if _on_cuda(q, "grouped_flash"):
         return _flash_cuda(q, k, v, causal=causal, window=window, scale=scale)
     return ref.grouped_flash_ref(q, k, v, causal=causal, window=window,
@@ -51,7 +52,7 @@ def grouped_decode(q, k, v, lengths, *, scale: float | None = None):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None):
-    """q: (BH, Sq, D); k, v: (BH, Sk, D) -> (BH, Sq, D)."""
+    """q: (BH, Sq, D); k: (BH, Sk, D); v: (BH, Sk, Dv) -> (BH, Sq, Dv)."""
     return grouped_flash(q[:, :, None], k[:, :, None], v[:, :, None],
                          causal=causal, window=window, scale=scale)[:, :, 0]
 

@@ -26,7 +26,9 @@ NEG_INF = -1e30
 
 def grouped_flash_ref(q, k, v, *, causal: bool = True, window: int = 0,
                       scale: float | None = None):
-    """Dense softmax attention. q: (B, Sq, H, hd); k, v: (B, Sk, KH, hd)."""
+    """Dense softmax attention. q: (B, Sq, H, hd); k: (B, Sk, KH, hd);
+    v: (B, Sk, KH, hdv), whose head dim may differ (MLA) -> (B, Sq, H,
+    hdv)."""
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else hd ** -0.5
@@ -43,7 +45,7 @@ def grouped_flash_ref(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
 def grouped_decode_ref(q, k, v, lengths, *, scale: float | None = None):

@@ -1,9 +1,13 @@
 """Where a serving decode step spends its time on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_decode [--arch NAME]
+      [--n-layers N]
 
 Builds the model (``--arch``, default llama3.2-1b) at its published widths
-and depth in bfloat16 with random weights (seed 0) and random caches at the
+and depth (``--n-layers`` cuts the depth: deepseek-v3-671b does not fit on
+one card, and 5 of its 61 layers, its 3 dense layers and 2 MoE layers, are
+what ``chip_smoke.py`` serves) in bfloat16 with random weights (seed 0) and
+random caches at the
 serving engine's largest batch (8 rows, 1024 positions, 700 live for
 attention caches, the ring of a sliding window included; random recurrent
 states for xLSTM and hymba's SSD heads), then times
@@ -12,12 +16,14 @@ prefill (``prefill`` of one 500-token prompt, as the engine runs a
 background request) as the engine calls them: host wall time per call (ending in a synchronize), and a
 ``torch.profiler`` window that gives the device's busy share and the
 device time by kernel (the 40 largest).  MoE layers run at the reference's
-default capacity factors (1.25 for prefill, 2.0 for decode).  Prints one
-JSON line per measurement.
+default capacity factors (1.25 for prefill, 2.0 for decode).  An
+encoder-decoder's prefills get stub frames and its cache random encoder
+K/V, both from a seed.  Prints one JSON line per measurement.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -69,11 +75,15 @@ ITERS, TOP = 20, 40
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="keep this many decoder layers (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode measures the CUDA device; none found")
 
     cfg = get_arch(args.arch)
+    if args.n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     model = Model(cfg, device="cuda")
     params = model.init_params(seed=0)
     caches = model.init_cache(BATCH, MAX_LEN)
@@ -88,6 +98,11 @@ def main(argv=None) -> None:
              "lengths": np.full((BATCH,), PROMPT_LEN, np.int32)}
     bulk = {"tokens": rng.integers(0, cfg.vocab_size,
                                    (1, BULK_LEN)).astype(np.int32)}
+    if cfg.encoder_layers:
+        for bt in (batch, bulk):
+            bt["frames"] = torch.randn(
+                (len(bt["tokens"]), cfg.encoder_len, cfg.d_model),
+                generator=gen, device="cuda")
     calls = {
         "decode_step": lambda: model.decode_step(params, caches, tok, LIVE),
         "prefill_batch": lambda: model.prefill_batch(params, batch, MAX_LEN),
@@ -109,7 +124,8 @@ def main(argv=None) -> None:
                 fn()
             torch.cuda.synchronize()
             window = (time.perf_counter() - t0) / n * 1e3
-        out = {"call": name, "arch": cfg.name, "batch": BATCH,
+        out = {"call": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+               "batch": BATCH,
                "max_len": MAX_LEN, "card": card,
                "wall_ms_unprofiled": wall}
         out.update(_device_table(prof, n, window, TOP))

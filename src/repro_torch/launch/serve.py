@@ -7,10 +7,14 @@ the CUDA device.
 Decode steps are CPU-bursty time-sensitive jobs; application hints guard
 the cache-slot allocator.  ``--reduced`` (the default) serves the tiny
 same-family config; ``--no-reduced`` serves the published widths and depth.
-Any ported family serves: dense (llama3.2-1b, qwen2-0.5b, stablelm-3b,
-...), MoE (qwen2-moe-a2.7b), xLSTM (xlstm-350m) and hybrid (hymba-1.5b).
-The background training lane of the reference driver waits for the
-trainer's port (ROADMAP.md).
+Every decoder family serves: dense (llama3.2-1b, qwen2-0.5b, stablelm-3b,
+...), MoE (qwen2-moe-a2.7b), MLA with MoE (deepseek-v3-671b), xLSTM
+(xlstm-350m), hybrid (hymba-1.5b) and the VLM backbone (internvl2-1b, text
+only: the engine passes only tokens, as the reference's does).  The
+encoder-decoder (seamless-m4t-medium) needs frames the engine does not
+give, so ``serve`` stops on it with a plain error.  The background
+training lane of the reference's ``serve`` waits for the trainer's port
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -51,6 +55,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = get_arch(args.arch)
+    if cfg.encoder_layers:
+        raise SystemExit(
+            f"{cfg.name} is an encoder-decoder: its prefill needs stub audio "
+            "frames, and the serving engine passes only tokens (as the "
+            "reference's does); it is held at model level instead")
     if args.reduced:
         cfg = cfg.reduced()
     model = Model(cfg, device=args.device)

@@ -1,4 +1,5 @@
-"""Grouped-query attention (with RoPE / QKV bias / sliding window).
+"""Attention mixers: GQA (with RoPE / QKV bias / sliding window) and MLA
+(DeepSeek multi-head latent attention with the absorbed-latent decode path).
 
 Cache conventions (per layer; stacked along a leading layer axis by the
 transformer):
@@ -6,6 +7,7 @@ transformer):
 * GQA full attention : {"k": (B, S_max, KH, hd), "v": ...}
 * GQA sliding window : ring buffer {"k": (B, W, KH, hd), "v": ...}
 * int8 ``kv_quant``  : adds {"k_scale": (B, S, KH), "v_scale": ...} float32
+* MLA                : {"c": (B, S_max, kv_lora), "kr": (B, S_max, rope_dim)}
 
 Decode positions are one host integer ``pos`` shared by the whole batch (the
 serving engine aligns batches; rows with shorter prompts read the longest
@@ -17,7 +19,12 @@ kernels read KV head ``h // G`` themselves, so no K/V is repeated.  The
 decode cache update is out of place: a step returns new cache tensors and
 never writes the ones it was given, because the serving engine keeps
 superseded snapshots alive and discards stale decode results.
-MLA waits for a later slice (ROADMAP.md).
+
+MLA's prefill runs the flash kernel at query-key dim 192 (128 without and
+64 with RoPE) and value dim 128, on K rebuilt per head from the latent, as
+the reference does; its decode attends over the latent cache itself through
+float32 products with the up-projections absorbed, plain ops in both
+packages (the reference has no Pallas kernel there).
 """
 from __future__ import annotations
 
@@ -170,3 +177,125 @@ def _grouped_decode(q, ck, cv, length: int):
     lengths = torch.full((q.shape[0],), length, dtype=torch.int32,
                          device=q.device)
     return ops.grouped_decode(q, ck.to(q.dtype), cv.to(q.dtype), lengths)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg, lead: tuple = ()):
+    m = cfg.mla
+    h = cfg.n_heads
+    dev = gen.device
+    return {
+        "wq_a": L.linear_init(gen, cfg.d_model, m.q_lora_rank, cfg.dtype,
+                              lead=lead),
+        "q_norm": L.rmsnorm_init(m.q_lora_rank, cfg.dtype, dev, lead=lead),
+        "wq_b": L.linear_init(gen, m.q_lora_rank,
+                              h * (m.qk_nope_head_dim + m.qk_rope_head_dim),
+                              cfg.dtype, lead=lead),
+        "wkv_a": L.linear_init(gen, cfg.d_model,
+                               m.kv_lora_rank + m.qk_rope_head_dim, cfg.dtype,
+                               lead=lead),
+        "kv_norm": L.rmsnorm_init(m.kv_lora_rank, cfg.dtype, dev, lead=lead),
+        "wkv_b": L.linear_init(gen, m.kv_lora_rank,
+                               h * (m.qk_nope_head_dim + m.v_head_dim),
+                               cfg.dtype, lead=lead),
+        "wo": L.linear_init(gen, h * m.v_head_dim, cfg.d_model, cfg.dtype,
+                            lead=lead),
+    }
+
+
+def _mla_q(cfg, p, x, positions):
+    """Per-head queries without and with RoPE.  The latent norms take
+    ``rmsnorm``'s default eps, not ``cfg.norm_eps``, as in the reference."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = L.linear(p["wq_b"], L.rmsnorm(p["q_norm"], L.linear(p["wq_a"], x)))
+    q = q.reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg, p, x, positions):
+    """The cached latent ``c`` (normed) and the shared rotary key ``kr``."""
+    m = cfg.mla
+    c, kr = L.linear(p["wkv_a"], x).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c = L.rmsnorm(p["kv_norm"], c)
+    kr = L.apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return c, kr
+
+
+def mla_forward(cfg, p, x, positions, *, return_cache: bool = False):
+    """Prefill: per-head K/V rebuilt from the latent, causal attention
+    through the flash kernel at query-key dim nope + rope and value dim
+    ``v_head_dim``, all heads their own KV head (G = 1).  The value heads
+    are a strided view of the up-projection's output, passed as they are."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c, kr = _mla_latent(cfg, p, x, positions)
+    kv = L.linear(p["wkv_b"], c).reshape(b, s, h,
+                                         m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(b, s, h,
+                                                    m.qk_rope_head_dim)],
+                  dim=-1)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    out = ops.grouped_flash(q, k, v, causal=True, scale=scale)
+    y = L.linear(p["wo"], out.reshape(b, s, h * m.v_head_dim))
+    if return_cache:
+        return y, {"c": c, "kr": kr}
+    return y
+
+
+def mla_prefill_cache(cfg, smax: int, cache):
+    pad = smax - cache["c"].shape[1]
+    return {"c": F.pad(cache["c"], (0, 0, 0, pad)),
+            "kr": F.pad(cache["kr"], (0, 0, 0, pad))}
+
+
+def mla_decode(cfg, p, x, cache, pos: int, *, out=None):
+    """Absorbed-latent decode: attention runs over the compressed latent
+    cache (kv_lora + rope dims per position), never materializing per-head
+    K/V for the whole context.  Float32 products, as in the reference.
+
+    Returns ``(y, new_cache)``; the new latent row is written out of place
+    into ``out`` (or new tensors), as ``gqa_decode`` does, and a ``pos``
+    past the cache end writes the last row, as the reference's
+    dynamic-update-slice clamps it."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, posv)            # (B, 1, H, *)
+    c_new, kr_new = _mla_latent(cfg, p, x, posv)
+    new = out if out is not None else {n: torch.empty_like(t)
+                                       for n, t in cache.items()}
+    for n, t in cache.items():
+        new[n].copy_(t)
+    slot = min(pos, cache["c"].shape[1] - 1)
+    new["c"][:, slot] = c_new[:, 0].to(new["c"].dtype)
+    new["kr"][:, slot] = kr_new[:, 0].to(new["kr"].dtype)
+    cc, ckr = new["c"].float(), new["kr"].float()
+
+    wkv_b = p["wkv_b"]["w"].reshape(m.kv_lora_rank, h,
+                                    m.qk_nope_head_dim + m.v_head_dim).float()
+    w_uk = wkv_b[..., :m.qk_nope_head_dim]               # (r, H, nope)
+    w_uv = wkv_b[..., m.qk_nope_head_dim:]               # (r, H, v)
+    # absorb W_uk into q: q_eff (B, 1, H, r)
+    q_eff = torch.einsum("bthd,rhd->bthr", q_nope.float(), w_uk)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    s_lat = torch.einsum("bthr,bsr->bhs", q_eff, cc)
+    s_rope = torch.einsum("bthd,bsd->bhs", q_rope.float(), ckr)
+    scores = (s_lat + s_rope) * scale
+    mask = torch.arange(cc.shape[1], device=x.device)[None, None, :] < pos + 1
+    scores = torch.where(mask, scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", w, cc)            # (B, H, r)
+    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv)
+    y = L.linear(p["wo"], o.reshape(b, 1, h * m.v_head_dim).to(x.dtype))
+    return y, new

@@ -6,12 +6,15 @@ are stacked on a leading layer axis, and ``"single"`` layers where the stack
 is heterogeneous (xLSTM's sLSTM blocks), stored without that axis.  A
 segment runs as a Python loop over its layers.
 
-Families ported: dense (GQA + SwiGLU), MoE without MLA (GQA + MoE FFN,
-leading dense layers per ``first_k_dense``), SSM (xLSTM: groups of mLSTM
-blocks and one sLSTM block, no FFN) and hybrid (hymba: attention and SSD
-heads side by side in every layer, averaged; sliding-window attention in
-scanned runs, full attention in the ``"single"`` global layers).  The
-others raise ``NotImplementedError`` naming their ROADMAP.md item.
+Every registered family builds, as in the reference: dense (GQA +
+SwiGLU), MoE (GQA or MLA + MoE FFN, leading dense layers per
+``first_k_dense``), SSM (xLSTM: groups of mLSTM blocks and one sLSTM block,
+no FFN), hybrid (hymba: attention and SSD heads side by side in every
+layer, averaged; sliding-window attention in scanned runs, full attention
+in the ``"single"`` global layers), audio (seamless: an encoder stack over
+stub frame embeddings, and a cross-attention block in every decoder layer)
+and vlm (internvl2: the dense plan, with stub vision embeddings in place of
+the first ``vision_tokens`` token embeddings).
 
 Modes:
 * ``prefill`` / ``prefill_batch`` : forward that also builds the caches
@@ -36,26 +39,13 @@ from .weights import tree_map
 class Segment:
     kind: str        # "scan" | "single"
     n: int
-    mixer: str       # "attn" | "hybrid" | "mlstm" | "slstm"
+    mixer: str       # "attn" | "mla" | "hybrid" | "mlstm" | "slstm"
     ffn: str         # "swiglu" | "moe" | "none"
     window: int = 0
     cross: bool = False
 
 
-_WAITING = {
-    "audio": "enc-dec/VLM",
-    "vlm": "enc-dec/VLM",
-}
-
-
 def build_plan(cfg: ArchConfig) -> list:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA is not ported yet (ROADMAP.md, queue 1: MLA)")
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md, queue 1: {_WAITING[cfg.family]})")
     if cfg.family == "ssm":                     # xlstm: 5 mLSTM + 1 sLSTM per group
         k = cfg.ssm.slstm_every
         plan = []
@@ -83,16 +73,21 @@ def build_plan(cfg: ArchConfig) -> list:
             plan.append(Segment("scan", cfg.n_layers - prev, "hybrid", "swiglu",
                                 window=cfg.sliding_window))
         return plan
+    mixer = "mla" if cfg.mla is not None else "attn"
+    cross = cfg.family == "audio"
     if cfg.moe is not None:
         plan = []
         if cfg.first_k_dense:
-            plan.append(Segment("scan", cfg.first_k_dense, "attn", "swiglu"))
-        plan.append(Segment("scan", cfg.n_layers - cfg.first_k_dense, "attn",
-                            "moe"))
+            plan.append(Segment("scan", cfg.first_k_dense, mixer, "swiglu",
+                                cross=cross))
+        plan.append(Segment("scan", cfg.n_layers - cfg.first_k_dense, mixer,
+                            "moe", cross=cross))
         return plan
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: unknown family {cfg.family}")
-    return [Segment("scan", cfg.n_layers, "attn", "swiglu")]
+    return [Segment("scan", cfg.n_layers, mixer, "swiglu", cross=cross)]
+
+
+def _encoder_segment(cfg: ArchConfig) -> Segment:
+    return Segment("scan", cfg.encoder_layers, "attn", "swiglu")
 
 
 def _lead(seg: Segment) -> tuple:
@@ -109,12 +104,17 @@ def _layer_init(gen, cfg: ArchConfig, seg: Segment, lead: tuple = ()):
     p = {"norm1": L.rmsnorm_init(cfg.d_model, cfg.dtype, dev, lead=lead)}
     if seg.mixer in ("attn", "hybrid"):
         p["attn"] = A.gqa_init(gen, cfg, lead=lead)
+    if seg.mixer == "mla":
+        p["attn"] = A.mla_init(gen, cfg, lead=lead)
     if seg.mixer == "hybrid":
         p["ssd"] = S.ssd_init(gen, cfg, lead=lead)
     elif seg.mixer == "mlstm":
         p["mixer"] = S.mlstm_init(gen, cfg, lead=lead)
     elif seg.mixer == "slstm":
         p["mixer"] = S.slstm_init(gen, cfg, lead=lead)
+    if seg.cross:
+        p["normc"] = L.rmsnorm_init(cfg.d_model, cfg.dtype, dev, lead=lead)
+        p["cross"] = A.gqa_init(gen, cfg, lead=lead)
     if seg.ffn != "none":
         p["norm2"] = L.rmsnorm_init(cfg.d_model, cfg.dtype, dev, lead=lead)
     if seg.ffn == "swiglu":
@@ -135,6 +135,12 @@ def _apply_mixer_seq(cfg, seg, lp, xn, positions, *, want_cache, smax,
                                           seg.window, quant=kv_quant)
         return A.gqa_forward(cfg, lp["attn"], xn, positions,
                              window=seg.window), None
+    if seg.mixer == "mla":
+        if want_cache:
+            y, c = A.mla_forward(cfg, lp["attn"], xn, positions,
+                                 return_cache=True)
+            return y, A.mla_prefill_cache(cfg, smax, c)
+        return A.mla_forward(cfg, lp["attn"], xn, positions), None
     if seg.mixer == "hybrid":
         if want_cache:
             ya, kv = A.gqa_forward(cfg, lp["attn"], xn, positions,
@@ -169,36 +175,69 @@ def _apply_ffn(cfg, seg, lp, x, capacity_factor):
 
 
 def _apply_layer_seq(cfg, seg, lp, x, positions, *, want_cache=False,
-                     smax=0, kv_quant=False, capacity_factor=1.25):
-    """x -> x', cache_leaf (or None)."""
+                     smax=0, kv_quant=False, capacity_factor=1.25,
+                     enc_out=None):
+    """x -> x', cache_leaf (or None).  A cross segment given the encoder's
+    output attends to it, unmasked and without RoPE, after its mixer; its
+    cache leaf then holds the encoder K/V beside the mixer's own."""
     xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     y, cache = _apply_mixer_seq(cfg, seg, lp, xn, positions,
                                 want_cache=want_cache, smax=smax,
                                 kv_quant=kv_quant)
-    x = _apply_ffn(cfg, seg, lp, x + y, capacity_factor)
+    x = x + y
+    if seg.cross and enc_out is not None:
+        xc = L.rmsnorm(lp["normc"], x, cfg.norm_eps)
+        ck = A._split_heads(L.linear(lp["cross"]["wk"], enc_out),
+                            cfg.n_kv_heads, cfg.hd)
+        cv = A._split_heads(L.linear(lp["cross"]["wv"], enc_out),
+                            cfg.n_kv_heads, cfg.hd)
+        x = x + A.gqa_forward(cfg, lp["cross"], xc, positions, causal=False,
+                              kv_override=(ck, cv))
+        if want_cache:
+            cache = {"self": cache, "cross_k": ck, "cross_v": cv}
+    x = _apply_ffn(cfg, seg, lp, x, capacity_factor)
     return x, cache
 
 
 def _apply_layer_decode(cfg, seg, lp, x, cache, pos, *, out=None,
                         capacity_factor=2.0):
+    self_cache = cache["self"] if seg.cross else cache
+    if seg.cross and out is not None:
+        out = out["self"]
     xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     if seg.mixer == "attn":
-        y, new_cache = A.gqa_decode(cfg, lp["attn"], xn, cache, pos,
+        y, new_cache = A.gqa_decode(cfg, lp["attn"], xn, self_cache, pos,
                                     window=seg.window, out=out)
+    elif seg.mixer == "mla":
+        y, new_cache = A.mla_decode(cfg, lp["attn"], xn, self_cache, pos,
+                                    out=out)
     elif seg.mixer == "hybrid":
-        ya, kv = A.gqa_decode(cfg, lp["attn"], xn, cache["kv"], pos,
+        ya, kv = A.gqa_decode(cfg, lp["attn"], xn, self_cache["kv"], pos,
                               window=seg.window,
                               out=None if out is None else out["kv"])
-        ys, st = S.ssd_decode(cfg, lp["ssd"], xn, cache["ssd"],
+        ys, st = S.ssd_decode(cfg, lp["ssd"], xn, self_cache["ssd"],
                               out=None if out is None else out["ssd"])
         y, new_cache = 0.5 * (ya + ys), {"kv": kv, "ssd": st}
     elif seg.mixer == "mlstm":
-        y, new_cache = S.mlstm_decode(cfg, lp["mixer"], xn, cache, out=out)
+        y, new_cache = S.mlstm_decode(cfg, lp["mixer"], xn, self_cache,
+                                      out=out)
     elif seg.mixer == "slstm":
-        y, new_cache = S.slstm_decode(cfg, lp["mixer"], xn, cache, out=out)
+        y, new_cache = S.slstm_decode(cfg, lp["mixer"], xn, self_cache,
+                                      out=out)
     else:
         raise ValueError(seg.mixer)
-    x = _apply_ffn(cfg, seg, lp, x + y, capacity_factor)
+    x = x + y
+    if seg.cross:
+        # Cross-attend to the encoder K/V cached at prefill, at positions
+        # of zeros (no RoPE reaches it), as the reference does.
+        ck, cv = cache["cross_k"], cache["cross_v"]
+        xc = L.rmsnorm(lp["normc"], x, cfg.norm_eps)
+        zeros = torch.zeros((x.shape[0], 1), dtype=torch.int32,
+                            device=x.device)
+        x = x + A.gqa_forward(cfg, lp["cross"], xc, zeros, causal=False,
+                              kv_override=(ck, cv))
+        new_cache = {"self": new_cache, "cross_k": ck, "cross_v": cv}
+    x = _apply_ffn(cfg, seg, lp, x, capacity_factor)
     return x, new_cache
 
 
@@ -214,12 +253,22 @@ def _layers(seg: Segment, tree) -> list:
     return [tree]
 
 
+def _decode_out(seg: Segment, cache):
+    """Tensors of a segment's cache shapes for a decode step's new cache,
+    which every layer writes into.  No step writes the encoder K/V of a
+    cross segment, so the new cache holds the same tensors there."""
+    if seg.cross:
+        return {"self": tree_map(torch.empty_like, cache["self"]),
+                "cross_k": cache["cross_k"], "cross_v": cache["cross_v"]}
+    return tree_map(torch.empty_like, cache)
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """Decoder LM built from an ArchConfig.
+    """Decoder LM / enc-dec / VLM backbone built from an ArchConfig.
 
     The parameter tree is the reference's nested-dict layout; the model owns
     the tree it made or was given (``adopt``), and its methods take the tree
@@ -260,6 +309,13 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             params["lm_head"] = L.linear_init(gen, cfg.d_model, cfg.vocab_size,
                                               cfg.dtype)
+        if cfg.encoder_layers:
+            eseg = _encoder_segment(cfg)
+            params["encoder"] = {
+                "layers": _layer_init(gen, cfg, eseg, lead=_lead(eseg)),
+                "final_norm": L.rmsnorm_init(cfg.d_model, cfg.dtype,
+                                             gen.device),
+            }
         return self.adopt(params)
 
     def adopt(self, params):
@@ -288,7 +344,34 @@ class Model(nn.Module):
     def _tokens(self, t):
         return torch.as_tensor(t, device=self.device)
 
-    def _backbone_seq(self, params, x, positions, *, want_cache, smax):
+    def _embed_inputs(self, params, batch):
+        """Token embeddings; a VLM's stub vision embeddings, when the batch
+        has them, take the place of the first ``vision_tokens`` (a prompt
+        shorter than that gives a sequence of the prefix's length, as in
+        the reference)."""
+        cfg = self.cfg
+        x = L.embed(params["embed"], self._tokens(batch["tokens"]))
+        if cfg.vision_tokens and "vision_embeds" in batch:
+            vis = self._tokens(batch["vision_embeds"]).to(x.dtype)
+            x = torch.cat([vis, x[:, cfg.vision_tokens:]], dim=1)
+        return x
+
+    def _encode(self, params, frames):
+        """Encoder stack over stub frame embeddings (B, encoder_len,
+        d_model): unmasked GQA and SwiGLU layers at positions 0 ...
+        encoder_len - 1, then the encoder's final norm."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        x = self._tokens(frames).to(L.dtype_of(cfg.dtype))
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for lp in _layers(_encoder_segment(cfg), enc["layers"]):
+            xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+            x = x + A.gqa_forward(cfg, lp["attn"], xn, positions, causal=False)
+            x = x + L.swiglu(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+        return L.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+
+    def _backbone_seq(self, params, x, positions, *, want_cache, smax,
+                      enc_out=None):
         cfg = self.cfg
         caches = []
         for seg, sp in zip(self.plan, params["segments"]):
@@ -297,7 +380,8 @@ class Model(nn.Module):
                 x, c = _apply_layer_seq(cfg, seg, lp, x, positions,
                                         want_cache=want_cache, smax=smax,
                                         kv_quant=self.kv_quant,
-                                        capacity_factor=self._cf(1.25))
+                                        capacity_factor=self._cf(1.25),
+                                        enc_out=enc_out)
                 layer_caches.append(c)
             if not want_cache:
                 caches.append(None)
@@ -308,13 +392,22 @@ class Model(nn.Module):
         return x, caches
 
     # ------------------------------------------------------------ prefill
-    def prefill(self, params, batch, smax: int):
-        """tokens (B, S) -> logits (B, 1, V) at the last position, caches."""
-        tokens = self._tokens(batch["tokens"])
-        x = L.embed(params["embed"], tokens)
+    def _forward_seq(self, params, batch, smax: int):
+        """The batch's inputs through encoder and backbone: the final
+        hidden states (B, S, d) and the caches."""
+        x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, caches = self._backbone_seq(params, x, positions, want_cache=True,
-                                       smax=smax)
+        enc_out = None
+        if self.cfg.encoder_layers:
+            enc_out = self._encode(params, batch["frames"])
+        return self._backbone_seq(params, x, positions, want_cache=True,
+                                  smax=smax, enc_out=enc_out)
+
+    def prefill(self, params, batch, smax: int):
+        """tokens (B, S) [+ frames (B, encoder_len, d) for an enc-dec,
+        vision_embeds (B, vision_tokens, d) for a VLM] -> logits (B, 1, V)
+        at the last position, caches."""
+        x, caches = self._forward_seq(params, batch, smax)
         return self._logits(params, x[:, -1:]), caches
 
     def prefill_batch(self, params, batch, smax: int):
@@ -325,13 +418,10 @@ class Model(nn.Module):
         prompt lengths.  Row ``i``'s logits are taken at position
         ``lengths[i]-1`` (its last *real* token).  Cache positions beyond a
         row's length hold pad-token K/V, as in the reference: decode attends
-        under a mask up to the row's own length.
+        under a mask up to the row's own length.  Frames and vision
+        embeddings are read as in ``prefill``.
         """
-        tokens = self._tokens(batch["tokens"])
-        x = L.embed(params["embed"], tokens)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, caches = self._backbone_seq(params, x, positions, want_cache=True,
-                                       smax=smax)
+        x, caches = self._forward_seq(params, batch, smax)
         last = self._tokens(batch["lengths"]).long() - 1
         x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
         return self._logits(params, x_last), caches
@@ -344,7 +434,7 @@ class Model(nn.Module):
         x = L.embed(params["embed"], self._tokens(token))
         new_caches = []
         for seg, sp, sc in zip(self.plan, params["segments"], caches):
-            out = tree_map(torch.empty_like, sc)    # every layer writes here
+            out = _decode_out(seg, sc)              # every layer writes here
             for lp, lc, lo in zip(_layers(seg, sp), _layers(seg, sc),
                                   _layers(seg, out)):
                 x, _ = _apply_layer_decode(cfg, seg, lp, x, lc, pos, out=lo,
@@ -364,11 +454,25 @@ class Model(nn.Module):
                         lead: tuple = ()):
         cfg = self.cfg
         kh, hd = cfg.n_kv_heads, cfg.hd
-        s = seg.window if seg.window else smax
 
         def z(shape, dtype):
             return torch.zeros((*lead, *shape), dtype=dtype, device=dev)
 
+        leaf = self._mixer_cache_leaf(seg, b, smax, dt, z)
+        if seg.cross:
+            leaf = {"self": leaf,
+                    "cross_k": z((b, cfg.encoder_len, kh, hd), dt),
+                    "cross_v": z((b, cfg.encoder_len, kh, hd), dt)}
+        return leaf
+
+    def _mixer_cache_leaf(self, seg: Segment, b: int, smax: int, dt, z):
+        cfg = self.cfg
+        kh, hd = cfg.n_kv_heads, cfg.hd
+        s = seg.window if seg.window else smax
+        if seg.mixer == "mla":
+            m = cfg.mla
+            return {"c": z((b, smax, m.kv_lora_rank), dt),
+                    "kr": z((b, smax, m.qk_rope_head_dim), dt)}
         if seg.mixer == "mlstm":
             h = cfg.n_heads
             hdm = cfg.ssm.expand * cfg.d_model // h

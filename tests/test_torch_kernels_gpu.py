@@ -3,7 +3,8 @@
 Run on a machine with an H100 (``pytest -m gpu tests/test_torch_kernels_gpu.py``);
 without a CUDA device every test skips.  Whether there is a device is decided
 in the ``cuda`` fixture, never at import, so every pytest-xdist worker
-collects the same tests.  Attention (head dims 16, 32, 64, 80 and 128):
+collects the same tests.  Attention (head dims 16, 32, 64, 80 and 128, and
+K1 at MLA's query-key dim 192 with value dim 128):
 float32 to 1e-4 (the kernel sums in another order and uses the device
 ``exp``), bfloat16 to 3e-2.  Router:
 indices identical, weights to 1e-6.  mLSTM scan: float32 to 1e-3 (the
@@ -64,6 +65,11 @@ def _randn(shape, dtype, device, seed):
     (2, 64, 200, 8, 2, 80, True, 48),       # hd 80, one 64-row tile, window
     (8, 256, 256, 25, 5, 64, True, 1024),   # hymba-1.5b prefill, G = 5
     (1, 1100, 1100, 25, 5, 64, True, 1024), # hymba past its window
+    (8, 1024, 1024, 16, 16, 64, False, 0),  # seamless encoder, unmasked
+    (8, 256, 1024, 16, 16, 64, False, 0),   # seamless cross-attn prefill
+    (8, 1, 1024, 16, 16, 64, False, 0),     # cross-attn decode, Sq = 1
+    (8, 37, 1024, 16, 16, 64, False, 0),    # ragged Sq = 37 under one tile
+    (3, 1, 300, 14, 2, 64, True, 0),        # Sq = 1, causal
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kh, hd,
                                     causal, window):
@@ -77,6 +83,41 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kh, hd,
     want = ref.grouped_flash_ref(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype
     assert (out.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kh,causal", [
+    (8, 256, 256, 128, 128, True),      # deepseek-v3 MLA admission
+    (1, 500, 500, 128, 128, True),      # ragged MLA bulk prefill
+    (2, 100, 100, 4, 4, True),          # a small MLA, one ragged tile
+    (2, 70, 300, 4, 2, False),          # unmasked, Sq != Sk, G = 2
+    (3, 1, 200, 4, 4, True),            # Sq = 1
+])
+def test_flash_kernel_at_mla_dims_matches_plain(cuda, dtype, b, sq, sk, h,
+                                                kh, causal):
+    """Query-key dim 192, value dim 128, as MLA's prefill calls K1: V a
+    strided view of a packed (K_nope, V) tensor, the scale 192 ** -0.5."""
+    q = _randn((b, sq, h, 192), dtype, cuda, 31)
+    k = _randn((b, sk, kh, 192), dtype, cuda, 32)
+    v = _randn((b, sk, kh, 256), dtype, cuda, 33)[..., 128:]
+    n = kflash.launches.count
+    out = kflash.flash_attention(q, k, v, causal=causal, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert kflash.launches.count == n + 1
+    assert out.shape == (b, sq, h, 128) and out.dtype == dtype
+    want = ref.grouped_flash_ref(q, k, v, causal=causal, scale=192 ** -0.5)
+    assert (out.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("hd,hdv", [(128, 64), (64, 128), (192, 192),
+                                    (192, 64), (128, 192)])
+def test_flash_kernel_refuses_other_unequal_dims(cuda, hd, hdv):
+    q = torch.zeros((1, 8, 4, hd), device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros((1, 8, 4, hdv), device=cuda, dtype=torch.bfloat16)
+    n = kflash.launches.count
+    with pytest.raises(ValueError, match="head dims"):
+        kflash.flash_attention(q, q, v)
+    assert kflash.launches.count == n
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -15,6 +15,7 @@ import torch
 from repro.configs import get_arch
 from repro.models import attention as JA
 from repro.models import layers as JL
+from repro.models import transformer as JT
 from repro.models.transformer import Model as JModel
 from repro_torch.configs import all_archs
 from repro_torch.configs import get_arch as tget_arch
@@ -284,31 +285,32 @@ def test_params_from_numpy_keeps_bfloat16():
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "seamless-m4t-medium",
                                   "internvl2-1b"])
 def test_build_plan_names_waiting_families(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_plan(tget_arch(name))
+    """The three families the plan once named as waiting -- MLA, the
+    encoder-decoder and the VLM -- now build as the reference plans them,
+    segment for segment and field by field."""
+    got, want = build_plan(tget_arch(name)), JT.build_plan(get_arch(name))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for f in dataclasses.fields(w):
+            assert getattr(g, f.name) == getattr(w, f.name), (f.name, g, w)
 
 
 @pytest.mark.parametrize("name", all_archs())
 def test_served_head_dims_are_kernel_head_dims(name):
-    """Every registered arch whose family the port serves gets its
-    full-size head dims through the kernels of its path: attention (K1,
-    K2) at ``cfg.hd``, the scan (K3) at its key and value dims in bfloat16.
-    MLA's query-key dim differs from its value dim, which the attention
-    kernels do not take: that family is named as waiting."""
+    """Every registered arch gets its full-size head dims through the
+    kernels of its path: attention (K1, K2) at ``cfg.hd`` (an enc-dec's
+    cross-attention too), MLA's prefill through K1 at its query-key and
+    value dims, the pair (192, 128), and the scan (K3) at its key and value
+    dims in bfloat16."""
     cfg = tget_arch(name)
+    plan = build_plan(cfg)
+    mixers = {s.mixer for s in plan}
     if cfg.mla is not None:
         qk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        assert mixers == {"mla"}
         assert qk != cfg.mla.v_head_dim
-        with pytest.raises(NotImplementedError, match="MLA"):
-            build_plan(cfg)
-        return
-    try:
-        plan = build_plan(cfg)
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e)
-        return
-    mixers = {s.mixer for s in plan}
-    if mixers & {"attn", "hybrid"}:
+        assert (qk, cfg.mla.v_head_dim) in kflash.DIM_PAIRS
+    if mixers & {"attn", "hybrid"} or cfg.encoder_layers:
         assert cfg.hd in kflash.HEAD_DIMS and cfg.hd in kdecode.HEAD_DIMS
     scans = []
     if "mlstm" in mixers:
