@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving paths -- the UFS live scheduler, the
+Drives the port's serving and training paths -- the UFS live scheduler, the
 continuous-batching engine and the models at their published widths:
 llama3.2-1b (dense GQA), qwen2-moe-a2.7b (MoE), xlstm-350m (mLSTM and
 sLSTM blocks), hymba-1.5b (attention and SSD heads side by side,
 sliding-window attention in 29 of 32 layers), internvl2-1b (the VLM
 backbone, text only through the engine), deepseek-v3-671b (MLA and MoE, 5
 of its 61 layers) and, at model level, seamless-m4t-medium (encoder over
-stub frames, cross-attention in every decoder layer) -- on the card, and
-holds each hand-written Hopper kernel against its plain PyTorch version.
+stub frames, cross-attention in every decoder layer) -- on the card; trains
+llama3.2-1b (AdamW, K1's backward kernel) and drives the scheduled
+training driver's crash and resume; and holds each hand-written Hopper
+kernel against its plain PyTorch version.
 Phases, each printed on its own line and each fatal:
 
 1. device   -- the card's name and power limit, compute capability 9.0
@@ -39,7 +41,15 @@ Phases, each printed on its own line and each fatal:
                at xlstm-350m's admission and bulk-prefill shapes under both
                of its plans (single pass, chunk-parallel) and at hymba's
                SSD heads, K4 at qwen2-moe's decode and admission shapes (one
-               launch a call)
+               launch a call); K1's backward against its plain version on
+               dq, dk, dv (float32 1e-4, bf16 3e-2, of max(1, max |plain|),
+               and the norm of the error within 1e-4 (float32) and 1e-2
+               (bf16) of the plain gradient's) at the training shape
+               (llama3.2-1b, B=2, S=4096) and the mask and head-dim edges,
+               the plain gradient taken from the plain forward's output
+               and logsumexp; the forward's row logsumexp on its live rows
+               to 1e-5 (float32) and 1e-4 (bf16); its times beside SDPA's
+               backward
 4. model    -- float32, kernel path against the plain path (logits to
                1e-3, greedy tokens identical) over prefill_batch on ragged
                prompts and 8 decode steps: llama3.2-1b and xlstm-350m at
@@ -53,7 +63,10 @@ Phases, each printed on its own line and each fatal:
                seamless-m4t-medium (frames from a seed) and internvl2-1b (a
                256-token vision prefix from a seed, prompts of 260-400
                tokens) at full size; deepseek-v3-671b at full width with
-               one dense and one MoE layer
+               one dense and one MoE layer; then one training loss and
+               gradient of llama3.2-1b at full width with 2 layers (B=2,
+               S=1024), kernel path against plain path: loss to 1e-5,
+               every gradient leaf to 1e-3 of its own max |plain|
 5. engine   -- the engine's tokens equal a direct prefill + decode loop, for
                each of those at the sizes above but seamless (the engine
                passes no frames; hymba at full depth; the MoE models at
@@ -69,7 +82,17 @@ Phases, each printed on its own line and each fatal:
                must have been launched on it (counts set to 0 just before);
                seamless-m4t-medium's path at model level: prefill_batch of 8
                prompts over their frames and 31 decode steps, its kernels'
-               counts set to 0 just before and read just after
+               counts set to 0 just before and read just after; llama3.2-1b
+               served once more beside serve's background-train lane,
+               which must take a step, with K1's backward launched
+7. training -- bf16 llama3.2-1b at full size, S=4096, B=4 in 2 micro-
+               batches, remat: 4 AdamW steps, losses finite and falling,
+               K1's forward and backward launched (counts set to 0 just
+               before); step wall and busy ms, tokens/s, peak memory and
+               the model-flops share; then ``launch/train.py --scheduled``
+               at full width with 2 layers: a crash after step 4,
+               ``--resume`` and an uninterrupted run give the same losses,
+               and the scheduled save of step 2 equals the unscheduled one
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -96,6 +119,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # ||got - plain|| / ||plain||
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 ROUTER_TOL = 1e-6                  # weights; indices must be identical
 ROUTE_SUM_RTOL = 1e-5              # prob_sum; slots and counts identical
 SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}   # bf16: x max(1, |ref|)
@@ -519,6 +544,142 @@ def time_decode(ref, kdecode, b, smax, live, h, kh, hd) -> dict:
     return d
 
 
+def flash_bwd_bound_ms(q, k, causal, window) -> tuple:
+    """K1's backward: q, k, v, o, dO and lse read once, dq, dk and dv
+    written once; 6 dk + 4 dv operations a kept (query, key) pair (S and
+    dP recomputed, dV, dQ and dK), at the inputs' peak rate."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    es = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * es + b * h * sq * 4
+    ops = b * h * (6 * hd + 4 * hd) * flash_pairs(sq, sk, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def norm_err(got, want) -> float:
+    """||got - want|| / ||want||: unlike an error of max |want|, it fails
+    when a part of the tensor is wrong, however small its entries."""
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+def backward_phase(ref, kflash) -> dict:
+    """K1's backward against ``ref.grouped_flash_bwd_ref`` on dq, dk and dv
+    (float32 1e-4, bf16 3e-2, of max(1, max |plain|); and the error's norm
+    within ``NORM_TOL`` of the plain gradient's), the plain gradient taken
+    from the plain forward's output and logsumexp, so that a wrong kernel
+    logsumexp shows; the forward's row logsumexp against the plain one on
+    its live rows (``LSE_TOL``), over the training shape and the mask and
+    head-dim edges; then times at the training shape, llama3.2-1b at
+    ``train_4k``'s sequence length, bf16.  Returns the kernels-line
+    entry."""
+    shapes = [
+        # b, sq, sk, h, kh, hd, causal, window
+        (2, 4096, 4096, 32, 8, 64, True, 0),  # llama3.2-1b training, 4k
+        (1, 1024, 1024, 8, 8, 128, True, 0),  # hd 128, G = 1
+        (2, 512, 512, 8, 2, 64, True, 8),     # window 8
+        (2, 300, 300, 8, 2, 64, False, 0),    # unmasked, ragged
+        (2, 200, 500, 8, 2, 64, True, 0),     # Sq < Sk, causal
+        (1, 777, 777, 8, 2, 64, True, 0),     # ragged S
+        (2, 300, 300, 4, 2, 16, True, 0),     # hd 16
+        (2, 300, 300, 4, 2, 32, True, 0),     # hd 32
+        (2, 300, 300, 8, 8, 80, True, 0),     # hd 80
+    ]
+    errs, norm_errs, lse_errs = {}, {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        worst = worst_norm = worst_lse = 0.0
+        for i, (b, sq, sk, h, kh, hd, causal, window) in enumerate(shapes):
+            q = randn((b, sq, h, hd), dt, 500 + i)
+            k = randn((b, sk, kh, hd), dt, 520 + i)
+            v = randn((b, sk, kh, hd), dt, 540 + i)
+            do = randn((b, sq, h, hd), dt, 560 + i)
+            o, lse = kflash.flash_attention(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+            got = kflash.flash_attention_bwd(q, k, v, o, lse, do,
+                                             causal=causal, window=window)
+            po, plse = ref.grouped_flash_ref(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+            live = torch.isfinite(plse)
+            if not torch.equal(live, torch.isfinite(lse)):
+                raise AssertionError(f"lse {dt} at {shapes[i]}: rows with "
+                                     "no key differ from the plain version")
+            e = (lse[live] - plse[live]).abs().max().item()
+            if not e < LSE_TOL[dt]:
+                raise AssertionError(f"lse {dt} at {shapes[i]}: error {e}")
+            worst_lse = max(worst_lse, e)
+            want = ref.grouped_flash_bwd_ref(q, k, v, po, plse, do,
+                                             causal=causal, window=window)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                w = w.float()
+                err = ((g.float() - w).abs().max()
+                       / max(1.0, w.abs().max().item())).item()
+                nerr = norm_err(g, w)
+                if not (err < TOL[dt] and nerr < NORM_TOL[dt]):
+                    raise AssertionError(
+                        f"flash_attention_bwd {dt} {name} shape {shapes[i]}: "
+                        f"error {err}, norm error {nerr}")
+                worst, worst_norm = max(worst, err), max(worst_norm, nerr)
+            del got, want, po, plse
+        key = str(dt).replace("torch.", "")
+        errs[key], norm_errs[key], lse_errs[key] = worst, worst_norm, worst_lse
+    torch.cuda.synchronize()
+    log("kernels.parity.k1_bwd", shapes=len(shapes),
+        max_rel_err=errs, max_norm_err=norm_errs, lse_max_abs_err=lse_errs,
+        tolerance={"float32": "1e-4 x max(1, max|plain|)",
+                   "bfloat16": "3e-2 x max(1, max|plain|)",
+                   "norm": {"float32": NORM_TOL[torch.float32],
+                            "bfloat16": NORM_TOL[torch.bfloat16]},
+                   "lse": {"float32": LSE_TOL[torch.float32],
+                           "bfloat16": LSE_TOL[torch.bfloat16]}})
+
+    # Times at the training shape, bf16; SDPA's backward alone (its
+    # forward outside the timing, causal top-left, which equals the port's
+    # at Sq = Sk) as the library call.
+    F = torch.nn.functional
+    dt = torch.bfloat16
+    b, s, h, kh, hd = 2, 4096, 32, 8, 64
+    q, k, v, do = (randn(shape, dt, 600 + j) for j, shape in enumerate(
+        ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd), (b, s, h, hd))))
+    o, lse = kflash.flash_attention(q, k, v, return_lse=True)
+
+    def call():
+        return kflash.flash_attention_bwd(q, k, v, o, lse, do)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    d = {"ms": cuda_ms(call, iters=10, warmup=2),
+         "plain_ms": cuda_ms(lambda: ref.grouped_flash_bwd_ref(
+             q, k, v, o, lse, do), iters=3, warmup=1),
+         "library_ms": cuda_ms(library, iters=10, warmup=2)}
+    d["device_ms"], d["launches_per_call"], d["grid"] = device_ms_per_call(
+        call, "bwd_d", iters=3, max_per_call=3)
+    d["library_backend"], d["library_kernels"] = sdpa_backend(library)
+    d["bound_ms"], d["bound_by"] = flash_bwd_bound_ms(q, k, True, 0)
+    d["kept_pairs"] = b * h * flash_pairs(s, s, True, 0)
+    d["fwd_lse_device_ms"] = device_ms(
+        lambda: kflash.flash_attention(q, k, v, return_lse=True),
+        "flash_fwd_wgmma", iters=5, alone=True)
+    d["fwd_device_ms"] = device_ms(lambda: kflash.flash_attention(q, k, v),
+                                   "flash_fwd_wgmma", iters=5, alone=True)
+    got = call()
+    po, plse = ref.grouped_flash_ref(q, k, v, return_lse=True)
+    want = ref.grouped_flash_bwd_ref(q, k, v, po, plse, do)
+    d["max_abs_err"] = max((g.float() - w.float()).abs().max().item()
+                           for g, w in zip(got, want))
+    d["norm_err"] = max(norm_err(g, w) for g, w in zip(got, want))
+    d["max_abs_err_f32"] = errs["float32"]
+    d["shape"] = f"B={b} S={s} H={h} KH={kh} hd={hd} causal bf16 (train_4k)"
+    log("kernels.time", kernel="flash_attention_bwd", **d)
+    return d
+
+
 def router_bound_ms(logits, top_k: int, cap: int) -> tuple:
     """Each logit read once; weights, indices and slots (T, k), the slot
     tokens (E, C), the probability sums and counts (E,) written once; (5 +
@@ -894,6 +1055,36 @@ def engine_phase(model, params, build_kernel, InferenceEngine, Request,
                              f"!= direct {direct}")
 
 
+def train_check_phase(ops, ref, Model, trainer, get_arch) -> None:
+    """Float32 training check: llama3.2-1b at full width with 2 layers,
+    one ``train_loss`` and its gradient on B=2, S=1024 (remat on, as the
+    config has it), kernel path (K1 and its backward) against the plain
+    path: loss to 1e-5, every gradient leaf to 1e-3 of its own max
+    |plain| (at init the leaves are far below 1, so a floor of 1 would
+    hold nothing)."""
+    from repro_torch.models.weights import tree_leaves
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), dtype="float32",
+                              n_layers=2)
+    model = Model(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 1025)), device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss, grads = trainer.value_and_grad(model, params, batch)
+    with plain_kernels(ops, ref):
+        ploss, pgrads = trainer.value_and_grad(model, params, batch)
+    errs = [((g - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(tree_leaves(grads), tree_leaves(pgrads))]
+    loss_err = abs(loss.item() - ploss.item())
+    log("train.check", arch=cfg.name, dtype="float32", layers=cfg.n_layers,
+        batch=[2, 1024], remat=cfg.remat, loss=loss.item(),
+        loss_err=loss_err, grad_leaves=len(errs), grad_max_rel_err=max(errs),
+        tolerance={"loss": 1e-5, "grads": "1e-3 x max|plain leaf|"})
+    if not (loss_err < 1e-5 and max(errs) < MODEL_TOL):
+        raise AssertionError(f"training check: loss error {loss_err}, "
+                             f"gradient errors {errs}")
+
+
 # ---------------------------------------------------------------- phase 6
 def bf16_prefill_phase(model, params, ops, ref, vocab: int,
                        lengths=(64, 100, 128, 180, 200, 220, 240, 256)) -> None:
@@ -986,10 +1177,11 @@ def pct(xs, p: float) -> float:
 
 
 def serving_phase(model, params, core, InferenceEngine, Request, counters,
-                  required, vocab: int) -> dict:
+                  required, vocab: int, background_train=None) -> dict:
     """The serving traffic on one model; every count in ``counters`` is set
     to 0 just before and read just after, and each kernel in ``required``
-    must have been launched."""
+    must have been launched.  ``background_train`` (``serve.background_train``)
+    adds the background training lane, which must take a step."""
     kernel = core.build_kernel("live", policy="ufs", n_slots=1)
     engine = InferenceEngine(model, params, kernel, max_batch=8, max_len=1024)
     rng = np.random.default_rng(0)
@@ -1015,6 +1207,7 @@ def serving_phase(model, params, core, InferenceEngine, Request, counters,
     t0 = time.monotonic()
     kernel.start()
     engine.start()
+    lane = background_train(model, kernel) if background_train else None
     try:
         bulk = [engine.submit(Request(prompt=p, tier="background",
                                       max_new_tokens=32)) for p in bulk_prompts]
@@ -1057,14 +1250,162 @@ def serving_phase(model, params, core, InferenceEngine, Request, counters,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "engine": engine.stats.summary(),
     }
-    log("serving", arch=model.cfg.name, dtype="bfloat16", **result)
+    if lane is not None:
+        result["background_train_steps"] = lane["steps"]
+        result["background_train_losses"] = lane["losses"]
+    log("serving", arch=model.cfg.name, dtype="bfloat16",
+        background_train=lane is not None, **result)
     print(core.KernelReport.from_kernel(kernel).pretty(), flush=True)
     if bad:
         raise AssertionError(f"requests that did not finish ok: {bad}")
     if not all(launches[n] > 0 for n in required):
         raise AssertionError(f"{model.cfg.name}: a kernel of its path was "
                              f"not launched while serving: {launches}")
+    if lane is not None and not (lane["steps"] >= 1 and all(
+            np.isfinite(lane["losses"]))):
+        raise AssertionError(f"background train lane: {lane['steps']} "
+                             f"steps, losses {lane['losses']}")
     return launches
+
+
+# ---------------------------------------------------------------- phase 7
+def model_flops(cfg, b: int, s: int) -> float:
+    """Model flops of one training step on b x s tokens: 6 per parameter
+    a token for the products (the tied embedding counted once, as the
+    unembedding) and 12 hd per head for each kept causal (query, key) pair
+    of every layer (Q K^T and P V, forward and backward); remat's
+    recomputation is not counted."""
+    h, kh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    per_layer = (d * h * hd * 2 + d * kh * hd * 2 + 3 * d * cfg.d_ff)
+    n = cfg.n_layers * per_layer + d * cfg.vocab_size
+    pairs = s * (s + 1) // 2
+    return 6 * n * b * s + 12 * hd * h * pairs * b * cfg.n_layers
+
+
+def busy_ms(fn, top: int = 10) -> tuple:
+    """Device time of every kernel in a profiler window over one call, and
+    the ``top`` kernels by device time: [name, ms, launches]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count),
+                  key=lambda e: -e.self_device_time_total)
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+             for e in rows[:top]])
+
+
+def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
+    """bf16 llama3.2-1b at full width and depth, S = 4096 (``train_4k``),
+    B = 4 in two micro-batches, remat on: 4 AdamW steps on one fixed
+    batch from ``SyntheticTokens``.  Every loss finite, the 4th below the
+    1st; K1's forward and backward launches, set to 0 just before, both
+    above 0.  Returns the launches."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    cfg = get_arch("llama3.2-1b")
+    b, s = 4, 4096
+    model = Model(cfg, device="cuda")
+    tcfg = trainer.TrainConfig(grad_accum=2, opt=optimizer.OptimizerConfig(
+        lr=1e-4, warmup_steps=0, total_steps=4))
+    state = trainer.init_state(model, tcfg,
+                               torch.Generator(device="cuda").manual_seed(0))
+    raw = SyntheticTokens(cfg.vocab_size, seed=0).batch(0, 0, b, s)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in raw.items()}
+    step = trainer.make_train_step(model, tcfg)
+    kflash.launches.reset()
+    kflash.bwd_launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    launches = {"flash_attention": kflash.launches.count,
+                "flash_attention_bwd": kflash.bwd_launches.count}
+    peak = torch.cuda.max_memory_allocated()
+    box = {"state": state}
+
+    def one():
+        box["state"], _ = step(box["state"], batch)
+    busy, top = busy_ms(one)
+    flops = model_flops(cfg, b, s)
+    wall = float(np.median(walls[1:]))
+    result = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+              "batch": b, "seq": s, "grad_accum": 2, "remat": cfg.remat,
+              "losses": losses, "step_wall_ms": walls,
+              "step_wall_ms_median_2_4": wall, "step_busy_ms": busy,
+              "step_top_kernels": top,
+              "tokens_per_s": b * s / wall * 1e3,
+              "max_memory_allocated_bytes": peak,
+              "model_flops_per_step": flops,
+              "model_flops_share_of_989_tflops": flops / (wall / 1e3) / 989e12,
+              "launches": launches}
+    log("train.steps", **result)
+    if not (all(np.isfinite(losses)) and losses[3] < losses[0]):
+        raise AssertionError(f"training losses {losses}")
+    if not all(c > 0 for c in launches.values()):
+        raise AssertionError(f"K1 launches on the training path: {launches}")
+    del model, state, box, step
+    return launches
+
+
+def scheduled_train_phase(train) -> dict:
+    """``launch/train.py --scheduled`` at llama3.2-1b's full width with 2
+    layers: 6 steps with a checkpoint every 2 and a crash after 4, then
+    ``--resume``, then an uninterrupted unscheduled run.  Losses 5-6 of the
+    resumed run equal the uninterrupted run's, 1-4 of the crashed run too;
+    the scheduled save of step 2 (which runs after later steps) equals the
+    unscheduled one, leaf for leaf by the manifests' sha256.  The
+    checkpoints live in a temporary directory under ``build/``, removed
+    after."""
+    import shutil
+    import tempfile
+    base = ["--arch", "llama3.2-1b", "--n-layers", "2", "--steps", "6",
+            "--batch", "2", "--seq", "256", "--ckpt-every", "2",
+            "--log-every", "1", "--device", "cuda"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=ROOT / "build")
+    try:
+        sched, plain = f"{tmp}/scheduled", f"{tmp}/plain"
+        t0 = time.monotonic()
+        first = train.run(train.parse_args(
+            base + ["--ckpt-dir", sched, "--scheduled", "--fail-at", "4"]))
+        second = train.run(train.parse_args(
+            base + ["--ckpt-dir", sched, "--scheduled", "--resume"]))
+        whole = train.run(train.parse_args(base + ["--ckpt-dir", plain]))
+        wall = time.monotonic() - t0
+
+        def manifest(d, step):
+            m = json.loads((Path(d) / f"step_{step:08d}" / "manifest.json")
+                           .read_text())
+            return [(e["shape"], e["dtype"], e["sha256"]) for e in m["leaves"]]
+        same_ckpt = manifest(sched, 2) == manifest(plain, 2)
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (Path(plain) / "step_00000002").iterdir())
+        result = {"failed_at": first["failed_at"],
+                  "resumed_from": second["start_step"],
+                  "losses_crashed": first["losses"],
+                  "losses_resumed": second["losses"],
+                  "losses_uninterrupted": whole["losses"],
+                  "step2_checkpoint_equal": same_ckpt,
+                  "checkpoint_bytes": ckpt_bytes, "wall_s": wall}
+        log("train.scheduled", **result)
+        if not (first["failed_at"] == 4 and second["start_step"] == 4
+                and all(second["losses"][i] == whole["losses"][i]
+                        for i in (5, 6))
+                and all(first["losses"][i] == whole["losses"][i]
+                        for i in (1, 2, 3, 4)) and same_ckpt):
+            raise AssertionError(f"scheduled crash and resume: {result}")
+    finally:
+        shutil.rmtree(tmp)
+    return result
 
 
 # ------------------------------------------------------------------- main
@@ -1080,9 +1421,11 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import mlstm_scan as kscan
     from repro_torch.kernels import moe_topk as kmoe
+    from repro_torch.launch import serve, train
     from repro_torch.models.moe import capacity
     from repro_torch.models.transformer import Model
     from repro_torch.serving.engine import InferenceEngine, Request
+    from repro_torch.training import optimizer, trainer
 
     t_start = time.monotonic()
     card = card_line()
@@ -1108,6 +1451,11 @@ def main() -> int:
     t0 = time.monotonic()
     timed = kernel_phase(ref, kflash, kdecode)
     log("kernels.done", seconds=time.monotonic() - t0)
+
+    t0 = time.monotonic()
+    timed["flash_attention_bwd"] = backward_phase(ref, kflash)
+    free_device_memory()
+    log("kernels.bwd.done", seconds=time.monotonic() - t0)
 
     t0 = time.monotonic()
     timed.update(router_scan_phase(ref, kmoe, kscan, capacity))
@@ -1159,6 +1507,11 @@ def main() -> int:
         free_device_memory()
         log("model.done", arch=name, seconds=time.monotonic() - t0)
 
+    t0 = time.monotonic()
+    train_check_phase(ops, ref, Model, trainer, get_arch)
+    free_device_memory()
+    log("train.check.done", seconds=time.monotonic() - t0)
+
     # Serving, bfloat16, full width and depth (deepseek-v3-671b: its 3
     # dense layers and 2 of its 58 MoE layers, 53.2 GB, as the card's 80 GB
     # allow); each path's own kernels must run on it.  seamless-m4t-medium's
@@ -1167,21 +1520,27 @@ def main() -> int:
     # heads and the two with stub frontends first print their bf16
     # prefill_batch logits, kernel path against plain path.
     counters = {"flash_attention": kflash.launches,
+                "flash_attention_bwd": kflash.bwd_launches,
                 "decode_attention": kdecode.launches,
                 "mlstm_scan": kscan.launches, "moe_topk": kmoe.launches}
     attn = ("flash_attention", "decode_attention")
     vlm_lengths = (256, 272, 288, 304, 320, 352, 384, 400)
-    paths = [("llama3.2-1b", {}, attn),
-             ("qwen2-moe-a2.7b", {}, attn + ("moe_topk",)),
-             ("xlstm-350m", {}, ("mlstm_scan",)),
-             ("hymba-1.5b", {}, attn + ("mlstm_scan",)),
-             ("seamless-m4t-medium", {}, attn),
-             ("internvl2-1b", {}, attn),
-             ("deepseek-v3-671b", {"n_layers": 5},
-              ("flash_attention", "moe_topk"))]
+    # arch, path label, cut, kernels the path must launch, and whether
+    # serve's background-train lane runs beside it
+    paths = [("llama3.2-1b", "llama3.2-1b", {}, attn, False),
+             ("llama3.2-1b", "llama3.2-1b+background-train", {},
+              attn + ("flash_attention_bwd",), True),
+             ("qwen2-moe-a2.7b", "qwen2-moe-a2.7b", {}, attn + ("moe_topk",),
+              False),
+             ("xlstm-350m", "xlstm-350m", {}, ("mlstm_scan",), False),
+             ("hymba-1.5b", "hymba-1.5b", {}, attn + ("mlstm_scan",), False),
+             ("seamless-m4t-medium", "seamless-m4t-medium", {}, attn, False),
+             ("internvl2-1b", "internvl2-1b", {}, attn, False),
+             ("deepseek-v3-671b", "deepseek-v3-671b", {"n_layers": 5},
+              ("flash_attention", "moe_topk"), False)]
     by_path = {}
-    for name, cut, required in paths:
-        cfg = dataclasses.replace(get_arch(name), **cut)
+    for arch, name, cut, required, train_lane in paths:
+        cfg = dataclasses.replace(get_arch(arch), **cut)
         t0 = time.monotonic()
         model = Model(cfg, device="cuda")
         params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -1193,20 +1552,37 @@ def main() -> int:
             by_path[name] = model_path_phase(model, params, counters,
                                              required, cfg.vocab_size)
         else:
-            by_path[name] = serving_phase(model, params, core,
-                                          InferenceEngine, Request, counters,
-                                          required, cfg.vocab_size)
+            by_path[name] = serving_phase(
+                model, params, core, InferenceEngine, Request, counters,
+                required, cfg.vocab_size,
+                background_train=serve.background_train if train_lane
+                else None)
         del model, params
         free_device_memory()
         log("serving.done", arch=name, seconds=time.monotonic() - t0,
             total_seconds=time.monotonic() - t_start)
 
+    # Training, bf16: llama3.2-1b at full size for 4 steps, then the
+    # scheduled driver's crash and resume at full width with 2 layers.
+    t0 = time.monotonic()
+    by_path["llama3.2-1b training"] = training_phase(
+        Model, trainer, optimizer, get_arch, kflash)
+    free_device_memory()
+    log("train.steps.done", seconds=time.monotonic() - t0)
+    t0 = time.monotonic()
+    scheduled_train_phase(train)
+    free_device_memory()
+    log("train.scheduled.done", seconds=time.monotonic() - t0,
+        total_seconds=time.monotonic() - t_start)
+
     # Each kernel's launches are read on its own slice's path: K1, K2 on
-    # llama3.2-1b, K4 on qwen2-moe, K3 on xlstm; every path is listed
+    # llama3.2-1b, K4 on qwen2-moe, K3 on xlstm, K1's backward on the
+    # training steps; every path is listed
     # (hymba-1.5b's runs K1, K2 and K3; seamless-m4t-medium's and
     # internvl2-1b's K1 and K2; deepseek-v3-671b's K1 at 192 / 128 and K4).
     own = {"flash_attention": "llama3.2-1b", "decode_attention": "llama3.2-1b",
-           "moe_topk": "qwen2-moe-a2.7b", "mlstm_scan": "xlstm-350m"}
+           "moe_topk": "qwen2-moe-a2.7b", "mlstm_scan": "xlstm-350m",
+           "flash_attention_bwd": "llama3.2-1b training"}
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:102"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -1214,13 +1590,20 @@ def main() -> int:
                "mlstm_scan": ("src/repro_torch/csrc/mlstm_scan.cu",
                               "src/repro/kernels/mlstm_scan.py:86"),
                "moe_topk": ("src/repro_torch/csrc/moe_topk.cu",
-                            "src/repro/kernels/moe_topk.py:53")}
+                            "src/repro/kernels/moe_topk.py:53"),
+               "flash_attention_bwd": (
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "no Pallas kernel: the reference differentiates "
+                   "`_flash_xla`, src/repro/kernels/ops.py:39")}
     tolerance = {
         "flash_attention": (f"bf16 {TOL[torch.bfloat16]:g}, "
                             f"f32 {TOL[torch.float32]:g} max abs"),
         "mlstm_scan": "bf16 3e-2 x max(1, max|plain|), f32 1e-3 max abs",
         "moe_topk": ("indices, slots, slot tokens, counts identical; "
-                     "weights 1e-6 max abs; prob_sum 1e-5 relative")}
+                     "weights 1e-6 max abs; prob_sum 1e-5 relative"),
+        "flash_attention_bwd": ("dq, dk, dv: bf16 3e-2, f32 1e-4, x max(1, "
+                                "max|plain|), and ||err|| / ||plain|| bf16 "
+                                "1e-2, f32 1e-4; lse f32 1e-5, bf16 1e-4")}
     tolerance["decode_attention"] = tolerance["flash_attention"]
     kernels = []
     for name, d in timed.items():
@@ -1236,7 +1619,8 @@ def main() -> int:
             "max_abs_err_f32": d["max_abs_err_f32"],
             "tolerance": tolerance[name], "shape": d["shape"],
             "launches_path": own[name],
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_by_path": {p: c[name] for p, c in by_path.items()
+                                 if name in c},
             **extra, "card": card})
     print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(card_line(), flush=True)

@@ -22,6 +22,15 @@
 // block can see are not visited at all.  A query row that sees no key
 // gets 0.
 //
+// Row logsumexp.  Given an `lse` pointer (B, H, Sq) float32, both kernels
+// also store each query row's logsumexp of its kept scaled scores in the
+// natural log, which the backward (`flash_attention_bwd.cu`) recomputes P
+// from: the float32 kernel keeps its running max in natural units (expf)
+// and stores m + log(l); the bf16 kernel keeps it in base 2, on scores
+// scaled by scale log2(e), and stores (m + log2(l)) ln(2).  A row that
+// sees no key (l = 0) stores -inf.  A null pointer stores nothing, which
+// is the serving path.
+//
 // Two kernels, chosen by the input type; the wrapper counts both.
 //
 // * bfloat16, `flash_fwd_wgmma_kernel`: the serving path.  One block of two
@@ -71,8 +80,8 @@
 // PERF.md.  Left for later: TMA loads and warp specialisation (a producer
 // warp and `mbarrier`s).  A tensor map would have to be encoded on the host
 // for every call, since q, k and v are strided views of fresh activations,
-// and the serving step is already host-bound (about 20 us a launch).  A
-// backward pass for training waits as well.
+// and the serving step is already host-bound (about 20 us a launch).  The
+// backward pass for training is its own source, `flash_attention_bwd.cu`.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -82,12 +91,14 @@ namespace {
 
 constexpr float NEG_BIG = -1e30f;  // initial running max (finite: no inf-inf)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) row logsumexp, natural log; null: not stored
   int B, Sq, Sk, H, KH;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -254,6 +265,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
     float* orow = o + qi * p.o_ss + part;
 #pragma unroll
     for (int j = 0; j < DV / 4; ++j) orow[4 * j] = acc[j] * inv;
+    // l_i is the whole row's sum in each of the row's four threads.
+    if (p.lse != nullptr && part == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qi] =
+          l_i > 0.f ? m_i + logf(l_i) : -INFINITY;
   }
 }
 
@@ -710,6 +725,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // m and l are the same in the four lanes of a quad; base 2 -> natural.
+  if (p.lse != nullptr && lane % 4 == 0) {
+    float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.Sq;
+    if (rA < p.Sq) lse[rA] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : -INFINITY;
+    if (rA + 8 < p.Sq)
+      lse[rA + 8] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : -INFINITY;
+  }
 #pragma unroll
   for (int jn = 0; jn < DV / 8; ++jn) {
     const int col = 8 * jn + cq;
@@ -760,12 +782,14 @@ cudaError_t dispatch_hd(const Params& p, int hd, int hdv, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; hd is the query-key head dim, hdv the
-// value and output head dim.  Strides are in elements.  The bfloat16
+// value and output head dim; lse, when not null, receives the (B, H, Sq)
+// float32 row logsumexp.  Strides are in elements.  The bfloat16
 // kernel copies 16-byte chunks, so q, k, v must be 16-byte aligned with row
 // and head strides that are multiples of 8 (the wrapper checks).  Returns
 // the launch's cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int Sq,
     int Sk, int H, int KH, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
@@ -773,9 +797,9 @@ extern "C" int flash_attention_fwd(
     int hdv, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0 || KH <= 0 || H % KH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q,    k,    v,    o,    B,    Sq,   Sk,   H,     KH,     q_sb,
-           q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,  o_sb,   o_ss,
-           o_sh, scale, causal, window};
+  Params p{q,    k,    v,    o,    lse,  B,    Sq,   Sk,    H,      KH,
+           q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,  v_sh,   o_sb,
+           o_ss, o_sh, scale, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)

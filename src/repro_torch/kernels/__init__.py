@@ -1,7 +1,9 @@
-"""Hand-written Hopper kernels for the serving path, each with a wrapper
-that counts its launches and a plain PyTorch version in ``ref``:
+"""Hand-written Hopper kernels for the serving and training paths, each
+with a wrapper that counts its launches and a plain PyTorch version in
+``ref``:
 
-* flash_attention  -- prefill attention (``csrc/flash_attention.cu``)
+* flash_attention  -- prefill attention (``csrc/flash_attention.cu``) and
+  its gradient, ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``)
 * decode_attention -- single-token attention over the KV cache
   (``csrc/decode_attention.cu``)
 * mlstm_scan       -- chunkwise mLSTM recurrence (``csrc/mlstm_scan.cu``)

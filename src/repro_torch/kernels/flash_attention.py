@@ -21,6 +21,15 @@ hold the kernel to 1e-4.  Both are this wrapper's launches, counted alike;
 neither is a fallback for the other.  What bounds them on the card and what
 the designs do about it is written at the top of the CUDA source.  The
 plain version is ``ref.grouped_flash_ref``.
+
+With ``return_lse`` the forward also returns each query row's logsumexp,
+(B, H, Sq) float32 in the natural log: the float32 kernel keeps its
+running max in natural units, the bf16 kernel in base 2 and converts when
+it stores.  ``flash_attention_bwd`` is the gradient, a kernel of its own
+(``csrc/flash_attention_bwd.cu``, three launches a call, counted once a
+call in ``bwd_launches``), with ``ref.grouped_flash_bwd_ref`` as its plain
+version; ``ops.grouped_flash`` reaches it through autograd.  It takes the
+equal head dims only: MLA's (192, 128) waits for its training slice.
 """
 from __future__ import annotations
 
@@ -36,26 +45,32 @@ DIM_PAIRS = ((192, 128),)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = build.LaunchCounter()
+bwd_launches = build.LaunchCounter()
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_float]
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None):
+                    scale: float | None = None, return_lse: bool = False):
     """q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, hdv) CUDA
     tensors with H a multiple of KH, and hdv = hd or (hd, hdv) in
-    ``DIM_PAIRS``.  Returns (B, Sq, H, hdv) in q's dtype; ``scale``
-    defaults to hd ** -0.5."""
+    ``DIM_PAIRS``.  Returns (B, Sq, H, hdv) in q's dtype, and with
+    ``return_lse`` also the (B, H, Sq) float32 row logsumexp (natural log,
+    -inf for a row that sees no key); ``scale`` defaults to hd ** -0.5."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
     sk, kh, hdv = k.shape[1], k.shape[2], v.shape[3]
     scale = hd ** -0.5 if scale is None else scale
     out = torch.empty((b, sq, h, hdv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, sq, sk, h, kh,
+             None if lse is None else lse.data_ptr(), b, sq, sk, h, kh,
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
@@ -64,7 +79,48 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
              hdv, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     launches.add()
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, scale: float | None = None):
+    """The gradient of ``flash_attention`` on the card.  q, o, do: (B, Sq,
+    H, hd); k, v: (B, Sk, KH, hd), one dtype, hd in ``HEAD_DIMS``; lse:
+    the forward's (B, H, Sq) float32 row logsumexp.  Returns (dq, dk, dv),
+    contiguous, in the inputs' dtype.  Inputs that are not contiguous
+    (``do`` from autograd may not be) are copied first."""
+    _check(q, k, v)
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if v.shape[3] != hd or hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dims ({hd}, "
+                         f"{v.shape[3]}); the backward takes equal dims in "
+                         f"{HEAD_DIMS} (MLA's waits for its training slice)")
+    for name, t in (("o", o), ("do", do)):
+        if (t.device != q.device or t.dtype != q.dtype
+                or tuple(t.shape) != tuple(q.shape)):
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} does "
+                             f"not match q {tuple(q.shape)} {q.dtype}")
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (b, h, sq)):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} is not ({b}, {h}, {sq}) float32 on "
+                         f"{q.device}")
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    scale = hd ** -0.5 if scale is None else scale
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = build.function("flash_attention_bwd", "flash_attention_bwd",
+                        _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh, float(scale),
+             int(bool(causal)), int(window), DTYPES[q.dtype], hd,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention_bwd")
+    bwd_launches.add()
+    return dq, dk, dv
 
 
 def _check(q, k, v) -> None:

@@ -14,12 +14,22 @@ from a failed build or launch.
 The ``grouped_*`` forms take the model's layout (``(B, S, H, hd)`` queries,
 ``(B, S, KH, hd)`` keys and values); the others the reference package's
 ``(BH, S, D)`` signatures.
+
+Gradients.  On the CPU the plain versions are differentiated by autograd.
+On the card ``grouped_flash`` goes through ``FlashAttention`` when a
+gradient is wanted: its forward is K1 with the row logsumexp, its backward
+K1's backward kernel and nothing else.  K3 and K4 have no backward kernel
+yet, so on the card they refuse inputs that want a gradient rather than
+hand back none (training those families waits for their slices).
 """
 from __future__ import annotations
+
+import torch
 
 from . import ref
 from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
+from .flash_attention import flash_attention_bwd as _flash_bwd_cuda
 from .mlstm_scan import mlstm_scan as _mlstm_cuda
 from .moe_topk import moe_route as _moe_route_cuda
 from .moe_topk import moe_topk as _moe_topk_cuda
@@ -33,11 +43,46 @@ def _on_cuda(t, op: str) -> bool:
     raise ValueError(f"{op}: no path for tensors on {t.device}")
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _no_backward(op: str, *ts) -> None:
+    if _wants_grad(*ts):
+        raise NotImplementedError(
+            f"{op}: the CUDA kernel has no backward yet, so a gradient "
+            "through it on the card is refused (its training slice brings "
+            "one)")
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with a gradient: the forward kernel, keeping its output and row
+    logsumexp, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _flash_cuda(q, k, v, causal=causal, window=window,
+                               scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = _flash_bwd_cuda(q, k, v, out, lse, dout, causal=causal,
+                                     window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
 def grouped_flash(q, k, v, *, causal: bool = True, window: int = 0,
                   scale: float | None = None):
     """q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, hdv) ->
     (B, Sq, H, hdv); hdv differs from hd only for MLA (192, 128)."""
     if _on_cuda(q, "grouped_flash"):
+        if _wants_grad(q, k, v):
+            return FlashAttention.apply(q, k, v, causal, window, scale)
         return _flash_cuda(q, k, v, causal=causal, window=window, scale=scale)
     return ref.grouped_flash_ref(q, k, v, causal=causal, window=window,
                                  scale=scale)
@@ -67,6 +112,7 @@ def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
     """q, k: (BH, S, dk); v: (BH, S, dv); logf, i: (BH, S) -> h (BH, S, dv).
     ``scale`` defaults to dk ** -0.5."""
     if _on_cuda(q, "mlstm_scan"):
+        _no_backward("mlstm_scan", q, k, v, logf, i)
         return _mlstm_cuda(q, k, v, logf, i, scale=scale)
     return ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale)
 
@@ -74,6 +120,7 @@ def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
 def moe_topk(logits, top_k: int, n_valid: int | None = None):
     """logits: (T, E) -> (weights (T, k) float32, indices (T, k) int32)."""
     if _on_cuda(logits, "moe_topk"):
+        _no_backward("moe_topk", logits)
         return _moe_topk_cuda(logits, top_k, n_valid=n_valid)
     return ref.moe_topk_ref(logits, top_k, n_valid=n_valid)
 
@@ -83,6 +130,7 @@ def moe_route(logits, top_k: int, *, capacity: int, n_valid: int | None = None,
     """logits: (T, E) -> ``ref.Route``: weights, idx, slot (T, k), slot_tok
     (E, capacity), prob_sum and counts (E,)."""
     if _on_cuda(logits, "moe_route"):
+        _no_backward("moe_route", logits)
         return _moe_route_cuda(logits, top_k, capacity=capacity,
                                n_valid=n_valid, router_scale=router_scale)
     return ref.moe_route_ref(logits, top_k, capacity=capacity, n_valid=n_valid,

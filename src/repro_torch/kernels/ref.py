@@ -7,6 +7,8 @@ kernel is held against.
   query head ``h`` reading KV head ``h // G``; ``ops`` serves the reference
   package's (BH, S, D) signatures through them; ``grouped_decode_split_ref``
   is K2's split-and-merge arithmetic, for the tests;
+* ``grouped_flash_bwd_ref`` -- the gradient of K1 (its backward kernel's
+  plain version), from the forward's output and row logsumexp;
 * ``moe_topk_ref`` -- the MoE router's top k (K4); ``moe_route_ref``, the
   router with the dispatch plan the reference builds by a stable sort, and
   ``moe_route_blocked_ref``, the kernel's count-based arithmetic for that
@@ -24,28 +26,73 @@ import torch
 NEG_INF = -1e30
 
 
+def _flash_mask(sq: int, sk: int, causal: bool, window: int, device):
+    """(Sq, Sk) keep mask: causal with the queries at the last Sq key
+    positions, a sliding window, or neither."""
+    qpos = (torch.arange(sq, device=device)[:, None]
+            + (sk - sq if causal else 0))
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
 def grouped_flash_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                      scale: float | None = None):
+                      scale: float | None = None, return_lse: bool = False):
     """Dense softmax attention. q: (B, Sq, H, hd); k: (B, Sk, KH, hd);
     v: (B, Sk, KH, hdv), whose head dim may differ (MLA) -> (B, Sq, H,
-    hdv)."""
+    hdv).  With ``return_lse`` also the natural-log logsumexp of each
+    row's kept scaled scores, (B, H, Sq) float32, -inf for a row that keeps
+    no key."""
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else hd ** -0.5
     qf = q.float().reshape(b, sq, kh, h // kh, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float()) * scale
-    qpos = (torch.arange(sq, device=q.device)[:, None]
-            + (sk - sq if causal else 0))
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window > 0:
-        mask = mask & (kpos > qpos - window)
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    mask = _flash_mask(sq, sk, causal, window, q.device)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    out = out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1)
+    return out, lse.reshape(b, h, sq)
+
+
+def grouped_flash_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                          window: int = 0, scale: float | None = None):
+    """The gradient of ``grouped_flash_ref`` written out, float32 inside:
+    ``D = rowsum(dO o O)``, ``P = exp(S - lse)`` on the kept pairs (0
+    elsewhere, and on a row whose ``lse`` is -inf), ``dV = P^T dO`` summed
+    over each KV head's G query heads, ``dS = P o (dO V^T - D)``, ``dQ =
+    scale dS K``, ``dK = scale dS^T Q``.  q, o, do: (B, Sq, H, hd); k, v:
+    (B, Sk, KH, hd); lse: (B, H, Sq).  Returns (dq, dk, dv) in the types of
+    q, k and v."""
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = scale if scale is not None else hd ** -0.5
+    qf = q.float().reshape(b, sq, kh, g, hd)
+    kf, vf = k.float(), v.float()
+    of = o.float().reshape(b, sq, kh, g, -1)
+    dof = do.float().reshape(b, sq, kh, g, -1)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    lse = lse.float().reshape(b, kh, g, sq)
+    live = torch.isfinite(lse)
+    keep = _flash_mask(sq, sk, causal, window, q.device) & live[..., None]
+    p = torch.where(keep, torch.exp(s - torch.where(live, lse, 0.0)[..., None]),
+                    0.0)
+    d = torch.einsum("bqkgd,bqkgd->bkgq", dof, of)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - d[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def grouped_decode_ref(q, k, v, lengths, *, scale: float | None = None):

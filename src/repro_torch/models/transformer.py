@@ -17,6 +17,7 @@ and vlm (internvl2: the dense plan, with stub vision embeddings in place of
 the first ``vision_tokens`` token embeddings).
 
 Modes:
+* ``train_loss``  : full-sequence forward + causal CE (+ MoE aux loss)
 * ``prefill`` / ``prefill_batch`` : forward that also builds the caches
 * ``decode_step`` : one token in, one logits row out, caches updated
 """
@@ -26,13 +27,14 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import attention as A
 from . import layers as L
 from . import moe as M
 from . import ssm as S
-from .weights import tree_map
+from .weights import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,22 +166,26 @@ def _apply_mixer_seq(cfg, seg, lp, xn, positions, *, want_cache, smax,
 
 
 def _apply_ffn(cfg, seg, lp, x, capacity_factor):
+    """x -> (x', aux): aux is the MoE layer's load-balance loss, None for
+    other layers."""
     if seg.ffn == "swiglu":
-        return x + L.swiglu(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+        return (x + L.swiglu(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps)),
+                None)
     if seg.ffn == "moe":
-        y, _ = M.moe_forward(cfg, lp["ffn"],
-                             L.rmsnorm(lp["norm2"], x, cfg.norm_eps),
-                             capacity_factor=capacity_factor)
-        return x + y
-    return x
+        y, aux = M.moe_forward(cfg, lp["ffn"],
+                               L.rmsnorm(lp["norm2"], x, cfg.norm_eps),
+                               capacity_factor=capacity_factor)
+        return x + y, aux
+    return x, None
 
 
 def _apply_layer_seq(cfg, seg, lp, x, positions, *, want_cache=False,
                      smax=0, kv_quant=False, capacity_factor=1.25,
                      enc_out=None):
-    """x -> x', cache_leaf (or None).  A cross segment given the encoder's
-    output attends to it, unmasked and without RoPE, after its mixer; its
-    cache leaf then holds the encoder K/V beside the mixer's own."""
+    """x -> x', aux (the MoE loss, or None), cache_leaf (or None).  A cross
+    segment given the encoder's output attends to it, unmasked and without
+    RoPE, after its mixer; its cache leaf then holds the encoder K/V beside
+    the mixer's own."""
     xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     y, cache = _apply_mixer_seq(cfg, seg, lp, xn, positions,
                                 want_cache=want_cache, smax=smax,
@@ -195,8 +201,8 @@ def _apply_layer_seq(cfg, seg, lp, x, positions, *, want_cache=False,
                               kv_override=(ck, cv))
         if want_cache:
             cache = {"self": cache, "cross_k": ck, "cross_v": cv}
-    x = _apply_ffn(cfg, seg, lp, x, capacity_factor)
-    return x, cache
+    x, aux = _apply_ffn(cfg, seg, lp, x, capacity_factor)
+    return x, aux, cache
 
 
 def _apply_layer_decode(cfg, seg, lp, x, cache, pos, *, out=None,
@@ -237,7 +243,7 @@ def _apply_layer_decode(cfg, seg, lp, x, cache, pos, *, out=None,
         x = x + A.gqa_forward(cfg, lp["cross"], xc, zeros, causal=False,
                               kv_override=(ck, cv))
         new_cache = {"self": new_cache, "cross_k": ck, "cross_v": cv}
-    x = _apply_ffn(cfg, seg, lp, x, capacity_factor)
+    x, _ = _apply_ffn(cfg, seg, lp, x, capacity_factor)
     return x, new_cache
 
 
@@ -356,6 +362,14 @@ class Model(nn.Module):
             x = torch.cat([vis, x[:, cfg.vision_tokens:]], dim=1)
         return x
 
+    def _remat(self, params) -> bool:
+        """``cfg.remat`` while a gradient of ``params`` is recorded: each
+        layer is then recomputed in the backward pass, as the reference's
+        checkpointed layer body is, so its forward kernels run twice a
+        step.  Serving, which records none, runs the layers plainly."""
+        return (self.cfg.remat and torch.is_grad_enabled()
+                and any(t.requires_grad for t in tree_leaves(params)))
+
     def _encode(self, params, frames):
         """Encoder stack over stub frame embeddings (B, encoder_len,
         d_model): unmasked GQA and SwiGLU layers at positions 0 ...
@@ -364,24 +378,39 @@ class Model(nn.Module):
         enc = params["encoder"]
         x = self._tokens(frames).to(L.dtype_of(cfg.dtype))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for lp in _layers(_encoder_segment(cfg), enc["layers"]):
+
+        def body(x, lp):
             xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
             x = x + A.gqa_forward(cfg, lp["attn"], xn, positions, causal=False)
-            x = x + L.swiglu(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+            return x + L.swiglu(lp["ffn"],
+                                L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+        remat = self._remat(enc)
+        for lp in _layers(_encoder_segment(cfg), enc["layers"]):
+            x = (checkpoint(body, x, lp, use_reentrant=False) if remat
+                 else body(x, lp))
         return L.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
     def _backbone_seq(self, params, x, positions, *, want_cache, smax,
                       enc_out=None):
+        """x -> (x', aux), caches: aux is the MoE layers' summed
+        load-balance loss (0 for the other families); without
+        ``want_cache`` each segment's cache is None."""
         cfg = self.cfg
+        remat = self._remat(params["segments"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for seg, sp in zip(self.plan, params["segments"]):
+            def body(x, aux, lp, seg=seg):
+                x, a, c = _apply_layer_seq(cfg, seg, lp, x, positions,
+                                           want_cache=want_cache, smax=smax,
+                                           kv_quant=self.kv_quant,
+                                           capacity_factor=self._cf(1.25),
+                                           enc_out=enc_out)
+                return x, aux if a is None else aux + a, c
             layer_caches = []
             for lp in _layers(seg, sp):
-                x, c = _apply_layer_seq(cfg, seg, lp, x, positions,
-                                        want_cache=want_cache, smax=smax,
-                                        kv_quant=self.kv_quant,
-                                        capacity_factor=self._cf(1.25),
-                                        enc_out=enc_out)
+                x, aux, c = (checkpoint(body, x, aux, lp, use_reentrant=False)
+                             if remat else body(x, aux, lp))
                 layer_caches.append(c)
             if not want_cache:
                 caches.append(None)
@@ -389,7 +418,27 @@ class Model(nn.Module):
                 caches.append(tree_map(lambda *a: torch.stack(a), *layer_caches))
             else:
                 caches.append(layer_caches[0])
-        return x, caches
+        return (x, aux), caches
+
+    # -------------------------------------------------------------- train
+    def train_loss(self, params, batch):
+        """batch: tokens (B, S), labels (B, S) [+ frames / vision_embeds].
+        Returns ``(loss + 0.01 aux, {"loss", "aux"})``: the mean
+        cross-entropy of ``labels[:, 1:]`` under the logits of positions
+        ``:-1``, and the MoE layers' summed load-balance loss (0 for the
+        other families)."""
+        x = self._embed_inputs(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        enc_out = None
+        if self.cfg.encoder_layers:
+            enc_out = self._encode(params, batch["frames"])
+        (x, aux), _ = self._backbone_seq(params, x, positions,
+                                         want_cache=False, smax=0,
+                                         enc_out=enc_out)
+        logits = self._logits(params, x)
+        labels = self._tokens(batch["labels"]).long()
+        loss = L.cross_entropy(logits[:, :-1], labels[:, 1:])
+        return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
     # ------------------------------------------------------------ prefill
     def _forward_seq(self, params, batch, smax: int):
@@ -400,8 +449,10 @@ class Model(nn.Module):
         enc_out = None
         if self.cfg.encoder_layers:
             enc_out = self._encode(params, batch["frames"])
-        return self._backbone_seq(params, x, positions, want_cache=True,
-                                  smax=smax, enc_out=enc_out)
+        (x, _), caches = self._backbone_seq(params, x, positions,
+                                            want_cache=True, smax=smax,
+                                            enc_out=enc_out)
+        return x, caches
 
     def prefill(self, params, batch, smax: int):
         """tokens (B, S) [+ frames (B, encoder_len, d) for an enc-dec,

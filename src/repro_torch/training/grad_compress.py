@@ -1,0 +1,46 @@
+"""Gradient compression: int8 quantization with error feedback -- the
+reference package's ``training/grad_compress.py`` in PyTorch.
+
+:func:`compress_decompress` quantizes and dequantizes a gradient tree with
+a persistent error-feedback residual (what the trainer uses).  The
+residual ``g - dequant(quant(g))`` is added back into the next step's
+gradient, which keeps 8-bit data parallelism unbiased over time.  The
+reference's ``compressed_psum``, the 8-bit all-reduce over a mesh axis,
+waits for the distributed slice.  ``torch.round`` rounds half to even, as
+``jnp.round`` does.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..models.weights import tree_leaves, tree_map, tree_unflatten
+
+INT8_MAX = 127.0
+
+
+def _quant(g):
+    scale = torch.clamp(g.abs().max(), min=1e-12) / INT8_MAX
+    q = torch.clamp(torch.round(g / scale), -INT8_MAX, INT8_MAX).to(torch.int8)
+    return q, scale
+
+
+def _dequant(q, scale):
+    return q.float() * scale
+
+
+def init_error_state(grads):
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                          device=g.device), grads)
+
+
+def compress_decompress(grads, err_state):
+    """Returns (compressed-then-restored grads, new error state)."""
+    def one(g, e):
+        g32 = g.float() + e
+        q, scale = _quant(g32)
+        out = _dequant(q, scale)
+        return out.to(g.dtype), g32 - out
+    outs = [one(g, e) for g, e in zip(tree_leaves(grads),
+                                      tree_leaves(err_state))]
+    return (tree_unflatten(grads, [o[0] for o in outs]),
+            tree_unflatten(grads, [o[1] for o in outs]))

@@ -153,9 +153,9 @@ def test_cross_layer_matches_reference(s):
     (jx, _), jc = JT._apply_layer_seq(
         cfg, jseg, jlp, (jnp.asarray(x), 0.0), jnp.asarray(pos),
         backend="xla", want_cache=True, smax=32, enc_out=jnp.asarray(enc))
-    tx, tc = TT._apply_layer_seq(tcfg, tseg, tlp, torch.from_numpy(x),
-                                 torch.from_numpy(pos), want_cache=True,
-                                 smax=32, enc_out=torch.from_numpy(enc))
+    tx, _, tc = TT._apply_layer_seq(tcfg, tseg, tlp, torch.from_numpy(x),
+                                    torch.from_numpy(pos), want_cache=True,
+                                    smax=32, enc_out=torch.from_numpy(enc))
     close(tx, jx, 2e-5)
     assert sorted(tc) == ["cross_k", "cross_v", "self"]
     cache_close(tc, jc, 2e-5)

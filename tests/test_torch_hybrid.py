@@ -201,9 +201,9 @@ def test_hybrid_layer_matches_reference(seg_index):
     (jx, _), jc = JT._apply_layer_seq(cfg, jseg, jlp, (jnp.asarray(x), 0.0),
                                       jnp.asarray(pos), backend="xla",
                                       want_cache=True, smax=smax)
-    tx, tc = TT._apply_layer_seq(tcfg, tseg, tlp, torch.from_numpy(x),
-                                 torch.from_numpy(pos), want_cache=True,
-                                 smax=smax)
+    tx, _, tc = TT._apply_layer_seq(tcfg, tseg, tlp, torch.from_numpy(x),
+                                    torch.from_numpy(pos), want_cache=True,
+                                    smax=smax)
     close(tx, jx, 2e-5)
     cache_close(tc, jc, 2e-5)
     xt = rand((2, 1, cfg.d_model), 8)

@@ -21,7 +21,7 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages([str(PORT)],
 PORT_FILES = sorted(p for p in PORT.rglob("*") if p.is_file()
                     and p.suffix in (".py", ".cu", ".cuh"))
 COPIED = sorted(str(p.relative_to(SRC / "repro"))
-                for sub in ("core", "configs")
+                for sub in ("core", "configs", "data")
                 for p in (SRC / "repro" / sub).rglob("*.py"))
 
 _IMPORT_ALL = r"""
@@ -54,7 +54,12 @@ def blocked_imports():
 def test_port_modules_found():
     for m in ("repro_torch.kernels.ops", "repro_torch.models.transformer",
               "repro_torch.serving.engine", "repro_torch.launch.serve",
-              "repro_torch.core.live", "repro_torch.configs.base"):
+              "repro_torch.core.live", "repro_torch.configs.base",
+              "repro_torch.data.pipeline", "repro_torch.training.trainer",
+              "repro_torch.training.optimizer",
+              "repro_torch.training.checkpoint",
+              "repro_torch.training.grad_compress",
+              "repro_torch.launch.train"):
         assert m in MODULES
 
 
@@ -114,7 +119,9 @@ def test_copied_module_equals_reference(rel):
 
 
 def test_no_copied_module_missing():
-    for sub in ("core", "configs"):
+    # The reference's data/ has no __init__.py; the port's package has one.
+    extra = {pathlib.Path("data/__init__.py")}
+    for sub in ("core", "configs", "data"):
         ref = {p.relative_to(SRC / "repro") for p in (SRC / "repro" / sub).rglob("*.py")}
         port = {p.relative_to(PORT) for p in (PORT / sub).rglob("*.py")}
-        assert ref == port
+        assert ref == port - extra

@@ -12,7 +12,12 @@ reference's bound for chunkwise against the recurrence; kernel and plain
 version cut the sequence into chunks of different lengths), bfloat16 to
 3e-2 of max(1, max |plain|), under both of its plans.  Router with its
 dispatch plan: indices, slots, slot tokens and counts identical, weights to
-1e-6, probability sums to 1e-5 relative (summed in another order)."""
+1e-6, probability sums to 1e-5 relative (summed in another order).  K1's
+backward against ``ref.grouped_flash_bwd_ref`` fed the plain forward's
+output and logsumexp: float32 to 1e-4 and bfloat16 to 3e-2, each of max(1,
+max |plain|) (sums over S in another order), and the error's norm within
+1e-4 (float32) and 1e-2 (bfloat16) of the plain gradient's; the forward's
+row logsumexp on its live rows, float32 to 1e-5 and bfloat16 to 1e-4."""
 import dataclasses
 
 import pytest
@@ -472,3 +477,139 @@ def test_scan_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, logf, i = _scan_inputs(2, 64, 32, 32, torch.float32, cuda)
     with pytest.raises(ValueError, match="float32"):
         kscan.mlstm_scan(q, k, v, logf, i, design="chunk_parallel")
+
+
+# ------------------------------------------------------------ K1 backward
+BWD_SHAPES = [
+    # b, sq, sk, h, kh, hd, causal, window
+    (2, 256, 256, 32, 8, 64, True, 0),      # llama3.2-1b training, G = 4
+    (1, 300, 300, 8, 8, 128, True, 0),      # hd 128, G = 1, ragged
+    (2, 200, 200, 4, 2, 64, True, 8),       # window 8
+    (2, 130, 130, 4, 2, 32, False, 0),      # unmasked, ragged
+    (2, 70, 200, 4, 2, 64, True, 0),        # Sq < Sk, causal
+    (2, 70, 200, 4, 1, 16, False, 0),       # Sq < Sk, unmasked, G = 4
+    (1, 200, 200, 4, 4, 80, True, 50),      # hd 80, window
+    (2, 100, 60, 2, 1, 32, True, 0),        # Sq > Sk: rows that see no key
+]
+
+
+def _bwd_inputs(b, sq, sk, h, kh, hd, dtype, cuda, seed=60):
+    q = _randn((b, sq, h, hd), dtype, cuda, seed)
+    k = _randn((b, sk, kh, hd), dtype, cuda, seed + 1)
+    v = _randn((b, sk, kh, hd), dtype, cuda, seed + 2)
+    do = _randn((b, sq, h, hd), dtype, cuda, seed + 3)
+    return q, k, v, do
+
+
+def _rel_err(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / max(1.0, want.abs().max().item())).item()
+
+
+# ||got - plain|| / ||plain||: fails when a part of a gradient is wrong,
+# however small its entries are beside max(1, max |plain|).
+NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _norm_err(got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kh,hd,causal,window", BWD_SHAPES)
+def test_flash_backward_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kh,
+                                             hd, causal, window):
+    q, k, v, do = _bwd_inputs(b, sq, sk, h, kh, hd, dtype, cuda)
+    n = kflash.bwd_launches.count
+    o, lse = kflash.flash_attention(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    want_o, want_lse = ref.grouped_flash_ref(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+    got = kflash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert kflash.bwd_launches.count == n + 1
+    want = ref.grouped_flash_bwd_ref(q, k, v, want_o, want_lse, do,
+                                     causal=causal, window=window)
+    live = torch.isfinite(want_lse)
+    assert torch.equal(live, torch.isfinite(lse))
+    lse_err = (lse[live] - want_lse[live]).abs().max().item()
+    assert lse_err < (1e-5 if dtype == torch.float32 else 1e-4)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) < TOL[dtype], (name, _rel_err(g, w))
+        assert _norm_err(g, w) < NORM_TOL[dtype], (name, _norm_err(g, w))
+
+
+def test_flash_backward_is_deterministic_and_takes_strided_grads(cuda):
+    q, k, v, do = _bwd_inputs(2, 300, 300, 8, 2, 64, torch.bfloat16, cuda)
+    o, lse = kflash.flash_attention(q, k, v, return_lse=True)
+    a = kflash.flash_attention_bwd(q, k, v, o, lse, do)
+    strided = do.transpose(1, 2).contiguous().transpose(1, 2)   # not contiguous
+    b = kflash.flash_attention_bwd(q, k, v, o, lse, strided)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_grouped_flash_gradient_runs_the_kernels_not_the_plain_version(
+        cuda, monkeypatch):
+    q, k, v, do = _bwd_inputs(2, 200, 200, 8, 2, 64, torch.float32, cuda)
+    o, lse = ref.grouped_flash_ref(q, k, v, window=40, return_lse=True)
+    want = ref.grouped_flash_bwd_ref(q, k, v, o, lse, do, window=40)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(ref, "grouped_flash_ref", refuse)
+    monkeypatch.setattr(ref, "grouped_flash_bwd_ref", refuse)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    n_fwd, n_bwd = kflash.launches.count, kflash.bwd_launches.count
+    out = ops.grouped_flash(qg, kg, vg, window=40)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert (kflash.launches.count, kflash.bwd_launches.count) == (
+        n_fwd + 1, n_bwd + 1)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) < TOL[torch.float32]
+    with torch.no_grad():                   # no gradient: the plain call
+        ops.grouped_flash(qg, kg, vg, window=40)
+    assert kflash.bwd_launches.count == n_bwd + 1
+
+
+def test_kernels_without_a_backward_refuse_gradients(cuda):
+    logits = _randn((8, 64), torch.float32, cuda, 5).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.moe_route(logits, 4, capacity=2)
+    q, k, v, logf, i = _scan_inputs(2, 64, 32, 32, torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.mlstm_scan(q.requires_grad_(True), k, v, logf, i)
+    q = torch.zeros((1, 8, 4, 192), device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros((1, 8, 4, 128), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 4, 8), device=cuda)
+    n = kflash.bwd_launches.count
+    with pytest.raises(ValueError, match="head dims"):
+        kflash.flash_attention_bwd(q, q, v, q[..., :128], lse, q[..., :128])
+    assert kflash.bwd_launches.count == n
+
+
+def test_train_loss_gradient_on_the_card_matches_plain_path(cuda, monkeypatch):
+    """The reduced llama in float32 on the card: loss and every gradient
+    leaf through K1 and its backward against the plain path, 1e-4 of the
+    leaf's own max |plain|."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import tree_leaves
+    from repro_torch.training import trainer
+    model = Model(get_arch("llama3.2-1b").reduced(), device="cuda")
+    params = model.init_params(seed=3)
+    toks = torch.randint(0, model.cfg.vocab_size, (2, 96),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks.to(cuda), "labels": toks.to(cuda)}
+    n = kflash.bwd_launches.count
+    loss, grads = trainer.value_and_grad(model, params, batch)
+    assert kflash.bwd_launches.count == n + model.cfg.n_layers
+    monkeypatch.setattr(ops, "grouped_flash", ref.grouped_flash_ref)
+    ploss, pgrads = trainer.value_and_grad(model, params, batch)
+    assert abs(loss.item() - ploss.item()) < 1e-4
+    for g, w in zip(tree_leaves(grads), tree_leaves(pgrads)):
+        assert ((g - w).abs().max() / w.abs().max()).item() < 1e-4
