@@ -19,7 +19,9 @@ Phases, each printed on its own line and each fatal:
 1. device   -- the card's name and power limit, compute capability 9.0
 2. build    -- compile the CUDA kernels from ``src/repro_torch/csrc``;
                ptxas must report no spill in the mLSTM scan, and its
-               tensor-core kernels' SASS must hold HGMMA (cuobjdump)
+               tensor-core kernels' SASS must hold HGMMA (cuobjdump); K1's
+               backward: registers and spill stores of each bf16 wgmma
+               kernel at each head dim, and HGMMA in each one's SASS
 3. kernels  -- each kernel against its plain version over the serving
                shapes and the reference test shapes: attention (K1, K2)
                float32 to 1e-4 and bfloat16 to 3e-2; the MoE router (K4)
@@ -49,7 +51,7 @@ Phases, each printed on its own line and each fatal:
                the plain gradient taken from the plain forward's output
                and logsumexp; the forward's row logsumexp on its live rows
                to 1e-5 (float32) and 1e-4 (bf16); its times beside SDPA's
-               backward
+               backward, with each of its three kernels' own device time
 4. model    -- float32, kernel path against the plain path (logits to
                1e-3, greedy tokens identical) over prefill_batch on ragged
                prompts and 8 decode steps: llama3.2-1b and xlstm-350m at
@@ -127,12 +129,9 @@ SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}   # bf16: x max(1, |ref|)
 MODEL_TOL = 1e-3
 
 
-def check_scan_build(build, built) -> None:
-    """ptxas reports no spill in the mLSTM scan (when this run built it),
-    and its bf16 kernels' SASS holds tensor-core instructions (HGMMA)."""
-    path, _, log_ = built["mlstm_scan"]
-    spills = [ln.strip() for ln in log_.splitlines()
-              if re.search(r"[1-9]\d* bytes spill", ln)]
+def hgmma_counts(build, path) -> dict:
+    """HGMMA (tensor-core) instructions in each kernel of a built library's
+    SASS (cuobjdump), by mangled kernel name."""
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
                           capture_output=True, text=True, check=True,
@@ -144,11 +143,47 @@ def check_scan_build(build, built) -> None:
             hgmma[name] = 0
         elif name and "HGMMA" in ln:
             hgmma[name] += 1
+    return hgmma
+
+
+def check_scan_build(build, built) -> None:
+    """ptxas reports no spill in the mLSTM scan (when this run built it),
+    and its bf16 kernels' SASS holds tensor-core instructions (HGMMA)."""
+    path, _, log_ = built["mlstm_scan"]
+    spills = [ln.strip() for ln in log_.splitlines()
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    hgmma = hgmma_counts(build, path)
     wgmma = {n: c for n, c in hgmma.items() if "mlstm_wgmma_kernel" in n}
     log("build.mlstm_scan", spill_lines=spills, hgmma_per_kernel=wgmma,
         built_here=bool(log_))
     if spills or not wgmma or not all(wgmma.values()):
         raise AssertionError(f"mlstm_scan: spills {spills}, HGMMA {hgmma}")
+
+
+BWD_WGMMA = re.compile(r"(flash_bwd_\w+?_wgmma_kernel)ILi(\d+)E")
+
+
+def check_bwd_build(build, built) -> None:
+    """K1's backward: ptxas's registers a thread and spill stores of each
+    bf16 `wgmma` kernel at each head dim (when this run built it), and
+    HGMMA in each one's SASS."""
+    path, _, log_ = built["flash_attention_bwd"]
+    ptxas, name = {}, None
+    for ln in log_.splitlines():
+        if "Compiling entry function" in ln:
+            m = BWD_WGMMA.search(ln)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+        elif name and (m := re.search(r"(\d+) bytes spill stores", ln)):
+            ptxas.setdefault(name, {})["spill_store_bytes"] = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            ptxas.setdefault(name, {})["registers"] = int(m.group(1))
+    hgmma = {f"{m.group(1)}<{m.group(2)}>": c
+             for n, c in hgmma_counts(build, path).items()
+             if (m := BWD_WGMMA.search(n))}
+    log("build.flash_attention_bwd", ptxas=ptxas, hgmma_per_kernel=hgmma,
+        built_here=bool(log_))
+    if len(hgmma) != 10 or not all(hgmma.values()):
+        raise AssertionError(f"flash_attention_bwd: HGMMA {hgmma}")
 
 
 def log(phase: str, **fields) -> None:
@@ -176,24 +211,34 @@ def cuda_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn, kernel: str, iters: int):
+def profiled(fn, kernel: str, iters: int, min_count: int = 1):
     """A profiler window over ``iters`` calls of ``fn`` (after one call
-    outside it).  The profiler can lose a whole window's device events, so
-    up to three windows are tried until one holds a launch of ``kernel``;
-    the callers check what the window holds."""
+    outside it).  The profiler can lose device events -- a whole window's,
+    or some launches of some kernels -- so windows are tried, at least two
+    and up to five, until one holds at least ``min_count`` launches of
+    each kernel whose name contains ``kernel``, and as many such kernels as
+    any window tried; that window is returned, else the last one.  The
+    callers check what the window holds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    windows = []
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        if any(e.device_type == DeviceType.CUDA and e.count and kernel in e.key
-               for e in prof.key_averages()):
-            break
+        windows.append((prof, [e.count for e in prof.key_averages()
+                               if e.device_type == DeviceType.CUDA
+                               and e.count and kernel in e.key]))
+        if len(windows) < 2:
+            continue
+        widest = max(len(counts) for _, counts in windows)
+        for p, counts in windows:
+            if len(counts) == widest and min(counts, default=0) >= min_count:
+                return p
     return prof
 
 
@@ -229,7 +274,7 @@ def device_ms_per_call(fn, kernel: str, iters: int = 5,
     launches a call (rounded, as the profiler can drop an event); a call
     must launch one to ``max_per_call`` of them."""
     from torch.autograd import DeviceType
-    prof = profiled(fn, kernel, iters)
+    prof = profiled(fn, kernel, iters, min_count=iters)
     mine = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.count and kernel in e.key]
     per_call = {e.key: round(e.count / iters) for e in mine}
@@ -240,6 +285,23 @@ def device_ms_per_call(fn, kernel: str, iters: int = 5,
     ms = sum(e.self_device_time_total / e.count * per_call[e.key]
              for e in mine) / 1e3
     return ms, n, kernel_grids(prof, kernel)
+
+
+def device_ms_by_kernel(fn, kernel: str, iters: int = 5) -> dict:
+    """Device ms a call of each CUDA kernel whose name contains ``kernel``,
+    by the kernel's identifier (template arguments dropped), from a
+    profiler window over ``iters`` calls of ``fn``: its mean time a launch
+    times its launches a call (rounded, as in ``device_ms_per_call``)."""
+    from torch.autograd import DeviceType
+    prof = profiled(fn, kernel, iters, min_count=iters)
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count and kernel in e.key:
+            short = re.search(r"\w*" + kernel + r"\w*", e.key).group(0)
+            out[short] = (out.get(short, 0.0)
+                          + e.self_device_time_total / e.count / 1e3
+                          * max(1, round(e.count / iters)))
+    return out
 
 
 def kernel_grids(prof, kernel: str) -> dict:
@@ -660,6 +722,12 @@ def backward_phase(ref, kflash) -> dict:
          "library_ms": cuda_ms(library, iters=10, warmup=2)}
     d["device_ms"], d["launches_per_call"], d["grid"] = device_ms_per_call(
         call, "bwd_d", iters=3, max_per_call=3)
+    d["device_ms_by_kernel"] = device_ms_by_kernel(call, "bwd_d", iters=5)
+    d["design"] = ("bf16: bwd_delta_kernel (D, lse log2 e), "
+                   "flash_bwd_dkdv_wgmma_kernel (128 keys a block, wgmma "
+                   "S^T, dP^T, dV, dK), flash_bwd_dq_wgmma_kernel (128 "
+                   "queries a block, wgmma S, dP, dQ); float32 on the CUDA "
+                   "cores (bwd_dkdv_kernel, bwd_dq_kernel)")
     d["library_backend"], d["library_kernels"] = sdpa_backend(library)
     d["bound_ms"], d["bound_by"] = flash_bwd_bound_ms(q, k, True, 0)
     d["kept_pairs"] = b * h * flash_pairs(s, s, True, 0)
@@ -1282,9 +1350,11 @@ def model_flops(cfg, b: int, s: int) -> float:
     return 6 * n * b * s + 12 * hd * h * pairs * b * cfg.n_layers
 
 
-def busy_ms(fn, top: int = 10) -> tuple:
-    """Device time of every kernel in a profiler window over one call, and
-    the ``top`` kernels by device time: [name, ms, launches]."""
+def busy_ms(fn, top: int = 10, named: tuple = ()) -> tuple:
+    """Device time of every kernel in a profiler window over one call, the
+    ``top`` kernels by device time: [name, ms, launches], and for each
+    string of ``named`` the kernels whose name holds it: {string: [ms,
+    launches]}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1296,7 +1366,10 @@ def busy_ms(fn, top: int = 10) -> tuple:
                   key=lambda e: -e.self_device_time_total)
     return (sum(e.self_device_time_total for e in rows) / 1e3,
             [[e.key[:90], e.self_device_time_total / 1e3, e.count]
-             for e in rows[:top]])
+             for e in rows[:top]],
+            {n: [sum(e.self_device_time_total for e in rows if n in e.key)
+                 / 1e3, sum(e.count for e in rows if n in e.key)]
+             for n in named})
 
 
 def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
@@ -1334,7 +1407,7 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
 
     def one():
         box["state"], _ = step(box["state"], batch)
-    busy, top = busy_ms(one)
+    busy, top, k1 = busy_ms(one, named=("flash_fwd", "bwd_d"))
     flops = model_flops(cfg, b, s)
     wall = float(np.median(walls[1:]))
     result = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
@@ -1342,6 +1415,8 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
               "losses": losses, "step_wall_ms": walls,
               "step_wall_ms_median_2_4": wall, "step_busy_ms": busy,
               "step_top_kernels": top,
+              "step_k1_ms_launches": {"forward": k1["flash_fwd"],
+                                      "backward": k1["bwd_d"]},
               "tokens_per_s": b * s / wall * 1e3,
               "max_memory_allocated_bytes": peak,
               "model_flops_per_step": flops,
@@ -1447,6 +1522,7 @@ def main() -> int:
     log("build", seconds=time.monotonic() - t0,
         per_source={n: s for n, (_, s, _) in built.items()}, ptxas=ptxas)
     check_scan_build(build, built)
+    check_bwd_build(build, built)
 
     t0 = time.monotonic()
     timed = kernel_phase(ref, kflash, kdecode)

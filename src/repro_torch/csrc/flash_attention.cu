@@ -81,11 +81,15 @@
 // warp and `mbarrier`s).  A tensor map would have to be encoded on the host
 // for every call, since q, k and v are strided views of fresh activations,
 // and the serving step is already host-bound (about 20 us a launch).  The
-// backward pass for training is its own source, `flash_attention_bwd.cu`.
+// backward pass for training is its own source, `flash_attention_bwd.cu`;
+// the `cp.async`, `wgmma` and tile-layout helpers both use are in
+// `hopper.cuh`.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -299,233 +303,7 @@ constexpr int BK = 64;   // keys per KV tile
 constexpr int NT = 256;  // threads per block
 constexpr int STAGES = 2;  // K/V ring depth
 
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !ok.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Makes this thread's shared-memory writes visible to wgmma (async proxy).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins registers that an asynchronous wgmma reads or writes, so the
-// compiler neither reads them early nor reuses them before the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Two floats as bf16 in one register, lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
-    const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7 "
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-    const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15 "
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-    const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-    const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 16) wgmma_rs_n16(d, a, db, 1);
-  if constexpr (N == 32) wgmma_rs_n32(d, a, db, 1);
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db, 1);
-  if constexpr (N == 128) wgmma_rs_n128(d, a, db, 1);
-}
-
-// Shared-memory layout of a tile of R rows x HD bf16, and the wgmma
-// descriptors that read it.  A row's HD elements are cut into panels of
-// W = min(128, 2 HD) bytes; panel p of the tile is R rows of W bytes at
-// byte p R W, and 16-byte chunk c of row r sits at chunk
-// c ^ ((r >> SHIFT) & (W / 16 - 1)): the 128-byte swizzle of the
-// descriptors' layout type (64- and 32-byte at hd 32 and 16), so wgmma
-// reads the tile as it is stored.  A warp's 16-byte copies of one row fill
-// one 128-byte line of shared memory.  Tiles start on 1024 bytes, the
-// swizzle atom's alignment.
-template <int HD>
-struct Layout {
-  static constexpr int W = HD * 2 < 128 ? HD * 2 : 128;
-  static constexpr int CH = W / 16;  // chunks of a panel row
-  static constexpr int SHIFT = W == 128 ? 0 : (W == 64 ? 1 : 2);
-  static constexpr uint64_t MODE = W == 128 ? 1 : (W == 64 ? 2 : 3);
-
-  template <int R>
-  static __device__ __forceinline__ uint32_t offset(int row, int c8) {
-    return (c8 / CH) * R * W + row * W +
-           (((c8 % CH) ^ ((row >> SHIFT) & (CH - 1))) * 16);
-  }
-  static __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                                  uint32_t sbo) {
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-           (static_cast<uint64_t>(lbo >> 4) << 16) |
-           (static_cast<uint64_t>(sbo >> 4) << 32) | (MODE << 62);
-  }
-  // Q or K tile of R rows as a K-major operand (K = HD), k16 step kk: 32
-  // bytes into the panel row; 8-row groups are 8 W bytes apart (SBO); the
-  // leading offset is unused with a swizzle.
-  template <int R>
-  static __device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
-    return desc(base + (kk * 32 / W) * R * W + (kk * 32) % W, 16, 8 * W);
-  }
-  // V tile (BK keys x HD) as the MN-major B operand of P V, k16 step kk
-  // (keys 16 kk ...): 8-key groups are 8 W bytes apart (SBO), panels of
-  // the N dim (hd) BK W bytes (LBO).
-  static __device__ __forceinline__ uint64_t vmajor(uint32_t base, int kk) {
-    return desc(base + kk * 16 * W, BK * W, 8 * W);
-  }
-};
-
-// The head dim a tile is laid out at: a power of two from 16 to 128, or
-// 192 (MLA's query-key dim: three 128-byte panels, read by Q K^T only).  A
-// head dim between (80) is padded to the next one inside the kernel: a
-// row's 160 bytes would be a 128-byte and a 32-byte panel, which one
-// descriptor swizzle mode cannot cover, and `wgmma_rs` has n16/32/64/128.
-__host__ __device__ constexpr int padded_hd(int hd) {
-  return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 192;
-}
-
-// Rows [r0, r0 + R) of a row-major (rows x HD) bf16 matrix with row stride
-// ld into shared memory at dst in the layout of a padded row of HP; rows at
-// or past nrows are zero-filled.  Columns HD ... HP - 1 are not written.
-template <int R, int HD, int HP>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          long long ld, int r0, int nrows,
-                                          int tid) {
-  constexpr int CHUNKS = R * HD / 8;
-#pragma unroll
-  for (int j = 0; j < (CHUNKS + NT - 1) / NT; ++j) {
-    const int i = tid + j * NT;
-    if (CHUNKS % NT == 0 || i < CHUNKS) {
-      const int r = i / (HD / 8), c8 = i % (HD / 8);
-      const int row = r0 + r;
-      const bool ok = row < nrows;
-      cp_async16(dst + Layout<HP>::template offset<R>(r, c8),
-                 src + (ok ? row : 0) * ld + c8 * 8, ok);
-    }
-  }
-}
+using namespace hopper;
 
 template <int DK, int DV>
 constexpr int smem_bytes() {
@@ -579,25 +357,20 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
   // steps of Q and K, so their pad columns are never read.  The first
   // iteration's proxy fence and barrier order these stores before any
   // wgmma reads them.
-  if constexpr (VP != DV) {
-    constexpr int PAD8 = (VP - DV) / 8;
-    for (int i = tid; i < STAGES * BK * PAD8; i += NT) {
-      const int st = i / (BK * PAD8), r = (i / PAD8) % BK;
-      const uint32_t off = (skv - sq) + st * STAGE_BYTES + K_BYTES +
-                           LV::template offset<BK>(r, DV / 8 + i % PAD8);
-      *reinterpret_cast<uint4*>(smem + off) = make_uint4(0, 0, 0, 0);
-    }
-  }
+#pragma unroll
+  for (int st = 0; st < STAGES; ++st)
+    zero_pad_cols<BK, DV, VP, NT>(smem, (skv - sq) + st * STAGE_BYTES + K_BYTES,
+                                  tid);
 
   // Copy group t holds KV tile t (and group 0 the Q tile too); a group is
   // committed even when empty, so the wait count is the same every time.
-  load_tile<BQ, DK, KP>(sq, q, p.q_ss, q0, p.Sq, tid);
+  load_tile<BQ, DK, KP, NT>(sq, q, p.q_ss, q0, p.Sq, tid);
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
     if (t < n_tiles) {
       const uint32_t st = skv + t * STAGE_BYTES;
-      load_tile<BK, DK, KP>(st, k, p.k_ss, k_begin + t * BK, p.Sk, tid);
-      load_tile<BK, DV, VP>(st + K_BYTES, v, p.v_ss, k_begin + t * BK, p.Sk,
+      load_tile<BK, DK, KP, NT>(st, k, p.k_ss, k_begin + t * BK, p.Sk, tid);
+      load_tile<BK, DV, VP, NT>(st + K_BYTES, v, p.v_ss, k_begin + t * BK, p.Sk,
                             tid);
     }
     cp_async_commit();
@@ -626,8 +399,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
     __syncthreads();
     if (j + STAGES - 1 < n_tiles) {
       const uint32_t st = skv + ((j + STAGES - 1) % STAGES) * STAGE_BYTES;
-      load_tile<BK, DK, KP>(st, k, p.k_ss, t0 + (STAGES - 1) * BK, p.Sk, tid);
-      load_tile<BK, DV, VP>(st + K_BYTES, v, p.v_ss, t0 + (STAGES - 1) * BK,
+      load_tile<BK, DK, KP, NT>(st, k, p.k_ss, t0 + (STAGES - 1) * BK, p.Sk, tid);
+      load_tile<BK, DV, VP, NT>(st + K_BYTES, v, p.v_ss, t0 + (STAGES - 1) * BK,
                             p.Sk, tid);
     }
     cp_async_commit();
@@ -647,7 +420,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
       wgmma_ss_n64(s, LK::template kmajor<BQ>(qa, kk),
                    LK::template kmajor<BK>(sk, kk), kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // Base-2 scores; masks only on tiles that cross an edge.
@@ -696,24 +469,17 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < VP / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
 
-    // P as the A operand: n-blocks 2 kk and 2 kk + 1 of the score
-    // accumulator are the k16 slice kk of the A fragment.
+    // P as the A operand of P V, from the score accumulator's registers.
     uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    acc_to_a(pa, s);
     fence_regs(acc);
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<VP>(acc, pa[kk], LV::vmajor(sv, kk));
+      wgmma_rs<VP>(acc, pa[kk], LV::template mnmajor<BK>(sv, kk));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pa);
   }

@@ -18,43 +18,99 @@
 // The formulas: D = rowsum(dO o O); P = exp(scale Q K^T - lse); dV = P^T dO
 // summed over a KV head's G query heads; dS = P o (dO V^T - D); dQ = scale
 // dS K; dK = scale dS^T Q.  Three launches a call, in stream order, none
-// with atomics, so a call is deterministic:
+// with atomics, so a call is deterministic (the G heads and the query tiles
+// are summed in a fixed order):
 //
 // (a) `bwd_delta_kernel`: one warp a (batch row, query, head) row, D into
-//     a (B, H, Sq) float32 scratch the wrapper allocates.
-// (b) `bwd_dkdv_kernel`: one block per (64 keys, KV head, batch row).  K
-//     and V stay in shared memory; the block walks the G query heads of
-//     its KV head and, for each, the 64-row query tiles that the mask lets
-//     see a key of the tile.  It recomputes S and dO V^T for the 64 x 64
-//     tile, P and dS into shared memory, and accumulates dK and dV in
-//     registers: each thread owns 4 keys x hd / 16 columns of both.
-// (c) `bwd_dq_kernel`: one block per (64 queries, head, batch row).  Q, dO,
-//     lse and D stay in shared memory; it walks the KV tiles the mask keeps
-//     (the forward's range), recomputes P and dS, and accumulates dQ in
-//     registers, 4 queries x hd / 16 columns a thread.
+//     a float32 scratch the wrapper allocates.  For bf16 it also stores
+//     lse log2(e) beside D, +inf for a row that kept no key, and pads both
+//     to whole 128-row blocks (D 0, lse +inf), so the bf16 kernels read them
+//     as aligned 16-byte tiles and a pad or dead row gets P = exp2(-inf) = 0
+//     without a mask.
+// (b) dK and dV, (c) dQ: by the input type, as in the forward -- the bf16
+//     kernels on the tensor cores, the float32 ones on the CUDA cores
+//     (`wgmma` on float32 is TF32, about three decimal digits, which cannot
+//     hold the 1e-4 the float32 gradient checks need).  Neither is a
+//     fallback for the other.
 //
-// CUDA cores, float32 inside for both input types (bf16 is read and
-// converted into float32 tiles).  What bounds it: at the training shape
-// (B = 2, S = 4096, H = 32, KH = 8, hd 64, causal) the work is 537 M kept
-// pairs; the backward's bound counts 6 dk + 4 dv operations a pair at the
-// tensor cores' bf16 rate (0.35 ms), far above its bytes (0.05 ms).  This
-// design does 14 hd a pair (S and dO V^T twice: once for dK and dV, once for
-// dQ) on CUDA cores, whose float32 peak is 67 TFLOP/s, with about one
-// shared-memory load every two FMAs: it is far from that bound by design.
-// `wgmma` products from TMA-fed tiles are the later work (PERF.md).
+// bf16, `flash_bwd_dkdv_wgmma_kernel<HD>`: one block of two warpgroups per
+// (128 keys, KV head, batch row); each warpgroup owns 64 keys, `wgmma`'s M.
+// K and V are copied once into 128-byte-swizzled tiles (`hopper.cuh`).  The
+// block walks the G query heads and, for each, the 64-row query tiles the
+// mask lets see a key of the block; Q, dO, lse log2(e) and D tiles stream
+// through a two-stage ring filled by 16-byte `cp.async` (zero-filled past
+// Sq), so tile t + 1 loads while tile t computes.  For each tile a
+// warpgroup computes S^T = K Q^T and dP^T = V dO^T (`wgmma` m64n64k16, both
+// operands K-major from shared memory, committed as two groups so P^T is
+// exponentiated while dP^T is still running), P^T = exp2(S^T scale log2 e -
+// lse log2 e) and dS^T = P^T o (dP^T - D) in the accumulator registers
+// (masks only on tiles that cross the causal or window edge), then dV +=
+// P^T dO and dK += dS^T Q (`wgmma` with A from registers: P^T and dS^T
+// packed to bf16 as the forward packs P, B = dO or Q read MN-major from the
+// same shared tiles).  dK and dV stay in float32 registers until the end,
+// where dK is scaled and both are stored once.  Key rows past Sk compute
+// garbage that is never stored (each key row is independent here), so the
+// Sk edge needs no mask.  Blocks are ordered so the heaviest (causal: the
+// first keys, which every later query sees) launch first.
 //
-// Head dims 16, 32, 64, 80 and 128 (query-key dim = value dim); MLA's
-// 192 / 128 waits for its training slice, and the wrapper refuses it.
+// bf16, `flash_bwd_dq_wgmma_kernel<HD>`: one block of two warpgroups per
+// (128 queries, head, batch row), 64 queries a warpgroup; Q and dO stay in
+// shared memory, each thread's two rows of lse log2(e) and D in registers.
+// It walks the forward's key range through a two-stage ring of 64-key K and
+// V tiles: S = Q K^T and dP = dO V^T (SS), P and dS in registers (masks on
+// edge tiles, the Sk edge included: a zero key row would give P = exp2(-lse
+// log2 e), which may overflow), dQ += dS K (A from registers, K read
+// MN-major).  Causal blocks run last-queries first, the heaviest.  The
+// separate dQ kernel recomputes S and dP: 14 hd operations a kept pair
+// against the bound's 10 hd, kept so that dQ needs no float32 atomics,
+// whose order would change between calls.
+//
+// P and dS are rounded to bf16 as the A operands of dV, dK and dQ (the
+// forward does the same to P); sums stay float32.  The CPU test
+// `test_torch_flash_grad.py` emulates this rounding against the float32
+// gradient within the bf16 gates (norm 1e-2, max 3e-2 of max(1, |plain|)).
+//
+// Head dims 16, 32, 64, 80 and 128 (query-key dim = value dim).  hd 80 is
+// laid out at 128 as in the forward: S and dP take its 5 k16 steps, the
+// products over N = hd run at n128 on tiles whose columns 80-127 are zeroed
+// once, and only 80 columns are stored.  At hd 16 the N = hd products are
+// n16 and S, dP have one k16 step.  MLA's 192 / 128 waits for its training
+// slice, and the wrapper refuses it.  Shared memory: dK/dV 2 x 128 hp x 2
+// bytes of K and V plus two stages of (Q, dO: 64 hp x 2 each; lse, D: 256
+// bytes each), hp the padded hd (130 KB at 128, 66 KB at 64); dQ 2 x 128 hp
+// x 2 of Q and dO plus two stages of 64-key K and V (128 KB at 128).
+// Registers a thread (ptxas -v, `chip_smoke.py`'s build phase), hd 16 /
+// 32 / 64 / 80 / 128: dK/dV 134 / 152 / 194 / 254 / 255, dQ 112 / 124 /
+// 151 / 199 / 219; no spill except 48 bytes of spill stores in dK/dV at hd
+// 128, which holds dK, dV (64 floats each), S^T and dP^T (32 each).
+// `__launch_bounds__(256, 1)` lets each kernel take up to 255: one block an
+// SM, whose two warpgroups can overlap each other's products and
+// exponentials between their barriers.
+//
+// What bounds it: at the training shape (B = 2, S = 4096, H = 32, KH = 8,
+// hd 64, causal) 537 M kept pairs; the bound counts 6 dk + 4 dv operations
+// a pair at the tensor cores' bf16 rate (0.35 ms), far above its bytes
+// (0.05 ms).  The design does 14 hd a pair.  Left for later (PERF.md):
+// TMA copies with a producer warp and `setmaxnreg`, overlapping a tile's
+// exponentials with the next tile's products, a deterministic single-pass
+// dQ, and MLA's 192 / 128.
+//
+// float32, `bwd_dkdv_kernel<HD>` and `bwd_dq_kernel<HD>`: the same
+// blocking at 64 keys / 64 queries with K, V (or Q, dO, lse, D) in shared
+// memory as float32, P and dS through shared memory, each thread 4 rows x
+// hd / 16 columns of the accumulators, on the CUDA cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BQ = 64;   // query rows a tile
-constexpr int BK = 64;   // keys a tile
-constexpr int NT = 256;  // threads a block: 16 x 16, 4 x 4 of a tile each
+constexpr int NT = 256;         // threads a block, every kernel
+constexpr int ROW_PAD = 128;    // bf16: lse log2(e) and D rows padded to this
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -63,11 +119,13 @@ struct Params {
   const void* o;
   const void* dout;
   const float* lse;  // (B, H, Sq)
-  float* delta;      // (B, H, Sq) scratch: D
+  float* delta;      // scratch: D, (B, H, sq_ld)
+  float* lse2;       // scratch, bf16 only: lse log2(e), (B, H, sq_ld)
   void* dq;
   void* dk;
   void* dv;
   int B, Sq, Sk, H, KH;
+  int sq_ld;         // row stride of delta and lse2: Sq, or Sq padded (bf16)
   float scale;
   int causal;
   int window;
@@ -77,27 +135,54 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+
+// ---------------------------------------------------------------- (a) D
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT) bwd_delta_kernel(Params p) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (NT / 32) + threadIdx.x / 32;
+  const long long rows = static_cast<long long>(p.B) * p.sq_ld * p.H;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const int h = static_cast<int>(row % p.H);
+  const long long bi = row / p.H;  // b sq_ld + i
+  const int i = static_cast<int>(bi % p.sq_ld);
+  const long long b = bi / p.sq_ld;
+  float s = 0.f;
+  if (i < p.Sq) {
+    const long long off = ((b * p.Sq + i) * p.H + h) * HD;
+    const T* o = static_cast<const T*>(p.o) + off;
+    const T* d = static_cast<const T*>(p.dout) + off;
+    for (int c = lane; c < HD; c += 32) s = fmaf(to_f(o[c]), to_f(d[c]), s);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
+  }
+  if (lane == 0) {
+    const long long out = (b * p.H + h) * p.sq_ld + i;
+    p.delta[out] = s;
+    if (p.lse2 != nullptr) {
+      const float l = i < p.Sq ? p.lse[(b * p.H + h) * p.Sq + i] : -INFINITY;
+      p.lse2[out] = l == -INFINITY ? INFINITY : l * LOG2E;
+    }
+  }
 }
 
+// ------------------------------------------------- float32, CUDA cores
+namespace f32 {
+
+constexpr int BQ = 64;   // query rows a tile
+constexpr int BK = 64;   // keys a tile
+
 // Rows [r0, r0 + 64) of a (rows x HD) matrix with row stride ld into
-// shared memory as float32, row stride HD + 1 (no bank conflicts down a
-// column); rows at or past nrows are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+// shared memory, row stride HD + 1 (no bank conflicts down a column); rows
+// at or past nrows are zero.
+template <int HD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long ld, int r0, int nrows) {
   for (int i = threadIdx.x; i < 64 * HD; i += NT) {
     const int r = i / HD, d = i % HD;
     const int row = r0 + r;
-    dst[r * (HD + 1) + d] = row < nrows ? to_f(src[row * ld + d]) : 0.f;
+    dst[r * (HD + 1) + d] = row < nrows ? src[row * ld + d] : 0.f;
   }
 }
 
@@ -110,31 +195,6 @@ __device__ __forceinline__ bool kept(const Params& p, int qi, int kj,
   return ok;
 }
 
-// ---------------------------------------------------------------- (a) D
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) bwd_delta_kernel(Params p) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (NT / 32) + threadIdx.x / 32;
-  const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const T* o = static_cast<const T*>(p.o) + row * HD;
-  const T* d = static_cast<const T*>(p.dout) + row * HD;
-  float s = 0.f;
-  for (int c = lane; c < HD; c += 32) s = fmaf(to_f(o[c]), to_f(d[c]), s);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {
-    const int h = static_cast<int>(row % p.H);
-    const long long bi = row / p.H;  // b Sq + i
-    const int i = static_cast<int>(bi % p.Sq);
-    const long long b = bi / p.Sq;
-    p.delta[(b * p.H + h) * p.Sq + i] = s;
-  }
-}
-
-// ------------------------------------------------------------ (b) dK, dV
 template <int HD>
 constexpr size_t dkdv_smem() {
   // Ks, Vs [BK][HD+1]; Qs, dOs [BQ][HD+1]; Ps, dSs [BK][BQ+1]; lse, D [BQ]
@@ -142,7 +202,12 @@ constexpr size_t dkdv_smem() {
                           2 * BK * (BQ + 1) + 2 * BQ);
 }
 
-template <typename T, int HD>
+// One block per (64 keys, KV head, batch row): K and V stay in shared
+// memory; the block walks the G query heads and their 64-row query tiles
+// that the mask lets see a key of the tile, recomputes S and dO V^T, P and
+// dS into shared memory, and accumulates dK and dV in registers: each
+// thread owns 4 keys x hd / 16 columns of both.
+template <int HD>
 __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
   extern __shared__ float smem[];
   constexpr int RS = HD + 1;
@@ -168,8 +233,8 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
   const long long kld = static_cast<long long>(p.KH) * HD;
   const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * HD;
 
-  load_rows<T, HD>(Ks, static_cast<const T*>(p.k) + koff, kld, k0, p.Sk);
-  load_rows<T, HD>(Vs, static_cast<const T*>(p.v) + koff, kld, k0, p.Sk);
+  load_rows<HD>(Ks, static_cast<const float*>(p.k) + koff, kld, k0, p.Sk);
+  load_rows<HD>(Vs, static_cast<const float*>(p.v) + koff, kld, k0, p.Sk);
 
   // Query rows that can see a key of [k0, k_last]: [i_begin, i_end).
   const int k_last = min(k0 + BK, p.Sk) - 1;
@@ -187,13 +252,13 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
     const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * HD;
-    const T* q = static_cast<const T*>(p.q) + qoff;
-    const T* dout = static_cast<const T*>(p.dout) + qoff;
+    const float* q = static_cast<const float*>(p.q) + qoff;
+    const float* dout = static_cast<const float*>(p.dout) + qoff;
     const long long roff = (static_cast<long long>(b) * p.H + h) * p.Sq;
     for (int i0 = i_begin; i0 < i_end; i0 += BQ) {
       __syncthreads();  // the previous tile is consumed
-      load_rows<T, HD>(Qs, q, qld, i0, p.Sq);
-      load_rows<T, HD>(dOs, dout, qld, i0, p.Sq);
+      load_rows<HD>(Qs, q, qld, i0, p.Sq);
+      load_rows<HD>(dOs, dout, qld, i0, p.Sq);
       if (tid < BQ) {
         const int qi = i0 + tid;
         Ls[tid] = qi < p.Sq ? p.lse[roff + qi] : -INFINITY;
@@ -265,21 +330,20 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
     }
   }
 
-  T* dk = static_cast<T*>(p.dk) + koff;
-  T* dv = static_cast<T*>(p.dv) + koff;
+  float* dk = static_cast<float*>(p.dk) + koff;
+  float* dv = static_cast<float*>(p.dv) + koff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + ty * 4 + i;
     if (kj >= p.Sk) continue;
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
-      dk[kj * kld + tx + 16 * j] = from_f<T>(adk[i][j] * p.scale);
-      dv[kj * kld + tx + 16 * j] = from_f<T>(adv[i][j]);
+      dk[kj * kld + tx + 16 * j] = adk[i][j] * p.scale;
+      dv[kj * kld + tx + 16 * j] = adv[i][j];
     }
   }
 }
 
-// ---------------------------------------------------------------- (c) dQ
 template <int HD>
 constexpr size_t dq_smem() {
   // Qs, dOs [BQ][HD+1]; Ks, Vs [BK][HD+1]; dSs [BQ][BK+1]; lse, D [BQ]
@@ -287,7 +351,11 @@ constexpr size_t dq_smem() {
          (2 * BQ * (HD + 1) + 2 * BK * (HD + 1) + BQ * (BK + 1) + 2 * BQ);
 }
 
-template <typename T, int HD>
+// One block per (64 queries, head, batch row): Q, dO, lse and D stay in
+// shared memory; it walks the KV tiles the mask keeps (the forward's
+// range), recomputes P and dS, and accumulates dQ in registers, 4 queries
+// x hd / 16 columns a thread.
+template <int HD>
 __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
   extern __shared__ float smem[];
   constexpr int RS = HD + 1;
@@ -314,8 +382,9 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
   const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * HD;
   const long long roff = (static_cast<long long>(b) * p.H + h) * p.Sq;
 
-  load_rows<T, HD>(Qs, static_cast<const T*>(p.q) + qoff, qld, q0, p.Sq);
-  load_rows<T, HD>(dOs, static_cast<const T*>(p.dout) + qoff, qld, q0, p.Sq);
+  load_rows<HD>(Qs, static_cast<const float*>(p.q) + qoff, qld, q0, p.Sq);
+  load_rows<HD>(dOs, static_cast<const float*>(p.dout) + qoff, qld, q0,
+                p.Sq);
   if (tid < BQ) {
     const int qi = q0 + tid;
     Ls[tid] = qi < p.Sq ? p.lse[roff + qi] : -INFINITY;
@@ -336,12 +405,12 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
 
-  const T* k = static_cast<const T*>(p.k) + koff;
-  const T* v = static_cast<const T*>(p.v) + koff;
+  const float* k = static_cast<const float*>(p.k) + koff;
+  const float* v = static_cast<const float*>(p.v) + koff;
   for (int t0 = k_begin; t0 < k_end; t0 += BK) {
     __syncthreads();  // the previous tile is consumed (and Q is in)
-    load_rows<T, HD>(Ks, k, kld, t0, p.Sk);
-    load_rows<T, HD>(Vs, v, kld, t0, p.Sk);
+    load_rows<HD>(Ks, k, kld, t0, p.Sk);
+    load_rows<HD>(Vs, v, kld, t0, p.Sk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -399,45 +468,472 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
     }
   }
 
-  T* dq = static_cast<T*>(p.dq) + qoff;
+  float* dq = static_cast<float*>(p.dq) + qoff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
     if (qi >= p.Sq) continue;
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      dq[qi * qld + tx + 16 * j] = from_f<T>(acc[i][j] * p.scale);
+    for (int j = 0; j < NC; ++j) dq[qi * qld + tx + 16 * j] = acc[i][j] * p.scale;
   }
 }
 
-// Above 48 KB a block's shared memory must be opted into, once per
-// instantiation (thread-safe static initialisation).
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr size_t s_b = dkdv_smem<HD>();
   constexpr size_t s_c = dq_smem<HD>();
+  // Above 48 KB a block's shared memory must be opted into, once per
+  // instantiation (thread-safe static initialisation).
   static const cudaError_t attr_b = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(s_b));
   static const cudaError_t attr_c = cudaFuncSetAttribute(
-      bwd_dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(s_c));
   if (attr_b != cudaSuccess) return attr_b;
   if (attr_c != cudaSuccess) return attr_c;
-  const long long rows = static_cast<long long>(p.B) * p.Sq * p.H;
+  bwd_dkdv_kernel<HD>
+      <<<dim3((p.Sk + BK - 1) / BK, p.KH, p.B), NT, s_b, stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  bwd_dq_kernel<HD>
+      <<<dim3((p.Sq + BQ - 1) / BQ, p.H, p.B), NT, s_c, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
+
+// ------------------------------------------------------ bf16, wgmma
+namespace wg {
+
+using namespace hopper;
+
+constexpr int BKV = 128;  // keys a dK/dV block: two warpgroups of 64
+constexpr int BQT = 64;   // queries a tile of the dK/dV block's ring
+constexpr int BQB = 128;  // queries a dQ block: two warpgroups of 64
+constexpr int BKT = 64;   // keys a tile of the dQ block's ring
+constexpr int STAGES = 2;
+static_assert(ROW_PAD % BQB == 0 && ROW_PAD % BQT == 0, "row padding");
+
+constexpr int round1k(int x) { return (x + 1023) / 1024 * 1024; }
+
+// Shared memory of the dK/dV kernel, bytes: K and V (BKV rows each), then
+// the ring's stages of (Q tile, dO tile, lse log2 e, D), each tile on 1024
+// bytes.
+template <int HD>
+struct DkdvSmem {
+  static constexpr int HP = padded_hd(HD);
+  static constexpr int KV = BKV * HP * 2;
+  static constexpr int TILE = BQT * HP * 2;
+  static constexpr int ROWS = 2 * TILE;  // lse log2 e, then D, BQT floats each
+  static constexpr int STAGE = round1k(2 * TILE + 2 * BQT * 4);
+  static constexpr int BYTES = 2 * KV + STAGES * STAGE;
+};
+
+// Shared memory of the dQ kernel, bytes: Q and dO (BQB rows each), then the
+// ring's stages of (K tile, V tile).
+template <int HD>
+struct DqSmem {
+  static constexpr int HP = padded_hd(HD);
+  static constexpr int QO = BQB * HP * 2;
+  static constexpr int TILE = BKT * HP * 2;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int BYTES = 2 * QO + STAGES * STAGE;
+};
+
+// Stores rows r and r + 8 of a warpgroup's m64nN float32 accumulator (N =
+// the padded hd), times `mul`, as bf16 into rows of a (rows x HD) matrix
+// with row stride ld; only the first HD columns, and only rows below nrows.
+template <int HD, int N>
+__device__ __forceinline__ void store_rows(bf16* dst, long long ld,
+                                           const float (&acc)[N / 2], int r,
+                                           int nrows, int cq, float mul) {
+#pragma unroll
+  for (int jn = 0; jn < HD / 8; ++jn) {
+    const int col = 8 * jn + cq;
+    if (r < nrows)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r * ld + col) =
+          __floats2bfloat162_rn(acc[4 * jn] * mul, acc[4 * jn + 1] * mul);
+    if (r + 8 < nrows)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * ld + col) =
+          __floats2bfloat162_rn(acc[4 * jn + 2] * mul,
+                                acc[4 * jn + 3] * mul);
+  }
+}
+
+// Grid (KH, B, key blocks): block z holds keys [128 z, 128 z + 128).
+template <int HD>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  using SM = DkdvSmem<HD>;
+  constexpr int HP = SM::HP;
+  using L = Layout<HP>;
+  const uint32_t s0 = smem_addr(smem);
+  const uint32_t sk = s0, sv = s0 + SM::KV;
+  const uint32_t ring = sv + SM::KV;  // stage s at ring + s STAGE
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // warpgroup: keys 64 wgi ... of the block
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * BKV;
+  const int G = p.H / p.KH;
+  const int offs = p.causal ? p.Sk - p.Sq : 0;
+  const long long qld = static_cast<long long>(p.H) * HD;
+  const long long kld = static_cast<long long>(p.KH) * HD;
+  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * HD;
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const bf16* dout = static_cast<const bf16*>(p.dout);
+
+  // Query rows that can see a key of [k0, k_last]: [i_begin, i_end), in
+  // n_it tiles a head; tile t of the walk is head t / n_it's tile t % n_it.
+  const int k_last = min(k0 + BKV, p.Sk) - 1;
+  int i_begin = 0, i_end = p.Sq;
+  if (p.causal) i_begin = max(0, k0 - offs);
+  if (p.window > 0) i_end = min(i_end, k_last + p.window - offs);
+  i_begin = (i_begin / BQT) * BQT;
+  const int n_it = i_end > i_begin ? (i_end - i_begin + BQT - 1) / BQT : 0;
+  const int n_tiles = G * n_it;
+
+  // Q, dO, lse log2 e and D of tile t into stage st.
+  auto load_stage = [&](int t, int st) {
+    const int h = kh * G + t / n_it;
+    const int i0 = i_begin + (t % n_it) * BQT;
+    const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * HD;
+    const uint32_t base = ring + st * SM::STAGE;
+    load_tile<BQT, HD, HP, NT>(base, q + qoff, qld, i0, p.Sq, tid);
+    load_tile<BQT, HD, HP, NT>(base + SM::TILE, dout + qoff, qld, i0, p.Sq,
+                               tid);
+    if (tid < 2 * BQT / 4) {  // 16 chunks of 4 floats each
+      const long long roff = (static_cast<long long>(b) * p.H + h) * p.sq_ld +
+                             i0 + (tid % (BQT / 4)) * 4;
+      const bool is_d = tid >= BQT / 4;
+      cp_async16(base + SM::ROWS + is_d * BQT * 4 + (tid % (BQT / 4)) * 16,
+                 (is_d ? p.delta : p.lse2) + roff, true);
+    }
+  };
+
+  // A padded hd: the N = HP products read the Q and dO tiles' columns
+  // HD ... HP - 1, zeroed here once (the copies never write them); the
+  // first iteration's proxy fence and barrier order these stores before
+  // any wgmma reads them.  S^T and dP^T take HD / 16 k16 steps only.
+#pragma unroll
+  for (int st = 0; st < STAGES; ++st) {
+    zero_pad_cols<BQT, HD, HP, NT>(smem, ring - s0 + st * SM::STAGE, tid);
+    zero_pad_cols<BQT, HD, HP, NT>(smem, ring - s0 + st * SM::STAGE + SM::TILE,
+                                   tid);
+  }
+  // Copy group 0 holds K, V and tile 0; group t tile t.
+  load_tile<BKV, HD, HP, NT>(sk, static_cast<const bf16*>(p.k) + koff, kld,
+                             k0, p.Sk, tid);
+  load_tile<BKV, HD, HP, NT>(sv, static_cast<const bf16*>(p.v) + koff, kld,
+                             k0, p.Sk, tid);
+  if (n_tiles > 0) load_stage(0, 0);
+  cp_async_commit();
+
+  // This warpgroup's keys [kw0, kw0 + 64); this thread's two are kA and
+  // kA + 8, its query columns 8 j + cq and 8 j + cq + 1 of each 8.
+  const int kw0 = k0 + wgi * 64;
+  const int kw_last = min(kw0 + 63, p.Sk - 1);
+  const int kA = kw0 + warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float sl2 = p.scale * LOG2E;
+  const uint32_t ka = sk + wgi * 64 * L::W;  // its 64 rows of K and V
+  const uint32_t va = sv + wgi * 64 * L::W;
+
+  float dk[HP / 2], dv[HP / 2];
+#pragma unroll
+  for (int i = 0; i < HP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // Tile t has landed (and K, V), and every thread is done with tile
+    // t - 1, whose stage the copy of tile t + 1 reuses.
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (t + 1 < n_tiles) load_stage(t + 1, (t + 1) % STAGES);
+    cp_async_commit();
+
+    const int i0 = i_begin + (t % n_it) * BQT;
+    bool live = kw0 < p.Sk;
+    if (p.causal) live = live && kw0 <= i0 + BQT - 1 + offs;
+    if (p.window > 0) live = live && kw_last > i0 + offs - p.window;
+    if (!live) continue;
+    const uint32_t sq = ring + (t % STAGES) * SM::STAGE;
+    const uint32_t sdo = sq + SM::TILE;
+    const float* rl = reinterpret_cast<const float*>(smem + (sq - s0) +
+                                                     SM::ROWS);
+    const float* rd = rl + BQT;
+
+    // S^T = K Q^T and dP^T = V dO^T, two groups: S^T is ready first.
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, L::template kmajor<BKV>(ka, kk),
+                   L::template kmajor<BQT>(sq, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(dp, L::template kmajor<BKV>(va, kk),
+                   L::template kmajor<BQT>(sdo, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // P^T, masked only on tiles that cross the causal or window edge.
+    const bool edge = (p.causal && kw0 + 63 > i0 + offs) ||
+                      (p.window > 0 && kw0 <= i0 + BQT - 1 + offs - p.window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i / 4) + cq + (i & 1);
+      float pv = exp2f(fmaf(s[i], sl2, -rl[c]));
+      if (edge) {
+        const int kpos = kA + ((i & 2) ? 8 : 0);
+        const int qpos = i0 + c + offs;
+        bool ok = true;
+        if (p.causal) ok = kpos <= qpos;
+        if (p.window > 0) ok = ok && kpos > qpos - p.window;
+        pv = ok ? pv : 0.f;
+      }
+      s[i] = pv;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i / 4) + cq + (i & 1);
+      dp[i] = s[i] * (dp[i] - rd[c]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q: A from registers, B MN-major.
+    uint32_t pa[BQT / 16][4], da[BQT / 16][4];
+    acc_to_a(pa, s);
+    acc_to_a(da, dp);
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk)
+      wgmma_rs<HP>(dv, pa[kk], L::template mnmajor<BQT>(sdo, kk));
+#pragma unroll
+    for (int kk = 0; kk < BQT / 16; ++kk)
+      wgmma_rs<HP>(dk, da[kk], L::template mnmajor<BQT>(sq, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pa);
+    fence_regs(da);
+  }
+  cp_async_wait<0>();
+
+  bf16* dkp = static_cast<bf16*>(p.dk) + koff;
+  bf16* dvp = static_cast<bf16*>(p.dv) + koff;
+  store_rows<HD, HP>(dkp, kld, dk, kA, p.Sk, cq, p.scale);
+  store_rows<HD, HP>(dvp, kld, dv, kA, p.Sk, cq, 1.f);
+}
+
+// Grid (H, B, query blocks); causal: block z holds the query block
+// counted from the last, the heaviest first.
+template <int HD>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  using SM = DqSmem<HD>;
+  constexpr int HP = SM::HP;
+  using L = Layout<HP>;
+  const uint32_t sq = smem_addr(smem);
+  const uint32_t sdo = sq + SM::QO;
+  const uint32_t ring = sdo + SM::QO;  // stage s: K at ring + s STAGE, V after
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // warpgroup: queries 64 wgi ... of the block
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qb = p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qb * BQB;
+  const int kh = h / (p.H / p.KH);
+  const int offs = p.causal ? p.Sk - p.Sq : 0;
+  const long long qld = static_cast<long long>(p.H) * HD;
+  const long long kld = static_cast<long long>(p.KH) * HD;
+  const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * HD;
+  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * HD;
+  const bf16* k = static_cast<const bf16*>(p.k) + koff;
+  const bf16* v = static_cast<const bf16*>(p.v) + koff;
+
+  // Keys any real query row of this block can see: [k_begin, k_end), as
+  // the forward walks them.
+  const int q_last = min(q0 + BQB, p.Sq) - 1;
+  int k_begin = 0, k_end = p.Sk;
+  if (p.causal) k_end = min(k_end, q_last + offs + 1);
+  if (p.window > 0) k_begin = max(0, q0 + offs - p.window + 1);
+  k_begin = (k_begin / BKT) * BKT;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BKT - 1) / BKT : 0;
+
+  // A padded hd: dQ += dS K runs at N = HP over the K tiles' columns HD ...
+  // HP - 1, zeroed once (S and dP take HD / 16 k16 steps only).
+#pragma unroll
+  for (int st = 0; st < STAGES; ++st)
+    zero_pad_cols<BKT, HD, HP, NT>(smem, ring - sq + st * SM::STAGE, tid);
+  // Copy group 0 holds Q, dO and KV tile 0; group j KV tile j.
+  load_tile<BQB, HD, HP, NT>(sq, static_cast<const bf16*>(p.q) + qoff, qld,
+                             q0, p.Sq, tid);
+  load_tile<BQB, HD, HP, NT>(sdo, static_cast<const bf16*>(p.dout) + qoff,
+                             qld, q0, p.Sq, tid);
+  if (n_tiles > 0) {
+    load_tile<BKT, HD, HP, NT>(ring, k, kld, k_begin, p.Sk, tid);
+    load_tile<BKT, HD, HP, NT>(ring + SM::TILE, v, kld, k_begin, p.Sk, tid);
+  }
+  cp_async_commit();
+
+  // This warpgroup's query rows [wq0, wq_last]; this thread's two rows are
+  // rA and rA + 8 (lse log2 e and D in registers; rows up to the padded
+  // length exist), its key columns 8 j + cq and 8 j + cq + 1 of each 8.
+  const int wq0 = q0 + wgi * 64;
+  const int wq_last = min(wq0 + 63, p.Sq - 1);
+  const int rA = wq0 + warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const long long roff = (static_cast<long long>(b) * p.H + h) * p.sq_ld;
+  const float l0 = p.lse2[roff + rA], l1 = p.lse2[roff + rA + 8];
+  const float d0 = p.delta[roff + rA], d1 = p.delta[roff + rA + 8];
+  const float sl2 = p.scale * LOG2E;
+  const uint32_t qa = sq + wgi * 64 * L::W;  // its 64 rows of Q and dO
+  const uint32_t oa = sdo + wgi * 64 * L::W;
+
+  float dq[HP / 2];
+#pragma unroll
+  for (int i = 0; i < HP / 2; ++i) dq[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int t0 = k_begin + j * BKT;
+    // Tile j has landed (and Q, dO), and every thread is done with tile
+    // j - 1, whose stage the copy of tile j + 1 reuses.
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (j + 1 < n_tiles) {
+      const uint32_t st = ring + ((j + 1) % STAGES) * SM::STAGE;
+      load_tile<BKT, HD, HP, NT>(st, k, kld, t0 + BKT, p.Sk, tid);
+      load_tile<BKT, HD, HP, NT>(st + SM::TILE, v, kld, t0 + BKT, p.Sk, tid);
+    }
+    cp_async_commit();
+
+    bool live = wq_last >= wq0;
+    if (p.causal) live = live && t0 <= wq_last + offs;
+    if (p.window > 0) live = live && t0 + BKT - 1 > wq0 + offs - p.window;
+    if (!live) continue;
+    const uint32_t skt = ring + (j % STAGES) * SM::STAGE;
+    const uint32_t svt = skt + SM::TILE;
+
+    // S = Q K^T and dP = dO V^T, two groups: S is ready first.
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(s, L::template kmajor<BQB>(qa, kk),
+                   L::template kmajor<BKT>(skt, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(dp, L::template kmajor<BQB>(oa, kk),
+                   L::template kmajor<BKT>(svt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // P, masked only on tiles that cross an edge (Sk's included).
+    const bool edge = t0 + BKT > p.Sk ||
+                      (p.causal && t0 + BKT - 1 > wq0 + offs) ||
+                      (p.window > 0 && t0 <= wq_last + offs - p.window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float pv = exp2f(fmaf(s[i], sl2, (i & 2) ? -l1 : -l0));
+      if (edge) {
+        const int qpos = rA + ((i & 2) ? 8 : 0) + offs;
+        const int kpos = t0 + 8 * (i / 4) + cq + (i & 1);
+        bool ok = kpos < p.Sk;
+        if (p.causal) ok = ok && kpos <= qpos;
+        if (p.window > 0) ok = ok && kpos > qpos - p.window;
+        pv = ok ? pv : 0.f;
+      }
+      s[i] = pv;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - ((i & 2) ? d1 : d0));
+
+    // dQ += dS K: A from registers, K MN-major.
+    uint32_t da[BKT / 16][4];
+    acc_to_a(da, dp);
+    fence_regs(dq);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKT / 16; ++kk)
+      wgmma_rs<HP>(dq, da[kk], L::template mnmajor<BKT>(skt, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(da);
+  }
+  cp_async_wait<0>();
+
+  store_rows<HD, HP>(static_cast<bf16*>(p.dq) + qoff, qld, dq, rA, p.Sq, cq,
+                     p.scale);
+}
+
+template <int HD>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  constexpr int s_b = DkdvSmem<HD>::BYTES;
+  constexpr int s_c = DqSmem<HD>::BYTES;
+  static const cudaError_t attr_b = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, s_b);
+  static const cudaError_t attr_c = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, s_c);
+  if (attr_b != cudaSuccess) return attr_b;
+  if (attr_c != cudaSuccess) return attr_c;
+  flash_bwd_dkdv_wgmma_kernel<HD>
+      <<<dim3(p.KH, p.B, (p.Sk + BKV - 1) / BKV), NT, s_b, stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_wgmma_kernel<HD>
+      <<<dim3(p.H, p.B, (p.Sq + BQB - 1) / BQB), NT, s_c, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// (a), then (b) and (c) of the input type.
+template <typename T, int HD>
+cudaError_t launch(Params p, cudaStream_t stream) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  p.sq_ld = BF16 ? (p.Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD : p.Sq;
+  p.lse2 = BF16 ? p.delta + static_cast<long long>(p.B) * p.H * p.sq_ld
+                : nullptr;
+  const long long rows = static_cast<long long>(p.B) * p.sq_ld * p.H;
   const int rows_per_block = NT / 32;
   bwd_delta_kernel<T, HD>
       <<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
          NT, 0, stream>>>(p);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_dkdv_kernel<T, HD>
-      <<<dim3((p.Sk + BK - 1) / BK, p.KH, p.B), NT, s_b, stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  bwd_dq_kernel<T, HD>
-      <<<dim3((p.Sq + BQ - 1) / BQ, p.H, p.B), NT, s_c, stream>>>(p);
-  return cudaGetLastError();
+  if constexpr (BF16)
+    return wg::launch<HD>(p, stream);
+  else
+    return f32::launch<HD>(p, stream);
 }
 
 template <typename T>
@@ -455,18 +951,20 @@ cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout and the outputs dq,
-// dk, dv alike; every tensor contiguous in the layouts above.  delta is a
-// (B, H, Sq) float32 scratch.  Launches (a), (b) and (c) on the stream and
-// returns the first launch's error that is not cudaSuccess (0 on success).
+// dk, dv alike; every tensor contiguous in the layouts above, and for
+// bfloat16 16-byte aligned.  scratch: 2 B H ceil(Sq / 128) 128 float32,
+// 16-byte aligned (D, and for bfloat16 lse log2 e beside it).  Launches
+// (a), (b) and (c) on the stream and returns the first launch's error that
+// is not cudaSuccess (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    const void* dout, const float* lse, float* scratch, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int H, int KH, float scale, int causal,
     int window, int dtype, int hd, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KH <= 0 || H % KH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q,  k,  v,  o,  dout, lse, delta, dq,    dk,     dv,    B,
-           Sq, Sk, H,  KH, scale, causal, window};
+  Params p{q,  k,  v,  o,  dout, lse, scratch, nullptr, dq, dk,
+           dv, B,  Sq, Sk, H,    KH,  0,       scale,   causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)

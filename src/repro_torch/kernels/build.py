@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 its own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under the
 checkout's ``build/kernels/`` directory, which ``.gitignore`` lists.  A
-library's file name carries a hash of its source and the compiler flags, so
-an edited source is rebuilt and an unchanged one is reused; extra flags
+library's file name carries a hash of its source, of every ``csrc/*.cuh``
+header and of the compiler flags, so an edited source or header is rebuilt
+and an unchanged one is reused; extra flags
 (a diagnostic build's ``-D``) give a library of their own.  All missing
 libraries are compiled in parallel, one ``nvcc`` process per source.
 
@@ -64,6 +65,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str, flags: tuple = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # any source may include one
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -25,11 +25,15 @@ plain version is ``ref.grouped_flash_ref``.
 With ``return_lse`` the forward also returns each query row's logsumexp,
 (B, H, Sq) float32 in the natural log: the float32 kernel keeps its
 running max in natural units, the bf16 kernel in base 2 and converts when
-it stores.  ``flash_attention_bwd`` is the gradient, a kernel of its own
+it stores.  ``flash_attention_bwd`` is the gradient, a source of its own
 (``csrc/flash_attention_bwd.cu``, three launches a call, counted once a
 call in ``bwd_launches``), with ``ref.grouped_flash_bwd_ref`` as its plain
-version; ``ops.grouped_flash`` reaches it through autograd.  It takes the
-equal head dims only: MLA's (192, 128) waits for its training slice.
+version; ``ops.grouped_flash`` reaches it through autograd.  As in the
+forward the input type picks the kernels: bfloat16 runs dK/dV and dQ on the
+tensor cores (``flash_bwd_dkdv_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``),
+float32 on the CUDA cores (``bwd_dkdv_kernel``, ``bwd_dq_kernel``); both
+start with ``bwd_delta_kernel``.  It takes the equal head dims only: MLA's
+(192, 128) waits for its training slice.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ HEAD_DIMS = (16, 32, 64, 80, 128)
 # (query-key dim, value dim) pairs taken besides the equal ones: MLA's.
 DIM_PAIRS = ((192, 128),)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BWD_ROW_PAD = 128    # ROW_PAD of csrc/flash_attention_bwd.cu
 
 launches = build.LaunchCounter()
 bwd_launches = build.LaunchCounter()
@@ -110,11 +115,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     scale = hd ** -0.5 if scale is None else scale
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # D, and for bfloat16 lse log2(e) beside it, rows padded to BWD_ROW_PAD
+    scratch = torch.empty((2, b, h, -(-sq // BWD_ROW_PAD) * BWD_ROW_PAD),
+                          dtype=torch.float32, device=q.device)
     fn = build.function("flash_attention_bwd", "flash_attention_bwd",
                         _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh, float(scale),
              int(bool(causal)), int(window), DTYPES[q.dtype], hd,
              torch.cuda.current_stream(q.device).cuda_stream)

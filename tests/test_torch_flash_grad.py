@@ -149,3 +149,73 @@ def test_backward_wrapper_refuses_cpu_tensors():
         kflash.flash_attention_bwd(q, k, v, q, lse, do)
     with pytest.raises(ValueError, match="CUDA"):
         kflash.flash_attention(q, k, v, return_lse=True)
+
+
+def _keep(sq, sk, causal, window):
+    offs = sk - sq if causal else 0
+    i = torch.arange(sq)[:, None] + offs
+    j = torch.arange(sk)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window:
+        keep &= j > i - window
+    return keep
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _grouped_bwd_rounded(q, k, v, o, lse, do, causal, window, rnd):
+    """The grouped backward as the bf16 kernels order it: float32 sums, and
+    ``rnd`` applied to P and dS where they become the A operands of the
+    dV, dK and dQ products."""
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = hd ** -0.5
+    qf, of, dof = (t.reshape(b, sq, kh, g, hd) for t in (q, o, do))
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k) * scale
+    lse = lse.reshape(b, kh, g, sq)
+    live = torch.isfinite(lse)
+    keep = _keep(sq, sk, causal, window) & live[..., None]
+    p = torch.where(keep, torch.exp(s - torch.where(live, lse, 0.0)[..., None]),
+                    0.0)
+    d = torch.einsum("bqkgd,bqkgd->bkgq", dof, of)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v)
+    ds = p * (dp - d[..., None])
+    p, ds = rnd(p), rnd(ds)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return dq.reshape(b, sq, h, hd), dk, dv
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100)])
+def test_bf16_products_keep_the_backward_within_the_bf16_gates(hd, causal,
+                                                               window):
+    """The bf16 backward kernels feed P and dS to the tensor cores as bf16.
+    With the inputs and o in bf16 as the kernels get them, P and dS rounded
+    there and dq, dk, dv stored in bf16, the gradient stays within the
+    gates the card holds the kernels to against the float32 plain gradient:
+    ||err|| / ||plain|| < 1e-2 and max |err| < 3e-2 max(1, max |plain|).
+    G = 4, a ragged S of 259."""
+    q, k, v, do = (_bf16(torch.from_numpy(x))
+                   for x in _inputs(1, 259, 259, 8, 2, hd, seed=2))
+    o, lse = ref.grouped_flash_ref(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    want = ref.grouped_flash_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                     window=window)
+    same = _grouped_bwd_rounded(q, k, v, o, lse, do, causal, window,
+                                lambda x: x)
+    for name, g, w in zip("qkv", same, want):   # the helper is the backward
+        assert _err(g, w) < TOL, (name, _err(g, w))
+    got = _grouped_bwd_rounded(q, k, v, _bf16(o), lse, do, causal, window,
+                               _bf16)
+    for name, g, w in zip("qkv", got, want):
+        g = _bf16(g)
+        norm = ((g - w).norm() / w.norm()).item()
+        rel = _err(g, w) / max(1.0, w.abs().max().item())
+        assert 0 < norm < 1e-2 and rel < 3e-2, (name, norm, rel)

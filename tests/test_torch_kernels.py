@@ -374,3 +374,21 @@ def test_build_flags_give_a_library_of_their_own():
     stamped = build._lib_path("mlstm_scan", ("-DMLSTM_STAMPS",))
     assert plain != stamped and plain.parent == stamped.parent
     assert plain == build._lib_path("mlstm_scan", ())
+
+
+def test_an_edited_header_gives_a_library_of_its_own(tmp_path, monkeypatch):
+    """Every ``csrc/*.cuh`` is part of each library's hashed file name, so
+    editing a shared header rebuilds the sources that include it instead
+    of loading a stale library."""
+    from repro_torch.kernels import build
+    (tmp_path / "kern.cu").write_text('#include "shared.cuh"\n')
+    header = tmp_path / "shared.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build._lib_path("kern")
+    assert before == build._lib_path("kern")
+    header.write_text("// v2\n")
+    after = build._lib_path("kern")
+    assert after != before and after.parent == before.parent
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert build._lib_path("kern") not in (before, after)

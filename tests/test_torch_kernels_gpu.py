@@ -490,6 +490,16 @@ BWD_SHAPES = [
     (2, 70, 200, 4, 1, 16, False, 0),       # Sq < Sk, unmasked, G = 4
     (1, 200, 200, 4, 4, 80, True, 50),      # hd 80, window
     (2, 100, 60, 2, 1, 32, True, 0),        # Sq > Sk: rows that see no key
+    # the bf16 kernels' tile edges: 128-key dK/dV blocks, 64-query tiles
+    # of their ring, 128-query dQ blocks, 64-key tiles of the dQ ring
+    (1, 129, 129, 4, 2, 64, True, 0),       # Sk = 129: one past a key block
+    (1, 257, 257, 4, 1, 128, True, 0),      # Sk = 257, hd 128, G = 4
+    (2, 65, 65, 4, 2, 64, False, 0),        # Sq = 65: one past a query tile
+    (1, 65, 257, 4, 2, 32, True, 0),        # Sq = 65 < Sk = 257, causal
+    (1, 300, 300, 4, 2, 64, True, 100),     # window ends inside a tile
+    (1, 257, 257, 4, 4, 80, False, 0),      # hd 80 (padded), unmasked
+    (1, 129, 129, 2, 1, 16, True, 40),      # hd 16, window, G = 2
+    (1, 1024, 1024, 16, 4, 64, True, 0),    # G = 4 at S = 1024
 ]
 
 
@@ -551,6 +561,49 @@ def test_flash_backward_is_deterministic_and_takes_strided_grads(cuda):
     b = kflash.flash_attention_bwd(q, k, v, o, lse, strided)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _bwd_kernel_names(call) -> set:
+    """Names of the device kernels one ``call`` launches whose name holds
+    ``bwd_``, from ``torch.profiler``: up to three windows until one holds
+    three, as the profiler can drop device events (a call launches
+    three)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and "bwd_" in e.key}
+        if len(names) >= 3:
+            break
+    return names
+
+
+@pytest.mark.parametrize("hd", kflash.HEAD_DIMS)
+def test_flash_backward_launches_the_kernels_of_its_input_type(cuda, hd):
+    """bfloat16 runs dK/dV and dQ on the tensor cores (the ``wgmma``
+    kernels), float32 on the CUDA cores; both start with D's kernel."""
+    launched = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _bwd_inputs(1, 130, 130, 4, 2, hd, dtype, cuda)
+        o, lse = kflash.flash_attention(q, k, v, return_lse=True)
+        launched[dtype] = _bwd_kernel_names(
+            lambda: kflash.flash_attention_bwd(q, k, v, o, lse, do))
+    for dtype, names in launched.items():
+        wgmma = {n for n in names if "wgmma" in n}
+        assert len(names) == 3, (dtype, names)
+        assert sum("bwd_delta_kernel" in n for n in names) == 1, names
+        if dtype == torch.bfloat16:
+            assert (sum("flash_bwd_dkdv_wgmma_kernel" in n for n in wgmma),
+                    sum("flash_bwd_dq_wgmma_kernel" in n for n in wgmma)) == (
+                1, 1), names
+        else:
+            assert not wgmma, names
+            assert (sum("bwd_dkdv_kernel" in n for n in names),
+                    sum("bwd_dq_kernel" in n for n in names)) == (1, 1), names
 
 
 def test_grouped_flash_gradient_runs_the_kernels_not_the_plain_version(
