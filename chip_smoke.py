@@ -12,8 +12,10 @@ backbone, text only through the engine), deepseek-v3-671b (MLA and MoE, 5
 of its 61 layers) and, at model level, seamless-m4t-medium (encoder over
 stub frames, cross-attention in every decoder layer) -- on the card; trains
 llama3.2-1b (AdamW, K1's backward kernel) and drives the scheduled
-training driver's crash and resume; and holds each hand-written Hopper
-kernel against its plain PyTorch version.
+training driver's crash and resume; trains every other family (MoE, xLSTM,
+hymba, MLA, enc-dec, VLM) through the backward kernels of K1 (MLA's 192 /
+128 too), K3 and K4; and holds each hand-written Hopper kernel against its
+plain PyTorch version.
 Phases, each printed on its own line and each fatal:
 
 1. device   -- the card's name and power limit, compute capability 9.0
@@ -21,7 +23,8 @@ Phases, each printed on its own line and each fatal:
                ptxas must report no spill in the mLSTM scan, and its
                tensor-core kernels' SASS must hold HGMMA (cuobjdump); K1's
                backward: registers and spill stores of each bf16 wgmma
-               kernel at each head dim, and HGMMA in each one's SASS
+               kernel at each head dim, and HGMMA in each one's SASS; no
+               spill in K3's backward (``csrc/mlstm_scan_bwd.cu``)
 3. kernels  -- each kernel against its plain version over the serving
                shapes and the reference test shapes: attention (K1, K2)
                float32 to 1e-4 and bfloat16 to 3e-2; the MoE router (K4)
@@ -51,7 +54,17 @@ Phases, each printed on its own line and each fatal:
                the plain gradient taken from the plain forward's output
                and logsumexp; the forward's row logsumexp on its live rows
                to 1e-5 (float32) and 1e-4 (bf16); its times beside SDPA's
-               backward, with each of its three kernels' own device time
+               backward, with each of its three kernels' own device time;
+               the backward kernels of this slice (``kernels.parity.bwd2``)
+               against their plain gradients at the same gates: K3's at
+               xlstm's dk = dv = 512, hymba's SSD heads, a ragged S and S
+               below one chunk, on rows with |a| on both sides of 1; K4's
+               at T 8, a qwen2-moe micro-batch (T 2048, E 64, 60 valid, k
+               4) and deepseek's E 256 / k 8, with and without the
+               probability sums' gradient; K1's at MLA's (192, 128) and
+               hymba's training shape (window 1024); each timed at its
+               training shape beside its bound (SDPA's backward at 192 /
+               128; no PyTorch call for K3's and K4's)
 4. model    -- float32, kernel path against the plain path (logits to
                1e-3, greedy tokens identical) over prefill_batch on ragged
                prompts and 8 decode steps: llama3.2-1b and xlstm-350m at
@@ -68,7 +81,9 @@ Phases, each printed on its own line and each fatal:
                one dense and one MoE layer; then one training loss and
                gradient of llama3.2-1b at full width with 2 layers (B=2,
                S=1024), kernel path against plain path: loss to 1e-5,
-               every gradient leaf to 1e-3 of its own max |plain|
+               every gradient leaf to 1e-3 of its own max |plain|; the same
+               for every other family at full width with 2 layers
+               (``FAMILY_CHECKS``), its backward kernels launched
 5. engine   -- the engine's tokens equal a direct prefill + decode loop, for
                each of those at the sizes above but seamless (the engine
                passes no frames; hymba at full depth; the MoE models at
@@ -94,7 +109,13 @@ Phases, each printed on its own line and each fatal:
                the model-flops share; then ``launch/train.py --scheduled``
                at full width with 2 layers: a crash after step 4,
                ``--resume`` and an uninterrupted run give the same losses,
-               and the scheduled save of step 2 equals the unscheduled one
+               and the scheduled save of step 2 equals the unscheduled one;
+               then ``train.families``: 4 bf16 AdamW steps of every other
+               family (``FAMILY_STEPS``: xlstm, hymba, seamless, internvl2
+               at full size, qwen2-moe at 3 and deepseek at 1 layer of full
+               width), losses finite and falling, its backward kernels
+               launched, the same measures; and the crash / ``--resume``
+               drill for qwen2-moe at full width with 2 layers
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
@@ -147,15 +168,19 @@ def hgmma_counts(build, path) -> dict:
 
 
 def check_scan_build(build, built) -> None:
-    """ptxas reports no spill in the mLSTM scan (when this run built it),
-    and its bf16 kernels' SASS holds tensor-core instructions (HGMMA)."""
+    """ptxas reports no spill in the mLSTM scan or its backward (when this
+    run built them), and the scan's bf16 kernels' SASS holds tensor-core
+    instructions (HGMMA)."""
     path, _, log_ = built["mlstm_scan"]
-    spills = [ln.strip() for ln in log_.splitlines()
+    bwd_log = built["mlstm_scan_bwd"][2]
+    spills = [ln.strip() for ln in (log_ + bwd_log).splitlines()
               if re.search(r"[1-9]\d* bytes spill", ln)]
     hgmma = hgmma_counts(build, path)
     wgmma = {n: c for n, c in hgmma.items() if "mlstm_wgmma_kernel" in n}
     log("build.mlstm_scan", spill_lines=spills, hgmma_per_kernel=wgmma,
-        built_here=bool(log_))
+        built_here=bool(log_), bwd_built_here=bool(bwd_log),
+        bwd_registers=[ln.strip() for ln in bwd_log.splitlines()
+                       if "registers" in ln])
     if spills or not wgmma or not all(wgmma.values()):
         raise AssertionError(f"mlstm_scan: spills {spills}, HGMMA {hgmma}")
 
@@ -186,7 +211,13 @@ def check_bwd_build(build, built) -> None:
         raise AssertionError(f"flash_attention_bwd: HGMMA {hgmma}")
 
 
+PHASE_SECONDS: dict = {}    # each "*.done" line's seconds, in run order
+
+
 def log(phase: str, **fields) -> None:
+    if phase.endswith(".done") and "seconds" in fields:
+        key = phase[:-5] + (f" {fields['arch']}" if "arch" in fields else "")
+        PHASE_SECONDS[key] = fields["seconds"]
     print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
 
 
@@ -606,15 +637,18 @@ def time_decode(ref, kdecode, b, smax, live, h, kh, hd) -> dict:
     return d
 
 
-def flash_bwd_bound_ms(q, k, causal, window) -> tuple:
+def flash_bwd_bound_ms(q, k, causal, window, hdv=None) -> tuple:
     """K1's backward: q, k, v, o, dO and lse read once, dq, dk and dv
     written once; 6 dk + 4 dv operations a kept (query, key) pair (S and
-    dP recomputed, dV, dQ and dK), at the inputs' peak rate."""
+    dP recomputed, dV, dQ and dK), at the inputs' peak rate.  ``hdv``: the
+    value dim where it is not the query-key dim (MLA)."""
     b, sq, h, hd = q.shape
-    sk = k.shape[1]
+    sk, kh = k.shape[1], k.shape[2]
+    hdv = hd if hdv is None else hdv
     es = q.element_size()
-    nbytes = (4 * q.numel() + 4 * k.numel()) * es + b * h * sq * 4
-    ops = b * h * (6 * hd + 4 * hd) * flash_pairs(sq, sk, causal, window)
+    nbytes = ((2 * b * sq * h + 2 * b * sk * kh) * hd
+              + (2 * b * sq * h + 2 * b * sk * kh) * hdv) * es + b * h * sq * 4
+    ops = b * h * (6 * hd + 4 * hdv) * flash_pairs(sq, sk, causal, window)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -736,6 +770,24 @@ def backward_phase(ref, kflash) -> dict:
         "flash_fwd_wgmma", iters=5, alone=True)
     d["fwd_device_ms"] = device_ms(lambda: kflash.flash_attention(q, k, v),
                                    "flash_fwd_wgmma", iters=5, alone=True)
+    # The forward with its row logsumexp: its bound (2 dk + 2 dv
+    # operations a kept pair; q, k, v read, o and lse written), and the
+    # library's flash forward that returns the logsumexp, on K and V
+    # repeated to the query heads outside the timing
+    fb = b * h * 4 * hd * flash_pairs(s, s, True, 0) / PEAK_OPS[dt] * 1e3
+    fbytes = ((2 * q.numel() + 2 * k.numel()) * q.element_size()
+              + b * h * s * 4) / HBM_BYTES_PER_S * 1e3
+    d["fwd_lse_bound_ms"] = max(fb, fbytes)
+    d["fwd_lse_bound_by"] = "operations" if fb >= fbytes else "bytes"
+    kr, vr = (t.repeat_interleave(h // kh, dim=1) for t in (kt, vt))
+    d["fwd_lse_library_ms"] = cuda_ms(
+        lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qt.detach(), kr.detach(), vr.detach(), 0.0, True, False),
+        iters=10, warmup=2)
+    d["fwd_lse_library"] = ("aten._scaled_dot_product_flash_attention "
+                            "(returns the logsumexp), K, V repeated to 32 "
+                            "heads")
+    del kr, vr
     got = call()
     po, plse = ref.grouped_flash_ref(q, k, v, return_lse=True)
     want = ref.grouped_flash_bwd_ref(q, k, v, po, plse, do)
@@ -977,6 +1029,316 @@ def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
     router["max_abs_err_f32"] = worst_w["float32"]
     scan["max_abs_err_f32"] = worst_s["float32"]
     return {"moe_topk": router, "mlstm_scan": scan}
+
+
+def scan_bwd_bound_ms(q, v) -> tuple:
+    """K3's backward: q, k, v, dh and the two float32 gates read once, dq,
+    dk, dv and the two gate gradients written once; 8 dk dv operations a
+    step (twice the forward's 4 dk dv), at the inputs' peak rate."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    es = q.element_size()
+    nbytes = (4 * q.numel() + 3 * v.numel()) * es + 4 * bh * s * 4
+    ops = 8 * bh * s * dk * dv
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def router_bwd_bound_ms(logits, top_k: int) -> tuple:
+    """K4's backward: the logits read and their gradient written once, the
+    picks, weights and their gradient (T, k) and the probability sums'
+    gradient (E,) read once; about 10 float32 operations a logit (the
+    softmax again, p o g, its sum, the gradient), at the float32 rate."""
+    t, e = logits.shape
+    nbytes = 2 * logits.numel() * logits.element_size() + 12 * t * top_k + 4 * e
+    ops = 10 * t * e
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def scan_bwd_inputs(bh, s, dk, dv, dtype, seed, qk: float, ssd: bool):
+    """q, k scaled by ``qk`` (so that some rows have |a| > 1 and others
+    not), v, dh; the gates logsigmoid / sigmoid, or hymba's SSD gates
+    (decay -dt, input weight dt, dt = softplus)."""
+    F = torch.nn.functional
+    q = (randn((bh, s, dk), torch.float32, seed) * qk).to(dtype)
+    k = (randn((bh, s, dk), torch.float32, seed + 1) * qk).to(dtype)
+    v = randn((bh, s, dv), dtype, seed + 2)
+    dh = randn((bh, s, dv), dtype, seed + 3)
+    g = randn((bh, s), torch.float32, seed + 4)
+    if ssd:
+        dt = F.softplus(g * 1.5)
+        return q, k, v, -dt, dt, dh
+    return (q, k, v, F.logsigmoid(g + 2.0),
+            torch.sigmoid(randn((bh, s), torch.float32, seed + 5)), dh)
+
+
+def normaliser_share(q, k, logf, i, scale) -> float:
+    """The share of rows with |a_t| > 1, a_t = q~_t . n_t, by the
+    step-by-step recurrence of n in float32."""
+    q, k = q.float() * scale, k.float()
+    n = torch.zeros_like(k[:, 0])
+    above = 0
+    for t in range(q.shape[1]):
+        n = logf[:, t, None].exp() * n + i[:, t, None] * k[:, t]
+        above += int(((q[:, t] * n).sum(-1).abs() > 1).sum())
+    return above / (q.shape[0] * q.shape[1])
+
+
+def grad_errors(got, want) -> tuple:
+    """The worst max error over max(1, max |plain|) and the worst norm
+    error of each output, where an output's plain gradient is exactly 0
+    the kernel's must be exactly 0 too (norm error 0, else inf)."""
+    worst = worst_norm = 0.0
+    for g, w in zip(got, want):
+        w = w.float()
+        worst = max(worst, ((g.float() - w).abs().max()
+                            / max(1.0, w.abs().max().item())).item())
+        if w.norm() == 0:
+            worst_norm = max(worst_norm, 0.0 if (g == 0).all() else np.inf)
+        else:
+            worst_norm = max(worst_norm, norm_err(g, w))
+    return worst, worst_norm
+
+
+def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
+    """The backward kernels this slice adds, against their plain versions
+    (float32 1e-4, bf16 3e-2, of max(1, max |plain|), and the error's norm
+    within ``NORM_TOL`` of the plain gradient's): K3's backward at xlstm's
+    dk = dv = 512, hymba's SSD heads (dk 16, dv 64, scale 1.0), a ragged S
+    and S below one chunk, with rows on both sides of |a| = 1; K4's at
+    decode, at a qwen2-moe training micro-batch and at deepseek's E 256 /
+    k 8, with and without the probability sums' gradient; K1's at MLA's
+    (192, 128) and at hymba's training shape (window 1024).  Then each
+    timed at its training shape in bf16.  Returns the kernels-line
+    entries."""
+    F = torch.nn.functional
+    out = {}
+    # ---- K3
+    scan_shapes = [
+        # bh, s, dk, dv, scale, qk, ssd
+        (4, 256, 512, 512, None, 1.0, False),   # xlstm-350m heads
+        (50, 256, 16, 64, 1.0, 0.5, True),      # hymba's SSD heads
+        (2, 150, 512, 512, None, 1.0, False),   # ragged S
+        (3, 37, 16, 64, 1.0, 0.5, True),        # S below one chunk
+    ]
+    errs, shares = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).replace("torch.", "")
+        worst = worst_norm = 0.0
+        for j, (bh, s, dk, dv, scale, qk, ssd) in enumerate(scan_shapes):
+            q, k, v, logf, i, dh = scan_bwd_inputs(bh, s, dk, dv, dt,
+                                                   700 + 10 * j, qk, ssd)
+            got = kscan.mlstm_scan_bwd(q, k, v, logf, i, dh, scale=scale)
+            want = ref.mlstm_chunkwise_bwd_ref(q, k, v, logf, i, dh,
+                                               scale=scale)
+            e, ne = grad_errors(got, want)
+            if not (e < TOL[dt] and ne < NORM_TOL[dt]):
+                raise AssertionError(f"mlstm_scan_bwd {dt} {scan_shapes[j]}: "
+                                     f"error {e}, norm error {ne}")
+            worst, worst_norm = max(worst, e), max(worst_norm, ne)
+            if dt == torch.float32:
+                shares[str(scan_shapes[j][:4])] = normaliser_share(
+                    q, k, logf, i, dk ** -0.5 if scale is None else scale)
+        errs[key] = (worst, worst_norm)
+    if not all(0 < x < 1 for x in shares.values()):
+        raise AssertionError(f"mlstm_scan_bwd: rows with |a| > 1 by shape "
+                             f"{shares}; both branches must run")
+    # ---- K4
+    route_shapes = [(8, 64, 4, 60, 1.0), (2048, 64, 4, 60, 1.0),
+                    (2048, 256, 8, 256, 2.5)]
+    rerrs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        worst = worst_norm = 0.0
+        for j, (t, e, k, n_valid, rs) in enumerate(route_shapes):
+            logits = randn((t, e), dt, 800 + j)
+            r = kmoe.moe_route(logits, k, capacity=capacity(t, k, 1.25, e),
+                               n_valid=n_valid, router_scale=rs)
+            dw = randn((t, k), torch.float32, 810 + j)
+            dps = randn((e,), torch.float32, 820 + j)
+            for sums in (dps, None):
+                got = kmoe.moe_route_bwd(logits, r.idx, r.weights, dw, sums,
+                                         n_valid=n_valid, router_scale=rs)
+                want = ref.moe_route_bwd_ref(logits, r.idx, r.weights, dw,
+                                             sums, n_valid=n_valid,
+                                             router_scale=rs)
+                er, ne = grad_errors([got], [want])
+                if not (er < TOL[dt] and ne < NORM_TOL[dt]
+                        and (got[:, n_valid:] == 0).all()):
+                    raise AssertionError(f"moe_route_bwd {dt} "
+                                         f"{route_shapes[j]}: error {er}, "
+                                         f"norm error {ne}")
+                worst, worst_norm = max(worst, er), max(worst_norm, ne)
+        rerrs[str(dt).replace("torch.", "")] = (worst, worst_norm)
+    # ---- K1 at (192, 128) and at hymba's training shape
+    flash_shapes = [
+        # b, s, h, kh, hd, hdv, window, scale
+        (1, 1024, 32, 32, 192, 128, 0, 192 ** -0.5),   # MLA, causal
+        (2, 2048, 25, 5, 64, 64, 1024, None),          # hymba training
+    ]
+    ferrs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        worst = worst_norm = 0.0
+        for j, (b, s, h, kh, hd, hdv, window, sc) in enumerate(flash_shapes):
+            q = randn((b, s, h, hd), dt, 830 + j)
+            k = randn((b, s, kh, hd), dt, 840 + j)
+            v = randn((b, s, kh, hdv), dt, 850 + j)
+            do = randn((b, s, h, hdv), dt, 860 + j)
+            o, lse = kflash.flash_attention(q, k, v, window=window, scale=sc,
+                                            return_lse=True)
+            got = kflash.flash_attention_bwd(q, k, v, o, lse, do,
+                                             window=window, scale=sc)
+            po, plse = ref.grouped_flash_ref(q, k, v, window=window, scale=sc,
+                                             return_lse=True)
+            want = ref.grouped_flash_bwd_ref(q, k, v, po, plse, do,
+                                             window=window, scale=sc)
+            e, ne = grad_errors(got, want)
+            if not (e < TOL[dt] and ne < NORM_TOL[dt]):
+                raise AssertionError(f"flash_attention_bwd {dt} "
+                                     f"{flash_shapes[j]}: error {e}, norm "
+                                     f"error {ne}")
+            worst, worst_norm = max(worst, e), max(worst_norm, ne)
+            del got, want, po, plse
+        ferrs[str(dt).replace("torch.", "")] = (worst, worst_norm)
+    torch.cuda.synchronize()
+    log("kernels.parity.bwd2", mlstm_scan_bwd=errs, moe_route_bwd=rerrs,
+        flash_attention_bwd_192_128_and_hymba=ferrs,
+        scan_rows_above_1_by_shape=shares,
+        shapes={"mlstm_scan_bwd": [list(x[:4]) for x in scan_shapes],
+                "moe_route_bwd": route_shapes, "flash": flash_shapes},
+        tolerance={"max": "f32 1e-4, bf16 3e-2, x max(1, max|plain|)",
+                   "norm": {"float32": NORM_TOL[torch.float32],
+                            "bfloat16": NORM_TOL[torch.bfloat16]}})
+
+    # ---- times at the training shapes, bf16
+    dt = torch.bfloat16
+    # K3: xlstm-350m at B = 4 (16 row-heads), S = 2048; hymba's SSD heads
+    # at B = 2 (50 row-heads), S = 2048 (train.families' shapes)
+    d = {}
+    for tag, (bh, s, dk, dv, scale, qk, ssd) in (
+            ("", (16, 2048, 512, 512, None, 1.0, False)),
+            ("_hymba", (50, 2048, 16, 64, 1.0, 0.5, True))):
+        q, k, v, logf, i, dh = scan_bwd_inputs(bh, s, dk, dv, dt, 900, qk, ssd)
+
+        def call(q=q, k=k, v=v, logf=logf, i=i, dh=dh, scale=scale):
+            return kscan.mlstm_scan_bwd(q, k, v, logf, i, dh, scale=scale)
+        d["ms" + tag] = cuda_ms(call, iters=5, warmup=2)
+        d["plain_ms" + tag] = cuda_ms(lambda: ref.mlstm_chunkwise_bwd_ref(
+            q, k, v, logf, i, dh, scale=scale), iters=2, warmup=1)
+        (d["device_ms" + tag], d["launches_per_call" + tag],
+         d["grid" + tag]) = device_ms_per_call(call, "scan_bwd", iters=3,
+                                              max_per_call=7)
+        d["device_ms_by_kernel" + tag] = device_ms_by_kernel(call, "scan_bwd",
+                                                             iters=3)
+        d["bound_ms" + tag], by = scan_bwd_bound_ms(q, v)
+        if not tag:
+            d["bound_by"] = by
+            got = call()
+            want = ref.mlstm_chunkwise_bwd_ref(q, k, v, logf, i, dh)
+            d["max_abs_err"] = max((g.float() - w.float()).abs().max().item()
+                                   for g, w in zip(got, want))
+            d["norm_err"] = grad_errors(got, want)[1]
+            del got, want
+    d["library_ms"] = None
+    d["library"] = "none: no PyTorch call computes the scan or its gradient"
+    d["max_abs_err_f32"] = errs["float32"][0]
+    d["shape"] = ("BH=16 S=2048 dk=dv=512 (xlstm-350m, B=4 H=4; _hymba: "
+                  "BH=50 S=2048 dk=16 dv=64 scale 1.0) bf16")
+    log("kernels.time", kernel="mlstm_scan_bwd", **d)
+    out["mlstm_scan_bwd"] = d
+    free_device_memory()
+
+    # K4: one qwen2-moe training micro-batch (B = 2 x S = 1024 tokens);
+    # deepseek's E 256 / k 8 at 2048 tokens
+    d = {}
+    for tag, (t, e, k, n_valid, rs) in (("", (2048, 64, 4, 60, 1.0)),
+                                        ("_deepseek", (2048, 256, 8, 256,
+                                                       2.5))):
+        logits = randn((t, e), dt, 910 + e)
+        r = kmoe.moe_route(logits, k, capacity=capacity(t, k, 1.25, e),
+                           n_valid=n_valid, router_scale=rs)
+        dw = randn((t, k), torch.float32, 911)
+        dps = randn((e,), torch.float32, 912)
+
+        def call(logits=logits, r=r, dw=dw, dps=dps, n_valid=n_valid, rs=rs):
+            return kmoe.moe_route_bwd(logits, r.idx, r.weights, dw, dps,
+                                      n_valid=n_valid, router_scale=rs)
+        d["ms" + tag] = cuda_ms(call)
+        d["plain_ms" + tag] = cuda_ms(lambda: ref.moe_route_bwd_ref(
+            logits, r.idx, r.weights, dw, dps, n_valid=n_valid,
+            router_scale=rs))
+        d["device_ms" + tag] = device_ms(call, "router_bwd_kernel", alone=True)
+        d["bound_ms" + tag], by = router_bwd_bound_ms(logits, k)
+        if not tag:
+            d["bound_by"] = by
+            d["max_abs_err"] = (call().float() - ref.moe_route_bwd_ref(
+                logits, r.idx, r.weights, dw, dps, n_valid=n_valid,
+                router_scale=rs).float()).abs().max().item()
+    d["library_ms"] = None
+    d["library"] = "none: no PyTorch call computes the router's gradient"
+    d["max_abs_err_f32"] = rerrs["float32"][0]
+    d["shape"] = ("T=2048 E=64 n_valid=60 k=4 (qwen2-moe training micro-"
+                  "batch; _deepseek: T=2048 E=256 k=8 scale 2.5) bf16")
+    log("kernels.time", kernel="moe_route_bwd", **d)
+    out["moe_route_bwd"] = d
+
+    # K1 at (192, 128): deepseek-v3's training shape (B = 1, S = 2048, 128
+    # heads); SDPA's backward on the same inputs as the library call
+    b, s, h = 1, 2048, 128
+    sc = 192 ** -0.5
+    q, k = (randn((b, s, h, 192), dt, 920 + j) for j in range(2))
+    v, do = (randn((b, s, h, 128), dt, 922 + j) for j in range(2))
+    o, lse = kflash.flash_attention(q, k, v, scale=sc, return_lse=True)
+
+    def call():
+        return kflash.flash_attention_bwd(q, k, v, o, lse, do, scale=sc)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=sc)
+    dot = do.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    d = {"ms": cuda_ms(call, iters=3, warmup=1),
+         "plain_ms": cuda_ms(lambda: ref.grouped_flash_bwd_ref(
+             q, k, v, o, lse, do, scale=sc), iters=2, warmup=1),
+         "library_ms": cuda_ms(library, iters=10, warmup=2)}
+    d["library_backend"], d["library_kernels"] = sdpa_backend(library)
+    d["device_ms"], d["launches_per_call"], d["grid"] = device_ms_per_call(
+        call, "bwd_d", iters=3, max_per_call=3)
+    d["device_ms_by_kernel"] = device_ms_by_kernel(call, "bwd_d", iters=3)
+    d["bound_ms"], d["bound_by"] = flash_bwd_bound_ms(q, k, True, 0, hdv=128)
+    got = call()
+    po, plse = ref.grouped_flash_ref(q, k, v, scale=sc, return_lse=True)
+    want = ref.grouped_flash_bwd_ref(q, k, v, po, plse, do, scale=sc)
+    d["max_abs_err"] = max((g.float() - w.float()).abs().max().item()
+                           for g, w in zip(got, want))
+    d["norm_err"] = grad_errors(got, want)[1]
+    d["max_abs_err_f32"] = ferrs["float32"][0]
+    d["design"] = ("bwd_delta_kernel, bwd_dkdv_kernel<T, 192, 128>, "
+                   "bwd_dq_kernel<T, 192, 128> on the CUDA cores, both types")
+    d["shape"] = "B=1 S=2048 H=KH=128 dk=192 dv=128 causal bf16 (deepseek-v3)"
+    del got, want, po, plse, sdpa_out, qt, kt, vt
+    # hymba's training shape (bf16 runs the wgmma kernels at hd 64)
+    b, s, h, kh = 2, 2048, 25, 5
+    q, do = (randn((b, s, h, 64), dt, 930 + j) for j in range(2))
+    k, v = (randn((b, s, kh, 64), dt, 932 + j) for j in range(2))
+    o, lse = kflash.flash_attention(q, k, v, window=1024, return_lse=True)
+
+    def hymba():
+        return kflash.flash_attention_bwd(q, k, v, o, lse, do, window=1024)
+    d["device_ms_hymba"], _, _ = device_ms_per_call(hymba, "bwd_d", iters=3,
+                                                    max_per_call=3)
+    d["bound_ms_hymba"], _ = flash_bwd_bound_ms(q, k, True, 1024)
+    d["shape_hymba"] = "B=2 S=2048 H=25 KH=5 hd=64 window 1024 bf16"
+    log("kernels.time", kernel="flash_attention_bwd_mla", **d)
+    out["flash_attention_bwd_mla"] = d
+    free_device_memory()
+    return out
 
 
 # ------------------------------------------------------------ phases 4, 5
@@ -1431,6 +1793,257 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
     return launches
 
 
+# Each family's training cut: (arch, replace kwargs, batch B, S).  The
+# float32 check runs full width at 2 layers; the bf16 steps at the depths
+# the card holds with AdamW (see ``FAMILY_STEPS``).
+FAMILY_CHECKS = [
+    ("qwen2-moe-a2.7b", {"n_layers": 2}, 1, 1024),
+    # its first 2 layers, both dense (of its 3): MLA at 192 / 128
+    ("deepseek-v3-671b", {"n_layers": 2, "first_k_dense": 2}, 1, 512),
+    ("xlstm-350m", {"n_layers": 2, "slstm_every": 2}, 2, 512),
+    # a global layer, then a windowed one; S past the window
+    ("hymba-1.5b", {"n_layers": 2, "global_attn_layers": (0,)}, 1, 1280),
+    ("seamless-m4t-medium", {"n_layers": 2, "encoder_layers": 2}, 2, 256),
+    ("internvl2-1b", {"n_layers": 2}, 2, 512),
+]
+
+
+def family_cfg(get_arch, arch: str, cut: dict, dtype: str):
+    cfg = get_arch(arch)
+    cut = dict(cut)
+    if "slstm_every" in cut:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, slstm_every=cut.pop("slstm_every")))
+    return dataclasses.replace(cfg, dtype=dtype, **cut)
+
+
+def family_batch(cfg, b: int, s: int, seed: int, dtype) -> dict:
+    """Tokens and labels from ``SyntheticTokens``, and the family's stub
+    frames or vision embeddings from a seed."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    raw = SyntheticTokens(cfg.vocab_size, seed=seed).batch(0, 0, b, s)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in raw.items()}
+    if cfg.encoder_layers:
+        batch["frames"] = randn((b, cfg.encoder_len, cfg.d_model), dtype,
+                                seed + 1)
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = randn((b, cfg.vision_tokens, cfg.d_model),
+                                       dtype, seed + 2)
+    return batch
+
+
+def bwd_counters() -> dict:
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import mlstm_scan as kscan
+    from repro_torch.kernels import moe_topk as kmoe
+    return {"flash_attention": kflash.launches,
+            "flash_attention_bwd": kflash.bwd_launches,
+            "mlstm_scan": kscan.launches, "mlstm_scan_bwd": kscan.bwd_launches,
+            "moe_topk": kmoe.launches, "moe_route_bwd": kmoe.bwd_launches}
+
+
+def family_kernels(cfg) -> tuple:
+    """The backward kernels a family's training must launch."""
+    need = []
+    if cfg.family != "ssm":
+        need.append("flash_attention_bwd")
+    if cfg.ssm is not None:
+        need.append("mlstm_scan_bwd")
+    if cfg.moe is not None and cfg.n_layers > cfg.first_k_dense:
+        need.append("moe_route_bwd")
+    return tuple(need)
+
+
+def train_check_families_phase(ops, ref, Model, trainer, get_arch) -> dict:
+    """Float32 training check of every other family at full width with 2
+    layers (``FAMILY_CHECKS``), as llama's: one ``train_loss`` and its
+    gradient, kernel path (the forward kernels and their backward kernels)
+    against the plain path: loss to 1e-5, every gradient leaf to 1e-3 of
+    its own max |plain|; the family's backward kernels launched."""
+    from repro_torch.models.weights import tree_leaves
+    counters = bwd_counters()
+    out = {}
+    for j, (arch, cut, b, s) in enumerate(FAMILY_CHECKS):
+        t0 = time.monotonic()
+        cfg = family_cfg(get_arch, arch, cut, "float32")
+        model = Model(cfg, device="cuda")
+        params = model.init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        batch = family_batch(cfg, b, s, 40 + j, torch.float32)
+        for c in counters.values():
+            c.reset()
+        loss, grads = trainer.value_and_grad(model, params, batch)
+        launches = {n: c.count for n, c in counters.items()}
+        with plain_kernels(ops, ref):
+            ploss, pgrads = trainer.value_and_grad(model, params, batch)
+        errs = [((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+                for g, w in zip(tree_leaves(grads), tree_leaves(pgrads))
+                if w.numel()]
+        loss_err = abs(loss.item() - ploss.item())
+        need = family_kernels(cfg)
+        out[arch] = {"loss": loss.item(), "loss_err": loss_err,
+                     "grad_leaves": len(errs), "grad_max_rel_err": max(errs),
+                     "launches": launches}
+        log("train.check", arch=arch, dtype="float32", layers=cfg.n_layers,
+            cut=cut, batch=[b, s], remat=cfg.remat, loss=loss.item(),
+            loss_err=loss_err, grad_leaves=len(errs),
+            grad_max_rel_err=max(errs), launches=launches,
+            backward_kernels=need, seconds=time.monotonic() - t0,
+            tolerance={"loss": 1e-5, "grads": "1e-3 x max|plain leaf|"})
+        if not (loss_err < 1e-5 and max(errs) < MODEL_TOL):
+            raise AssertionError(f"training check {arch}: loss error "
+                                 f"{loss_err}, gradient errors {errs}")
+        if not all(launches[n] > 0 for n in need):
+            raise AssertionError(f"training check {arch}: backward kernels "
+                                 f"{need}, launches {launches}")
+        del model, params, grads, pgrads, batch
+        free_device_memory()
+    return out
+
+
+# bf16 AdamW steps of every other family: (arch, cut, B, S, what the cut
+# is).  AdamW keeps float32 m and v, and a step is out of place (the state
+# of step N stays whole while step N + 1's is built), so a parameter costs
+# 2 (bf16) + 2 (gradient) + 8 (m, v) + 10 (the new parameter, m and v)
+# = 22 bytes at the step's peak.
+FAMILY_STEPS = [
+    ("xlstm-350m", {}, 4, 2048, "full size"),
+    ("hymba-1.5b", {}, 2, 2048, "full size; S past the 1024 window"),
+    ("seamless-m4t-medium", {}, 4, 512, "full size, frames (4, 1024, 1024)"),
+    ("internvl2-1b", {}, 4, 1024, "full size, 256 vision embeddings"),
+    # 3 x 605 M + 622 M of embeddings = 2.44 B parameters, 53.6 GB at 22
+    # bytes; 4 layers (3.04 B, 66.9 GB) leave too little of the 80 GB for
+    # the largest leaf's float32 update (3.7 GB) and the activations
+    ("qwen2-moe-a2.7b", {"n_layers": 3}, 2, 1024,
+     "full width, 3 of 24 layers (AdamW state: 22 bytes a parameter)"),
+    # its first layer: 583 M + 2 x 927 M of embeddings = 2.44 B, 53.6 GB;
+    # 2 layers (3.02 B, 66.4 GB) ran out of the card's 79.2 GiB in the
+    # update; one MoE layer (11.3 B) would need 250 GB: E 256 / k 8 is
+    # held by the kernel check
+    ("deepseek-v3-671b", {"n_layers": 1, "first_k_dense": 1}, 1, 2048,
+     "full width, its first layer (dense FFN, MLA); no MoE layer"),
+]
+# AdamW's learning rate; deepseek's first step at 1e-4 (its FFN reads
+# 18432 features) threw the loss from 12.29 to 30.70 before it fell
+FAMILY_LR = {"deepseek-v3-671b": 1e-5}
+
+
+def active_params(cfg, params) -> int:
+    """Parameters a token's forward touches: every leaf but the input
+    embedding (the tied table counts once, as the unembedding), the
+    encoder's aside, routed experts at top_k of their number."""
+    from repro_torch.models.weights import tree_leaves
+    n = 0
+    for key, sub in params.items():
+        if key == "encoder" or (key == "embed" and not cfg.tie_embeddings):
+            continue
+        n += sum(t.numel() for t in tree_leaves(sub))
+    if cfg.moe is not None:
+        routed = sum(t.numel() for seg in params["segments"]
+                     if isinstance(seg, dict) and "ffn" in seg
+                     and "experts" in seg["ffn"]
+                     for t in tree_leaves(seg["ffn"]["experts"]))
+        n -= routed - routed * cfg.moe.top_k // cfg.moe.routed_total()
+    return n
+
+
+def family_model_flops(cfg, params, b: int, s: int) -> float:
+    """Model flops of one training step: 6 a token per parameter it
+    touches (``active_params``; the encoder's over its frames), 12 hd per
+    kept causal (query, key) pair of every attention layer (windowed
+    layers keep at most ``window`` keys), and 12 dk dv a step per head of
+    every scan (4 forward, 8 backward); remat's recomputation is not
+    counted."""
+    from repro_torch.models.weights import tree_leaves
+    flops = 6.0 * active_params(cfg, params) * b * s
+    if "encoder" in params:
+        n_enc = sum(t.numel() for t in tree_leaves(params["encoder"]))
+        flops += 6.0 * n_enc * b * cfg.encoder_len
+        flops += 12 * cfg.hd * cfg.n_heads * cfg.encoder_len ** 2 * b * (
+            cfg.encoder_layers + cfg.n_layers)
+    if cfg.family == "ssm":
+        hd = cfg.ssm.expand * cfg.d_model // cfg.n_heads
+        n_m = cfg.n_layers - (cfg.n_layers // cfg.ssm.slstm_every
+                              if cfg.ssm.slstm_every else 0)
+        return flops + 12.0 * hd * hd * cfg.n_heads * b * s * n_m
+    hd = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim if cfg.mla \
+        else cfg.hd
+    for layer in range(cfg.n_layers):
+        w = 0 if layer in cfg.global_attn_layers else cfg.sliding_window
+        pairs = flash_pairs(s, s, True, w)
+        flops += 12.0 * hd * cfg.n_heads * pairs * b
+    if cfg.family == "hybrid":
+        n = cfg.ssm.state_dim
+        flops += 12.0 * n * cfg.hd * cfg.n_heads * b * s * cfg.n_layers
+    return flops
+
+
+def train_families_phase(Model, trainer, optimizer, get_arch) -> dict:
+    """bf16 training of every other family (``FAMILY_STEPS``): 4 AdamW
+    steps on one batch, remat as configured.  Losses finite and falling;
+    the family's backward kernels (and their forwards) launched, counts
+    set to 0 just before.  Step wall and busy ms, tokens/s, model-flops
+    share and peak memory.  Returns each family's launches."""
+    counters = bwd_counters()
+    out = {}
+    for j, (arch, cut, b, s, why) in enumerate(FAMILY_STEPS):
+        t0 = time.monotonic()
+        cfg = family_cfg(get_arch, arch, cut, "bfloat16")
+        model = Model(cfg, device="cuda")
+        tcfg = trainer.TrainConfig(opt=optimizer.OptimizerConfig(
+            lr=FAMILY_LR.get(arch, 1e-4), warmup_steps=0, total_steps=4))
+        state = trainer.init_state(
+            model, tcfg, torch.Generator(device="cuda").manual_seed(0))
+        batch = family_batch(cfg, b, s, 60 + j, torch.bfloat16)
+        step = trainer.make_train_step(model, tcfg)
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t1) * 1e3)
+        launches = {n: c.count for n, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        box = {"state": state}
+
+        def one():
+            box["state"], _ = step(box["state"], batch)
+        busy, top, named = busy_ms(one, named=("scan_bwd", "router_bwd",
+                                               "bwd_d"))
+        wall = float(np.median(walls[1:]))
+        flops = family_model_flops(cfg, state["params"], b, s)
+        need = family_kernels(cfg)
+        result = {"arch": arch, "cut": why, "layers": cfg.n_layers,
+                  "dtype": cfg.dtype, "batch": b, "seq": s,
+                  "lr": tcfg.opt.lr,
+                  "remat": cfg.remat, "losses": losses,
+                  "step_wall_ms": walls, "step_wall_ms_median_2_4": wall,
+                  "step_busy_ms": busy, "step_top_kernels": top,
+                  "step_bwd_kernels_ms_launches": named,
+                  "tokens_per_s": b * s / wall * 1e3,
+                  "max_memory_allocated_bytes": peak,
+                  "model_flops_per_step": flops,
+                  "model_flops_share_of_989_tflops":
+                      flops / (wall / 1e3) / 989e12,
+                  "launches": launches, "backward_kernels": need,
+                  "seconds": time.monotonic() - t0}
+        log("train.families", **result)
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"{arch} training losses {losses}")
+        if not all(launches[n] > 0 for n in need):
+            raise AssertionError(f"{arch} training: backward kernels {need}, "
+                                 f"launches {launches}")
+        out[arch] = launches
+        del model, state, box, step, batch, metrics
+        free_device_memory()
+    return out
+
+
 def scheduled_train_phase(train) -> dict:
     """``launch/train.py --scheduled`` at llama3.2-1b's full width with 2
     layers: 6 steps with a checkpoint every 2 and a crash after 4, then
@@ -1483,6 +2096,61 @@ def scheduled_train_phase(train) -> dict:
     return result
 
 
+def scheduled_moe_phase(train) -> dict:
+    """``launch/train.py --scheduled`` for qwen2-moe-a2.7b at full width
+    with 2 layers (bf16): 3 steps, a checkpoint at step 2 and a crash after
+    it, then ``--resume``, then an uninterrupted run without checkpoints.
+    Losses 1-2 of the crashed run and 3 of the resumed run equal the
+    uninterrupted run's: the routing and its gradient (the dispatch
+    gather's included) repeat bit for bit.  The resumed run stops after
+    step 3 by ``--fail-at`` too, so it writes no final checkpoint: one save
+    and one restore of the 18.3 GB state (bf16 parameters, float32 m and
+    v), under ``build/``, removed after.  Each run's state is dropped
+    before the next starts (two do not fit the card beside each other)."""
+    import shutil
+    import tempfile
+    base = ["--arch", "qwen2-moe-a2.7b", "--n-layers", "2", "--steps", "3",
+            "--batch", "2", "--seq", "256", "--log-every", "1", "--device",
+            "cuda"]
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt-moe-", dir=ROOT / "build")
+    try:
+        t0 = time.monotonic()
+        ck = ["--ckpt-dir", tmp, "--ckpt-every", "2", "--scheduled"]
+        first = train.run(train.parse_args(base + ck + ["--fail-at", "2"]))
+        del first["state"]
+        free_device_memory()
+        t1 = time.monotonic()
+        second = train.run(train.parse_args(
+            base + ck + ["--resume", "--fail-at", "3"]))
+        del second["state"]
+        free_device_memory()
+        t2 = time.monotonic()
+        whole = train.run(train.parse_args(base))
+        del whole["state"]
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (Path(tmp) / "step_00000002").iterdir())
+        result = {"arch": "qwen2-moe-a2.7b", "layers": 2,
+                  "failed_at": first["failed_at"],
+                  "resumed_from": second["start_step"],
+                  "losses_crashed": first["losses"],
+                  "losses_resumed": second["losses"],
+                  "losses_uninterrupted": whole["losses"],
+                  "checkpoint_bytes": ckpt_bytes,
+                  "wall_s": {"crashed": t1 - t0, "resumed": t2 - t1,
+                             "uninterrupted": time.monotonic() - t2}}
+        log("train.scheduled", **result)
+        if not (first["failed_at"] == 2 and second["start_step"] == 2
+                and second["failed_at"] == 3
+                and second["losses"][3] == whole["losses"][3]
+                and all(first["losses"][i] == whole["losses"][i]
+                        for i in (1, 2))):
+            raise AssertionError(f"scheduled MoE crash and resume: {result}")
+    finally:
+        shutil.rmtree(tmp)
+    return result
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1521,6 +2189,7 @@ def main() -> int:
              for name, (_, _, log_) in built.items()}
     log("build", seconds=time.monotonic() - t0,
         per_source={n: s for n, (_, s, _) in built.items()}, ptxas=ptxas)
+    PHASE_SECONDS["build"] = time.monotonic() - t0
     check_scan_build(build, built)
     check_bwd_build(build, built)
 
@@ -1536,6 +2205,10 @@ def main() -> int:
     t0 = time.monotonic()
     timed.update(router_scan_phase(ref, kmoe, kscan, capacity))
     log("kernels.k3k4.done", seconds=time.monotonic() - t0)
+
+    t0 = time.monotonic()
+    timed.update(backward2_phase(ref, kflash, kscan, kmoe, capacity))
+    log("kernels.bwd2.done", seconds=time.monotonic() - t0)
 
     # Float32 checks: kernel path against plain path, engine against a
     # direct loop (prompt_len None: none).  qwen2-moe keeps 4 of its 24
@@ -1586,6 +2259,7 @@ def main() -> int:
     t0 = time.monotonic()
     train_check_phase(ops, ref, Model, trainer, get_arch)
     free_device_memory()
+    train_check_families_phase(ops, ref, Model, trainer, get_arch)
     log("train.check.done", seconds=time.monotonic() - t0)
 
     # Serving, bfloat16, full width and depth (deepseek-v3-671b: its 3
@@ -1651,6 +2325,22 @@ def main() -> int:
     log("train.scheduled.done", seconds=time.monotonic() - t0,
         total_seconds=time.monotonic() - t_start)
 
+    # Training of every other family, bf16 (FAMILY_STEPS), then the
+    # scheduled driver's crash and resume for qwen2-moe at 2 layers.
+    t0 = time.monotonic()
+    for arch, launches in train_families_phase(
+            Model, trainer, optimizer, get_arch).items():
+        by_path[f"{arch} training"] = {
+            **launches, "flash_attention_bwd_mla": launches[
+                "flash_attention_bwd"] if arch == "deepseek-v3-671b" else 0}
+    log("train.families.done", seconds=time.monotonic() - t0,
+        total_seconds=time.monotonic() - t_start)
+    t0 = time.monotonic()
+    scheduled_moe_phase(train)
+    free_device_memory()
+    log("train.scheduled_moe.done", seconds=time.monotonic() - t0,
+        total_seconds=time.monotonic() - t_start)
+
     # Each kernel's launches are read on its own slice's path: K1, K2 on
     # llama3.2-1b, K4 on qwen2-moe, K3 on xlstm, K1's backward on the
     # training steps; every path is listed
@@ -1658,7 +2348,10 @@ def main() -> int:
     # internvl2-1b's K1 and K2; deepseek-v3-671b's K1 at 192 / 128 and K4).
     own = {"flash_attention": "llama3.2-1b", "decode_attention": "llama3.2-1b",
            "moe_topk": "qwen2-moe-a2.7b", "mlstm_scan": "xlstm-350m",
-           "flash_attention_bwd": "llama3.2-1b training"}
+           "flash_attention_bwd": "llama3.2-1b training",
+           "mlstm_scan_bwd": "xlstm-350m training",
+           "moe_route_bwd": "qwen2-moe-a2.7b training",
+           "flash_attention_bwd_mla": "deepseek-v3-671b training"}
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:102"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -1670,7 +2363,21 @@ def main() -> int:
                "flash_attention_bwd": (
                    "src/repro_torch/csrc/flash_attention_bwd.cu",
                    "no Pallas kernel: the reference differentiates "
-                   "`_flash_xla`, src/repro/kernels/ops.py:39")}
+                   "`_flash_xla`, src/repro/kernels/ops.py:39"),
+               "flash_attention_bwd_mla": (
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "no Pallas kernel: the reference differentiates "
+                   "`_flash_xla` at dk 192 / dv 128, "
+                   "src/repro/kernels/ops.py:39"),
+               "mlstm_scan_bwd": (
+                   "src/repro_torch/csrc/mlstm_scan_bwd.cu",
+                   "no Pallas kernel: the reference differentiates "
+                   "`_mlstm_xla`, src/repro/kernels/ops.py:128"),
+               "moe_route_bwd": (
+                   "src/repro_torch/csrc/moe_topk.cu",
+                   "no Pallas kernel: the reference differentiates "
+                   "`ref.moe_topk_ref` through src/repro/kernels/ops.py:189 "
+                   "(router_bwd_kernel)")}
     tolerance = {
         "flash_attention": (f"bf16 {TOL[torch.bfloat16]:g}, "
                             f"f32 {TOL[torch.float32]:g} max abs"),
@@ -1681,6 +2388,9 @@ def main() -> int:
                                 "max|plain|), and ||err|| / ||plain|| bf16 "
                                 "1e-2, f32 1e-4; lse f32 1e-5, bf16 1e-4")}
     tolerance["decode_attention"] = tolerance["flash_attention"]
+    for name in ("flash_attention_bwd_mla", "mlstm_scan_bwd", "moe_route_bwd"):
+        tolerance[name] = ("bf16 3e-2, f32 1e-4, x max(1, max|plain|), and "
+                           "||err|| / ||plain|| bf16 1e-2, f32 1e-4")
     kernels = []
     for name, d in timed.items():
         extra = {k: v for k, v in d.items() if k not in (
@@ -1698,6 +2408,8 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in by_path.items()
                                  if name in c},
             **extra, "card": card})
+    log("phase_seconds", total=time.monotonic() - t_start,
+        build=PHASE_SECONDS.get("build"), by_phase=PHASE_SECONDS)
     print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

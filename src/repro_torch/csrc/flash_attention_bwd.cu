@@ -74,8 +74,8 @@
 // laid out at 128 as in the forward: S and dP take its 5 k16 steps, the
 // products over N = hd run at n128 on tiles whose columns 80-127 are zeroed
 // once, and only 80 columns are stored.  At hd 16 the N = hd products are
-// n16 and S, dP have one k16 step.  MLA's 192 / 128 waits for its training
-// slice, and the wrapper refuses it.  Shared memory: dK/dV 2 x 128 hp x 2
+// n16 and S, dP have one k16 step.  MLA's (192, 128) runs the CUDA-core
+// kernels below in both types.  Shared memory: dK/dV 2 x 128 hp x 2
 // bytes of K and V plus two stages of (Q, dO: 64 hp x 2 each; lse, D: 256
 // bytes each), hp the padded hd (130 KB at 128, 66 KB at 64); dQ 2 x 128 hp
 // x 2 of Q and dO plus two stages of 64-key K and V (128 KB at 128).
@@ -93,12 +93,19 @@
 // (0.05 ms).  The design does 14 hd a pair.  Left for later (PERF.md):
 // TMA copies with a producer warp and `setmaxnreg`, overlapping a tile's
 // exponentials with the next tile's products, a deterministic single-pass
-// dQ, and MLA's 192 / 128.
+// dQ, and MLA's 192 / 128 on `wgmma`.
 //
-// float32, `bwd_dkdv_kernel<HD>` and `bwd_dq_kernel<HD>`: the same
-// blocking at 64 keys / 64 queries with K, V (or Q, dO, lse, D) in shared
-// memory as float32, P and dS through shared memory, each thread 4 rows x
-// hd / 16 columns of the accumulators, on the CUDA cores.
+// float32 and MLA, `bwd_dkdv_kernel<T, DK, DV>` and `bwd_dq_kernel<T, DK,
+// DV>`: the same blocking at 64 keys / 64 queries with K, V (or Q, dO, lse,
+// D) in shared memory as float32, P and dS through shared memory, each
+// thread 4 rows x DK / 16 (and DV / 16) columns of the accumulators, on the
+// CUDA cores.  They take the query-key dim DK and the value dim DV apart:
+// every float32 call (DK = DV), and MLA's (192, 128) in float32 and bf16.
+// At (192, 128) a dK/dV block holds 4 x (12 + 8) float32 accumulators a
+// thread and 199 KB of shared memory (K, V, Q, dO at 193 / 129 floats a
+// row, P and dS): a 64 x 192 float32 dK tile a warpgroup beside dV would
+// not fit the bf16 kernels' registers (255 at hd 128 already), so MLA's
+// gradient stays on this design until a `wgmma` version splits dK.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -137,6 +144,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 }
 
 // ---------------------------------------------------------------- (a) D
+// HD is the value dim, the width of O and dO.
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT) bwd_delta_kernel(Params p) {
   const long long row =
@@ -167,22 +175,32 @@ __global__ void __launch_bounds__(NT) bwd_delta_kernel(Params p) {
   }
 }
 
-// ------------------------------------------------- float32, CUDA cores
+// ------------------------------------- CUDA cores: float32, and MLA's dims
+//
+// `bwd_dkdv_kernel<T, DK, DV>` and `bwd_dq_kernel<T, DK, DV>` run every
+// float32 call (DK = DV) and MLA's (192, 128) in both types: the inputs are
+// widened to float32 as they are copied into shared memory, and the
+// gradients rounded to T once, when they are stored.
 namespace f32 {
 
 constexpr int BQ = 64;   // query rows a tile
 constexpr int BK = 64;   // keys a tile
 
-// Rows [r0, r0 + 64) of a (rows x HD) matrix with row stride ld into
-// shared memory, row stride HD + 1 (no bank conflicts down a column); rows
-// at or past nrows are zero.
-template <int HD>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Rows [r0, r0 + 64) of a (rows x W) matrix of T with row stride ld into
+// shared memory as float32, row stride W + 1 (no bank conflicts down a
+// column); rows at or past nrows are zero.
+template <int W, typename T>
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           long long ld, int r0, int nrows) {
-  for (int i = threadIdx.x; i < 64 * HD; i += NT) {
-    const int r = i / HD, d = i % HD;
+  for (int i = threadIdx.x; i < 64 * W; i += NT) {
+    const int r = i / W, d = i % W;
     const int row = r0 + r;
-    dst[r * (HD + 1) + d] = row < nrows ? src[row * ld + d] : 0.f;
+    dst[r * (W + 1) + d] = row < nrows ? to_f(src[row * ld + d]) : 0.f;
   }
 }
 
@@ -195,29 +213,30 @@ __device__ __forceinline__ bool kept(const Params& p, int qi, int kj,
   return ok;
 }
 
-template <int HD>
+template <int DK, int DV>
 constexpr size_t dkdv_smem() {
-  // Ks, Vs [BK][HD+1]; Qs, dOs [BQ][HD+1]; Ps, dSs [BK][BQ+1]; lse, D [BQ]
-  return sizeof(float) * (2 * BK * (HD + 1) + 2 * BQ * (HD + 1) +
-                          2 * BK * (BQ + 1) + 2 * BQ);
+  // Ks [BK][DK+1], Vs [BK][DV+1]; Qs [BQ][DK+1], dOs [BQ][DV+1];
+  // Ps, dSs [BK][BQ+1]; lse, D [BQ]
+  return sizeof(float) * (BK * (DK + 1) + BK * (DV + 1) + BQ * (DK + 1) +
+                          BQ * (DV + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
 }
 
 // One block per (64 keys, KV head, batch row): K and V stay in shared
 // memory; the block walks the G query heads and their 64-row query tiles
 // that the mask lets see a key of the tile, recomputes S and dO V^T, P and
 // dS into shared memory, and accumulates dK and dV in registers: each
-// thread owns 4 keys x hd / 16 columns of both.
-template <int HD>
+// thread owns 4 keys x DK / 16 columns of dK and DV / 16 of dV.
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
   extern __shared__ float smem[];
-  constexpr int RS = HD + 1;
+  constexpr int RK = DK + 1, RV = DV + 1;
   constexpr int SS = BQ + 1;
-  constexpr int NC = HD / 16;  // columns a thread owns
+  constexpr int NCK = DK / 16, NCV = DV / 16;  // columns a thread owns
   float* Ks = smem;
-  float* Vs = Ks + BK * RS;
-  float* Qs = Vs + BK * RS;
-  float* dOs = Qs + BQ * RS;
-  float* Ps = dOs + BQ * RS;
+  float* Vs = Ks + BK * RK;
+  float* Qs = Vs + BK * RV;
+  float* dOs = Qs + BQ * RK;
+  float* Ps = dOs + BQ * RV;
   float* dSs = Ps + BK * SS;
   float* Ls = dSs + BK * SS;
   float* Ds = Ls + BQ;
@@ -229,12 +248,15 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
   const int b = blockIdx.z;
   const int G = p.H / p.KH;
   const int offs = p.causal ? p.Sk - p.Sq : 0;
-  const long long qld = static_cast<long long>(p.H) * HD;
-  const long long kld = static_cast<long long>(p.KH) * HD;
-  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * HD;
+  const long long qld = static_cast<long long>(p.H) * DK;
+  const long long dold = static_cast<long long>(p.H) * DV;
+  const long long kld = static_cast<long long>(p.KH) * DK;
+  const long long vld = static_cast<long long>(p.KH) * DV;
+  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * DK;
+  const long long voff = static_cast<long long>(b) * p.Sk * vld + kh * DV;
 
-  load_rows<HD>(Ks, static_cast<const float*>(p.k) + koff, kld, k0, p.Sk);
-  load_rows<HD>(Vs, static_cast<const float*>(p.v) + koff, kld, k0, p.Sk);
+  load_rows<DK>(Ks, static_cast<const T*>(p.k) + koff, kld, k0, p.Sk);
+  load_rows<DV>(Vs, static_cast<const T*>(p.v) + voff, vld, k0, p.Sk);
 
   // Query rows that can see a key of [k0, k_last]: [i_begin, i_end).
   const int k_last = min(k0 + BK, p.Sk) - 1;
@@ -243,22 +265,26 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
   if (p.window > 0) i_end = min(i_end, k_last + p.window - offs);
   i_begin = (i_begin / BQ) * BQ;
 
-  float adk[4][NC], adv[4][NC];
+  float adk[4][NCK], adv[4][NCV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < NC; ++j) adk[i][j] = adv[i][j] = 0.f;
+    for (int j = 0; j < NCK; ++j) adk[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NCV; ++j) adv[i][j] = 0.f;
+  }
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
-    const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * HD;
-    const float* q = static_cast<const float*>(p.q) + qoff;
-    const float* dout = static_cast<const float*>(p.dout) + qoff;
+    const T* q = static_cast<const T*>(p.q) +
+                 static_cast<long long>(b) * p.Sq * qld + h * DK;
+    const T* dout = static_cast<const T*>(p.dout) +
+                    static_cast<long long>(b) * p.Sq * dold + h * DV;
     const long long roff = (static_cast<long long>(b) * p.H + h) * p.Sq;
     for (int i0 = i_begin; i0 < i_end; i0 += BQ) {
       __syncthreads();  // the previous tile is consumed
-      load_rows<HD>(Qs, q, qld, i0, p.Sq);
-      load_rows<HD>(dOs, dout, qld, i0, p.Sq);
+      load_rows<DK>(Qs, q, qld, i0, p.Sq);
+      load_rows<DV>(dOs, dout, dold, i0, p.Sq);
       if (tid < BQ) {
         const int qi = i0 + tid;
         Ls[tid] = qi < p.Sq ? p.lse[roff + qi] : -INFINITY;
@@ -272,25 +298,28 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-      for (int d = 0; d < HD; ++d) {
-        float kk[4], vv[4], qq[4], oo[4];
+      for (int d = 0; d < DK; ++d) {
+        float kk[4], qq[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kk[i] = Ks[(ty * 4 + i) * RS + d];
-          vv[i] = Vs[(ty * 4 + i) * RS + d];
-        }
+        for (int i = 0; i < 4; ++i) kk[i] = Ks[(ty * 4 + i) * RK + d];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qq[j] = Qs[(tx + 16 * j) * RS + d];
-          oo[j] = dOs[(tx + 16 * j) * RS + d];
-        }
+        for (int j = 0; j < 4; ++j) qq[j] = Qs[(tx + 16 * j) * RK + d];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kk[i], qq[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], oo[j], dp[i][j]);
-          }
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(kk[i], qq[j], s[i][j]);
+      }
+#pragma unroll 4
+      for (int d = 0; d < DV; ++d) {
+        float vv[4], oo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) vv[i] = Vs[(ty * 4 + i) * RV + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) oo[j] = dOs[(tx + 16 * j) * RV + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(vv[i], oo[j], dp[i][j]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -317,55 +346,58 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
           ds[i] = dSs[(ty * 4 + i) * SS + c];
         }
 #pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const float o = dOs[c * RS + tx + 16 * j];
-          const float qv = Qs[c * RS + tx + 16 * j];
+        for (int j = 0; j < NCV; ++j) {
+          const float o = dOs[c * RV + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            adv[i][j] = fmaf(pv[i], o, adv[i][j]);
-            adk[i][j] = fmaf(ds[i], qv, adk[i][j]);
-          }
+          for (int i = 0; i < 4; ++i) adv[i][j] = fmaf(pv[i], o, adv[i][j]);
+        }
+#pragma unroll
+        for (int j = 0; j < NCK; ++j) {
+          const float qv = Qs[c * RK + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) adk[i][j] = fmaf(ds[i], qv, adk[i][j]);
         }
       }
     }
   }
 
-  float* dk = static_cast<float*>(p.dk) + koff;
-  float* dv = static_cast<float*>(p.dv) + koff;
+  T* dk = static_cast<T*>(p.dk) + koff;
+  T* dv = static_cast<T*>(p.dv) + voff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + ty * 4 + i;
     if (kj >= p.Sk) continue;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      dk[kj * kld + tx + 16 * j] = adk[i][j] * p.scale;
-      dv[kj * kld + tx + 16 * j] = adv[i][j];
-    }
+    for (int j = 0; j < NCK; ++j)
+      put(dk + kj * kld + tx + 16 * j, adk[i][j] * p.scale);
+#pragma unroll
+    for (int j = 0; j < NCV; ++j) put(dv + kj * vld + tx + 16 * j, adv[i][j]);
   }
 }
 
-template <int HD>
+template <int DK, int DV>
 constexpr size_t dq_smem() {
-  // Qs, dOs [BQ][HD+1]; Ks, Vs [BK][HD+1]; dSs [BQ][BK+1]; lse, D [BQ]
-  return sizeof(float) *
-         (2 * BQ * (HD + 1) + 2 * BK * (HD + 1) + BQ * (BK + 1) + 2 * BQ);
+  // Qs [BQ][DK+1], dOs [BQ][DV+1]; Ks [BK][DK+1], Vs [BK][DV+1];
+  // dSs [BQ][BK+1]; lse, D [BQ]
+  return sizeof(float) * (BQ * (DK + 1) + BQ * (DV + 1) + BK * (DK + 1) +
+                          BK * (DV + 1) + BQ * (BK + 1) + 2 * BQ);
 }
 
 // One block per (64 queries, head, batch row): Q, dO, lse and D stay in
 // shared memory; it walks the KV tiles the mask keeps (the forward's
 // range), recomputes P and dS, and accumulates dQ in registers, 4 queries
-// x hd / 16 columns a thread.
-template <int HD>
+// x DK / 16 columns a thread.
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
   extern __shared__ float smem[];
-  constexpr int RS = HD + 1;
+  constexpr int RK = DK + 1, RV = DV + 1;
   constexpr int SS = BK + 1;
-  constexpr int NC = HD / 16;
+  constexpr int NC = DK / 16;
   float* Qs = smem;
-  float* dOs = Qs + BQ * RS;
-  float* Ks = dOs + BQ * RS;
-  float* Vs = Ks + BK * RS;
-  float* dSs = Vs + BK * RS;
+  float* dOs = Qs + BQ * RK;
+  float* Ks = dOs + BQ * RV;
+  float* Vs = Ks + BK * RK;
+  float* dSs = Vs + BK * RV;
   float* Ls = dSs + BQ * SS;
   float* Ds = Ls + BQ;
 
@@ -376,15 +408,18 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
   const int b = blockIdx.z;
   const int kh = h / (p.H / p.KH);
   const int offs = p.causal ? p.Sk - p.Sq : 0;
-  const long long qld = static_cast<long long>(p.H) * HD;
-  const long long kld = static_cast<long long>(p.KH) * HD;
-  const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * HD;
-  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * HD;
+  const long long qld = static_cast<long long>(p.H) * DK;
+  const long long dold = static_cast<long long>(p.H) * DV;
+  const long long kld = static_cast<long long>(p.KH) * DK;
+  const long long vld = static_cast<long long>(p.KH) * DV;
+  const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * DK;
+  const long long ooff = static_cast<long long>(b) * p.Sq * dold + h * DV;
+  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * DK;
+  const long long voff = static_cast<long long>(b) * p.Sk * vld + kh * DV;
   const long long roff = (static_cast<long long>(b) * p.H + h) * p.Sq;
 
-  load_rows<HD>(Qs, static_cast<const float*>(p.q) + qoff, qld, q0, p.Sq);
-  load_rows<HD>(dOs, static_cast<const float*>(p.dout) + qoff, qld, q0,
-                p.Sq);
+  load_rows<DK>(Qs, static_cast<const T*>(p.q) + qoff, qld, q0, p.Sq);
+  load_rows<DV>(dOs, static_cast<const T*>(p.dout) + ooff, dold, q0, p.Sq);
   if (tid < BQ) {
     const int qi = q0 + tid;
     Ls[tid] = qi < p.Sq ? p.lse[roff + qi] : -INFINITY;
@@ -405,12 +440,12 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
 
-  const float* k = static_cast<const float*>(p.k) + koff;
-  const float* v = static_cast<const float*>(p.v) + koff;
+  const T* k = static_cast<const T*>(p.k) + koff;
+  const T* v = static_cast<const T*>(p.v) + voff;
   for (int t0 = k_begin; t0 < k_end; t0 += BK) {
     __syncthreads();  // the previous tile is consumed (and Q is in)
-    load_rows<HD>(Ks, k, kld, t0, p.Sk);
-    load_rows<HD>(Vs, v, kld, t0, p.Sk);
+    load_rows<DK>(Ks, k, kld, t0, p.Sk);
+    load_rows<DV>(Vs, v, vld, t0, p.Sk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -419,25 +454,28 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qq[4], oo[4], kk[4], vv[4];
+    for (int d = 0; d < DK; ++d) {
+      float qq[4], kk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qq[i] = Qs[(ty * 4 + i) * RS + d];
-        oo[i] = dOs[(ty * 4 + i) * RS + d];
-      }
+      for (int i = 0; i < 4; ++i) qq[i] = Qs[(ty * 4 + i) * RK + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kk[j] = Ks[(tx + 16 * j) * RS + d];
-        vv[j] = Vs[(tx + 16 * j) * RS + d];
-      }
+      for (int j = 0; j < 4; ++j) kk[j] = Ks[(tx + 16 * j) * RK + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qq[i], kk[j], s[i][j]);
-          dp[i][j] = fmaf(oo[i], vv[j], dp[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qq[i], kk[j], s[i][j]);
+    }
+#pragma unroll 4
+    for (int d = 0; d < DV; ++d) {
+      float oo[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) oo[i] = dOs[(ty * 4 + i) * RV + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = Vs[(tx + 16 * j) * RV + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(oo[i], vv[j], dp[i][j]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -461,42 +499,43 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
       for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty * 4 + i) * SS + c];
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        const float kv = Ks[c * RS + tx + 16 * j];
+        const float kv = Ks[c * RK + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(ds[i], kv, acc[i][j]);
       }
     }
   }
 
-  float* dq = static_cast<float*>(p.dq) + qoff;
+  T* dq = static_cast<T*>(p.dq) + qoff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
     if (qi >= p.Sq) continue;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) dq[qi * qld + tx + 16 * j] = acc[i][j] * p.scale;
+    for (int j = 0; j < NC; ++j)
+      put(dq + qi * qld + tx + 16 * j, acc[i][j] * p.scale);
   }
 }
 
-template <int HD>
+template <typename T, int DK, int DV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t s_b = dkdv_smem<HD>();
-  constexpr size_t s_c = dq_smem<HD>();
+  constexpr size_t s_b = dkdv_smem<DK, DV>();
+  constexpr size_t s_c = dq_smem<DK, DV>();
   // Above 48 KB a block's shared memory must be opted into, once per
   // instantiation (thread-safe static initialisation).
   static const cudaError_t attr_b = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkdv_kernel<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(s_b));
   static const cudaError_t attr_c = cudaFuncSetAttribute(
-      bwd_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dq_kernel<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(s_c));
   if (attr_b != cudaSuccess) return attr_b;
   if (attr_c != cudaSuccess) return attr_c;
-  bwd_dkdv_kernel<HD>
+  bwd_dkdv_kernel<T, DK, DV>
       <<<dim3((p.Sk + BK - 1) / BK, p.KH, p.B), NT, s_b, stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_dq_kernel<HD>
+  bwd_dq_kernel<T, DK, DV>
       <<<dim3((p.Sq + BQ - 1) / BQ, p.H, p.B), NT, s_c, stream>>>(p);
   return cudaGetLastError();
 }
@@ -916,34 +955,38 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace wg
 
-// (a), then (b) and (c) of the input type.
-template <typename T, int HD>
+// (a), then (b) and (c): bf16 at equal dims on the tensor cores, float32
+// and MLA's (192, 128) on the CUDA cores.
+template <typename T, int DK, int DV>
 cudaError_t launch(Params p, cudaStream_t stream) {
-  constexpr bool BF16 = sizeof(T) == 2;
-  p.sq_ld = BF16 ? (p.Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD : p.Sq;
-  p.lse2 = BF16 ? p.delta + static_cast<long long>(p.B) * p.H * p.sq_ld
-                : nullptr;
+  constexpr bool WG = sizeof(T) == 2 && DK == DV;
+  p.sq_ld = WG ? (p.Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD : p.Sq;
+  p.lse2 = WG ? p.delta + static_cast<long long>(p.B) * p.H * p.sq_ld
+              : nullptr;
   const long long rows = static_cast<long long>(p.B) * p.sq_ld * p.H;
   const int rows_per_block = NT / 32;
-  bwd_delta_kernel<T, HD>
+  bwd_delta_kernel<T, DV>
       <<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
          NT, 0, stream>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if constexpr (BF16)
-    return wg::launch<HD>(p, stream);
+  if constexpr (WG)
+    return wg::launch<DK>(p, stream);
   else
-    return f32::launch<HD>(p, stream);
+    return f32::launch<T, DK, DV>(p, stream);
 }
 
 template <typename T>
-cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
+cudaError_t dispatch_hd(const Params& p, int hd, int hdv,
+                        cudaStream_t stream) {
+  if (hd == 192 && hdv == 128) return launch<T, 192, 128>(p, stream);
+  if (hd != hdv) return cudaErrorInvalidValue;
   switch (hd) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 80: return launch<T, 80>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
+    case 16: return launch<T, 16, 16>(p, stream);
+    case 32: return launch<T, 32, 32>(p, stream);
+    case 64: return launch<T, 64, 64>(p, stream);
+    case 80: return launch<T, 80, 80>(p, stream);
+    case 128: return launch<T, 128, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -951,7 +994,9 @@ cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout and the outputs dq,
-// dk, dv alike; every tensor contiguous in the layouts above, and for
+// dk, dv alike; hd the query-key dim (q, k, dq, dk), hdv the value dim (v,
+// o, dout, dv): equal and in 16, 32, 64, 80, 128, or (192, 128).  Every
+// tensor contiguous in the layouts above, and for
 // bfloat16 16-byte aligned.  scratch: 2 B H ceil(Sq / 128) 128 float32,
 // 16-byte aligned (D, and for bfloat16 lse log2 e beside it).  Launches
 // (a), (b) and (c) on the stream and returns the first launch's error that
@@ -960,7 +1005,7 @@ extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* scratch, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int H, int KH, float scale, int causal,
-    int window, int dtype, int hd, void* stream) {
+    int window, int dtype, int hd, int hdv, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KH <= 0 || H % KH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q,  k,  v,  o,  dout, lse, scratch, nullptr, dq, dk,
@@ -968,9 +1013,9 @@ extern "C" int flash_attention_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = dispatch_hd<float>(p, hd, st);
+    e = dispatch_hd<float>(p, hd, hdv, st);
   else if (dtype == 1)
-    e = dispatch_hd<__nv_bfloat16>(p, hd, st);
+    e = dispatch_hd<__nv_bfloat16>(p, hd, hdv, st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

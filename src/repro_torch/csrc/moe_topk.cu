@@ -408,3 +408,145 @@ extern "C" int moe_route_fwd(const void* logits, void* w, void* idx,
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }
+
+// ------------------------------------------------------------ backward
+//
+// `router_bwd_kernel`: the gradient of the router's weights and
+// probability sums with respect to the logits, for training.  The
+// reference has no backward kernel (it differentiates its plain router,
+// `moe_topk_ref`); this is the gradient of the forward above.  With p the
+// softmax over the experts below n_valid, recomputed in float32 as the
+// forward computes it, r_j = w_j / scale the renormalised picks (they sum
+// to 1) and g = dprob_sum:
+//
+//   dl_e = p_e (g_e - sum_e' p_e' g_e')
+//          + [e = idx_m] scale r_m (dw_m - sum_j r_j dw_j).
+//
+// The second term is the chain through w_m = scale p_idx_m / total: the
+// softmax's own denominator cancels there, because the r_m sum to 1.  The
+// forward's max(total, 1e-9) is never active (total >= 1 / E, the largest
+// probability), so it has no gradient term.  Padded experts have p = 0 and
+// are never picked: their gradient is 0.  dprob_sum may be null (the
+// gradient of `moe_topk`, which has no sums).
+//
+// One warp a token, each lane experts lane + 32 j; max, sums and the
+// p o g reduction are warp shuffles in a fixed order, and nothing is
+// reduced across tokens, so there are no atomics and two calls give the
+// same bits.  What bounds it: bytes, the logits read and dlogits written
+// once (4 T E or 2 T E bytes each) and 12 T k + 4 E bytes besides; about
+// 10 float32 operations a logit.
+namespace {
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_VPL = MAXE / 32;
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+struct BwdArgs {
+  const void* logits;
+  const int* idx;
+  const float* w;
+  const float* dw;
+  const float* dps;  // may be null
+  void* dlogits;
+  long long ld, dld;
+  int T, E, k, n_valid;
+  float scale;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS) router_bwd_kernel(BwdArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long tok = static_cast<long long>(blockIdx.x) *
+                            (BWD_THREADS / 32) + threadIdx.x / 32;
+  if (tok >= a.T) return;
+  const T* row = static_cast<const T*>(a.logits) + tok * a.ld;
+  float p[BWD_VPL];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BWD_VPL; ++j) {
+    const int e = lane + 32 * j;
+    p[j] = (e < a.E && e < a.n_valid) ? to_f(row[e]) : -INFINITY;
+    mx = fmaxf(mx, p[j]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < BWD_VPL; ++j) {
+    p[j] = p[j] == -INFINITY ? 0.f : expf(p[j] - mx);
+    sum += p[j];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  float g[BWD_VPL];
+  float pg = 0.f;
+#pragma unroll
+  for (int j = 0; j < BWD_VPL; ++j) {
+    const int e = lane + 32 * j;
+    p[j] /= sum;
+    g[j] = (a.dps != nullptr && e < a.E) ? a.dps[e] : 0.f;
+    pg = fmaf(p[j], g[j], pg);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    pg += __shfl_xor_sync(0xffffffffu, pg, off);
+
+  // Every lane reads the token's k picks (one broadcast load each).
+  const int* ids = a.idx + tok * a.k;
+  const float* w = a.w + tok * a.k;
+  const float* dw = a.dw + tok * a.k;
+  float rdw = 0.f;
+  for (int m = 0; m < a.k; ++m) rdw = fmaf(w[m] / a.scale, dw[m], rdw);
+  T* out = static_cast<T*>(a.dlogits) + tok * a.dld;
+#pragma unroll
+  for (int j = 0; j < BWD_VPL; ++j) {
+    const int e = lane + 32 * j;
+    if (e >= a.E) continue;
+    float d = p[j] * (g[j] - pg);
+    for (int m = 0; m < a.k; ++m)
+      if (ids[m] == e) d += w[m] * (dw[m] - rdw);  // scale r_m = w_m
+    out[e] = from_f<T>(d);
+  }
+}
+
+}  // namespace
+
+// The gradient with respect to logits (T, E) (rows `ld` apart, experts
+// contiguous, float32 or bfloat16) into dlogits (T, E) of the same type,
+// rows `dld` apart, from idx, weights and dweights (T, k) (int32, float32,
+// float32, contiguous) and dprob_sum (E,) float32 or null.  Returns the
+// launch's cudaError_t.
+extern "C" int moe_route_bwd(const void* logits, const void* idx,
+                             const void* w, const void* dw, const void* dps,
+                             void* dlogits, int T, int E, int k, int n_valid,
+                             float scale, long long ld, long long dld,
+                             int dtype, void* stream) {
+  if (T < 0 || E <= 0 || E > MAXE || k <= 0 || k > MAXK || k > E ||
+      scale == 0.f)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T == 0) return 0;
+  BwdArgs a{logits, static_cast<const int*>(idx),
+            static_cast<const float*>(w), static_cast<const float*>(dw),
+            static_cast<const float*>(dps), dlogits, ld, dld, T, E, k,
+            n_valid, scale};
+  const unsigned blocks = static_cast<unsigned>(
+      (static_cast<long long>(T) + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    router_bwd_kernel<float><<<blocks, BWD_THREADS, 0, st>>>(a);
+  else if (dtype == 1)
+    router_bwd_kernel<__nv_bfloat16><<<blocks, BWD_THREADS, 0, st>>>(a);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

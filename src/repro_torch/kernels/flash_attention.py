@@ -32,8 +32,8 @@ version; ``ops.grouped_flash`` reaches it through autograd.  As in the
 forward the input type picks the kernels: bfloat16 runs dK/dV and dQ on the
 tensor cores (``flash_bwd_dkdv_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``),
 float32 on the CUDA cores (``bwd_dkdv_kernel``, ``bwd_dq_kernel``); both
-start with ``bwd_delta_kernel``.  It takes the equal head dims only: MLA's
-(192, 128) waits for its training slice.
+start with ``bwd_delta_kernel``.  MLA's (192, 128) runs the CUDA-core
+kernels in both types.
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_float]
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -89,24 +89,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0, scale: float | None = None):
-    """The gradient of ``flash_attention`` on the card.  q, o, do: (B, Sq,
-    H, hd); k, v: (B, Sk, KH, hd), one dtype, hd in ``HEAD_DIMS``; lse:
-    the forward's (B, H, Sq) float32 row logsumexp.  Returns (dq, dk, dv),
-    contiguous, in the inputs' dtype.  Inputs that are not contiguous
-    (``do`` from autograd may not be) are copied first."""
+    """The gradient of ``flash_attention`` on the card.  q: (B, Sq, H, hd);
+    k: (B, Sk, KH, hd); v: (B, Sk, KH, hdv); o, do: (B, Sq, H, hdv); one
+    dtype, and the dims as the forward takes them (hdv = hd in
+    ``HEAD_DIMS``, or a pair of ``DIM_PAIRS``); lse: the forward's (B, H,
+    Sq) float32 row logsumexp.  Returns (dq, dk, dv), contiguous, in the
+    inputs' dtype.  Inputs that are not contiguous (``do`` from autograd
+    may not be) are copied first."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    if v.shape[3] != hd or hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dims ({hd}, "
-                         f"{v.shape[3]}); the backward takes equal dims in "
-                         f"{HEAD_DIMS} (MLA's waits for its training slice)")
+    sk, kh, hdv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("o", o), ("do", do)):
         if (t.device != q.device or t.dtype != q.dtype
-                or tuple(t.shape) != tuple(q.shape)):
+                or tuple(t.shape) != (b, sq, h, hdv)):
             raise ValueError(f"flash_attention_bwd: {name} "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device} does "
-                             f"not match q {tuple(q.shape)} {q.dtype}")
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} is "
+                             f"not ({b}, {sq}, {h}, {hdv}) {q.dtype}")
     if (lse.device != q.device or lse.dtype != torch.float32
             or tuple(lse.shape) != (b, h, sq)):
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
@@ -123,7 +121,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh, float(scale),
-             int(bool(causal)), int(window), DTYPES[q.dtype], hd,
+             int(bool(causal)), int(window), DTYPES[q.dtype], hd, hdv,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd")
     bwd_launches.add()

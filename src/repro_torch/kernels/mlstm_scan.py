@@ -22,6 +22,11 @@ block owns 64 of its value columns.
 Unlike the Pallas kernel it takes any sequence length.  What bounds it on
 the card is written at the top of the CUDA source.  The plain version is
 ``ref.mlstm_chunkwise_ref``.
+
+``mlstm_scan_bwd`` is the gradient, ``csrc/mlstm_scan_bwd.cu`` (seven
+launches a call on the CUDA cores, float32 inside for both types, counted
+once a call in ``bwd_launches``), with ``ref.mlstm_chunkwise_bwd_ref`` as
+its plain version; ``ops.mlstm_scan`` reaches it through autograd.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from . import build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DESIGNS = {"single": 0, "chunk_parallel": 1}
 CHUNK = 64          # steps a chunk of the bfloat16 kernels (one m64 tile)
+BWD_CHUNK = 64      # L in csrc/mlstm_scan_bwd.cu: steps a chunk of the backward
 COLS = 64           # value columns a block
 MAX_DK = 512        # the bfloat16 kernels' largest head dim (8 tiles of 64)
 # Where chunk-parallel is the faster design (``scan_study plans`` on the
@@ -53,10 +59,15 @@ SMS = 132
 CP_MAX_SCRATCH = 64 << 20
 
 launches = build.LaunchCounter()
+bwd_launches = build.LaunchCounter()
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 10
              + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 class ScanPlan(NamedTuple):
@@ -158,6 +169,49 @@ def run(q, k, v, logf, i, *, scale: float | None = None,
              design, chunk, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "mlstm_scan")
     return out
+
+
+def mlstm_scan_bwd(q, k, v, logf, i, dh, *, scale: float | None = None):
+    """The gradient of ``mlstm_scan`` on the card.  q, k: (BH, S, dk); v,
+    dh: (BH, S, dv), CUDA tensors of one type, float32 or bfloat16; logf,
+    i: (BH, S) gates.  Returns (dq, dk, dv) contiguous in the inputs' type
+    and (dlogf, di) float32.  Inputs that are not contiguous (``dh`` from
+    autograd may not be) are copied first; ``scale`` defaults to dk **
+    -0.5."""
+    _check(q, k, v, logf, i)
+    if dh.device != q.device or dh.dtype != q.dtype or dh.shape != v.shape:
+        raise ValueError(f"mlstm_scan_bwd: dh {tuple(dh.shape)} {dh.dtype} "
+                         f"on {dh.device} does not match v {tuple(v.shape)} "
+                         f"{q.dtype}")
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    scale = dk ** -0.5 if scale is None else scale
+    q, k, v, dh = (t.contiguous() for t in (q, k, v, dh))
+    logf = logf.float().contiguous()
+    i = i.float().contiguous()
+    dev = q.device
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    dlogf = torch.empty((bh, s), dtype=torch.float32, device=dev)
+    di = torch.empty((bh, s), dtype=torch.float32, device=dev)
+    chunk = BWD_CHUNK
+    nc = -(-s // chunk)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    scratch = [torch.empty((bh, nc * chunk), dtype=torch.float64, device=dev),
+               f32(4, bh, nc * chunk), f32(bh, nc),
+               f32(bh, nc, dk, dv), f32(bh, nc, dk),       # C, n
+               f32(bh, nc, dk, dv), f32(bh, nc, dk),       # dC, dn
+               f32(bh, nc, chunk, chunk), f32(bh, nc, chunk, chunk)]  # P, Y
+    fn = build.function("mlstm_scan_bwd", "mlstm_scan_bwd", _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dh.data_ptr(),
+             logf.data_ptr(), i.data_ptr(),
+             *(t.data_ptr() for t in grads), dlogf.data_ptr(), di.data_ptr(),
+             *(t.data_ptr() for t in scratch), bh, s, dk, dv, float(scale),
+             DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "mlstm_scan_bwd")
+    bwd_launches.add()
+    return (*grads, dlogf, di)
 
 
 def _check(q, k, v, logf, i) -> None:

@@ -14,6 +14,12 @@ switched off.  One launch a call, counted in ``launches`` for both.  What
 bounds it and why it is one cluster of blocks is written at the top of the
 CUDA source.  The plain versions are ``ref.moe_route_ref`` and
 ``ref.moe_topk_ref``.
+
+``moe_route_bwd`` is the gradient of the weights and probability sums
+with respect to the logits, ``router_bwd_kernel`` in the same source: one
+warp a token, no atomics.  One launch a call, counted in
+``bwd_launches``.  Its plain version is ``ref.moe_route_bwd_ref``;
+``ops.moe_route`` and ``ops.moe_topk`` reach it through autograd.
 """
 from __future__ import annotations
 
@@ -33,10 +39,16 @@ MIN_TOKENS_PER_BLOCK = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = build.LaunchCounter()
+bwd_launches = build.LaunchCounter()
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_longlong] + [ctypes.c_int] * 4
              + [ctypes.c_void_p])
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                 + [ctypes.c_float] + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+                 + [ctypes.c_void_p])
 
 
 class Plan(NamedTuple):
@@ -104,6 +116,49 @@ def moe_topk(logits, top_k: int, n_valid: int | None = None):
     _launch(logits, top_k, n_valid, 0, 1.0,
             [w.data_ptr(), idx.data_ptr(), None, None, None, None])
     return w, idx
+
+
+def moe_route_bwd(logits, idx, weights, dweights, dprob_sum=None, *,
+                  n_valid: int | None = None, router_scale: float = 1.0):
+    """The gradient with respect to ``logits`` (T, E) CUDA float32 or
+    bfloat16, experts contiguous, of the router's ``weights`` (T, k)
+    float32 (times ``router_scale``) at the picks ``idx`` (T, k) int32,
+    given their gradient ``dweights`` (T, k) and the probability sums'
+    ``dprob_sum`` (E,) (None: ``moe_topk``'s gradient).  Returns dlogits
+    (T, E) in logits' type."""
+    _check(logits, idx.shape[1] if idx.dim() == 2 else 0)
+    t, e = logits.shape
+    k = idx.shape[1]
+    if router_scale == 0:
+        raise ValueError("moe_route_bwd: router_scale 0 leaves no weights "
+                         "to differentiate")
+    for name, x, dt in (("idx", idx, torch.int32), ("weights", weights,
+                                                     torch.float32),
+                        ("dweights", dweights, torch.float32)):
+        if x.device != logits.device or tuple(x.shape) != (t, k):
+            raise ValueError(f"moe_route_bwd: {name} {tuple(x.shape)} on "
+                             f"{x.device} is not ({t}, {k}) on "
+                             f"{logits.device}")
+        if x.dtype != dt:
+            raise TypeError(f"moe_route_bwd: {name} is {x.dtype}, not {dt}")
+    idx, weights, dweights = (x.contiguous() for x in (idx, weights, dweights))
+    if dprob_sum is not None:
+        if dprob_sum.device != logits.device or tuple(dprob_sum.shape) != (e,):
+            raise ValueError(f"moe_route_bwd: dprob_sum {tuple(dprob_sum.shape)}"
+                             f" is not ({e},) on {logits.device}")
+        dprob_sum = dprob_sum.float().contiguous()
+    out = torch.empty((t, e), dtype=logits.dtype, device=logits.device)
+    fn = build.function("moe_topk", "moe_route_bwd", _BWD_ARGTYPES)
+    err = fn(logits.data_ptr(), idx.data_ptr(), weights.data_ptr(),
+             dweights.data_ptr(),
+             None if dprob_sum is None else dprob_sum.data_ptr(),
+             out.data_ptr(), t, e, k, e if n_valid is None else int(n_valid),
+             float(router_scale), logits.stride(0), out.stride(0),
+             DTYPES[logits.dtype],
+             torch.cuda.current_stream(logits.device).cuda_stream)
+    build.check(err, "moe_route_bwd")
+    bwd_launches.add()
+    return out
 
 
 def _launch(logits, top_k, n_valid, capacity, scale, ptrs) -> None:

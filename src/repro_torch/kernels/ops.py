@@ -16,11 +16,13 @@ The ``grouped_*`` forms take the model's layout (``(B, S, H, hd)`` queries,
 ``(BH, S, D)`` signatures.
 
 Gradients.  On the CPU the plain versions are differentiated by autograd.
-On the card ``grouped_flash`` goes through ``FlashAttention`` when a
-gradient is wanted: its forward is K1 with the row logsumexp, its backward
-K1's backward kernel and nothing else.  K3 and K4 have no backward kernel
-yet, so on the card they refuse inputs that want a gradient rather than
-hand back none (training those families waits for their slices).
+On the card each kernel that a training path runs goes through a
+``torch.autograd.Function`` when a gradient is wanted, whose backward is
+that kernel's backward kernel and nothing else: ``FlashAttention`` (K1, its
+forward keeping the row logsumexp; MLA's 192 / 128 too), ``MlstmScan``
+(K3) and ``MoeRoute`` / ``MoeTopk`` (K4: the gradient of the weights and
+of the probability sums; the integer outputs have none).  K2 runs only in
+decode, which records no gradient.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
 from .flash_attention import flash_attention_bwd as _flash_bwd_cuda
 from .mlstm_scan import mlstm_scan as _mlstm_cuda
+from .mlstm_scan import mlstm_scan_bwd as _mlstm_bwd_cuda
 from .moe_topk import moe_route as _moe_route_cuda
+from .moe_topk import moe_route_bwd as _moe_route_bwd_cuda
 from .moe_topk import moe_topk as _moe_topk_cuda
 
 
@@ -45,14 +49,6 @@ def _on_cuda(t, op: str) -> bool:
 
 def _wants_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def _no_backward(op: str, *ts) -> None:
-    if _wants_grad(*ts):
-        raise NotImplementedError(
-            f"{op}: the CUDA kernel has no backward yet, so a gradient "
-            "through it on the card is refused (its training slice brings "
-            "one)")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -74,6 +70,66 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = _flash_bwd_cuda(q, k, v, out, lse, dout, causal=causal,
                                      window=window, scale=scale)
         return dq, dk, dv, None, None, None
+
+
+class MlstmScan(torch.autograd.Function):
+    """K3 with a gradient: the forward kernel, then the backward kernel,
+    which recomputes the chunk states from the inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, logf, i, scale):
+        ctx.save_for_backward(q, k, v, logf, i)
+        ctx.scale = scale
+        return _mlstm_cuda(q, k, v, logf, i, scale=scale)
+
+    @staticmethod
+    def backward(ctx, dh):
+        q, k, v, logf, i = ctx.saved_tensors
+        dq, dk, dv, dlogf, di = _mlstm_bwd_cuda(q, k, v, logf, i, dh,
+                                                scale=ctx.scale)
+        return dq, dk, dv, dlogf.to(logf.dtype), di.to(i.dtype), None
+
+
+class MoeRoute(torch.autograd.Function):
+    """K4 with a gradient: the router and its plan, and the backward
+    kernel from the weights' and probability sums' gradients to the
+    logits'."""
+
+    @staticmethod
+    def forward(ctx, logits, top_k, capacity, n_valid, router_scale):
+        r = _moe_route_cuda(logits, top_k, capacity=capacity, n_valid=n_valid,
+                            router_scale=router_scale)
+        ctx.save_for_backward(logits, r.idx, r.weights)
+        ctx.args = (n_valid, router_scale)
+        ctx.mark_non_differentiable(r.idx, r.slot, r.slot_tok, r.counts)
+        return tuple(r)
+
+    @staticmethod
+    def backward(ctx, dweights, _idx, _slot, _slot_tok, dprob_sum, _counts):
+        logits, idx, weights = ctx.saved_tensors
+        n_valid, router_scale = ctx.args
+        return (_moe_route_bwd_cuda(logits, idx, weights, dweights, dprob_sum,
+                                    n_valid=n_valid, router_scale=router_scale),
+                None, None, None, None)
+
+
+class MoeTopk(torch.autograd.Function):
+    """K4's top k alone with a gradient: the backward kernel with no
+    probability sums."""
+
+    @staticmethod
+    def forward(ctx, logits, top_k, n_valid):
+        w, idx = _moe_topk_cuda(logits, top_k, n_valid=n_valid)
+        ctx.save_for_backward(logits, idx, w)
+        ctx.n_valid = n_valid
+        ctx.mark_non_differentiable(idx)
+        return w, idx
+
+    @staticmethod
+    def backward(ctx, dweights, _idx):
+        logits, idx, w = ctx.saved_tensors
+        return (_moe_route_bwd_cuda(logits, idx, w, dweights,
+                                    n_valid=ctx.n_valid), None, None)
 
 
 def grouped_flash(q, k, v, *, causal: bool = True, window: int = 0,
@@ -112,7 +168,8 @@ def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
     """q, k: (BH, S, dk); v: (BH, S, dv); logf, i: (BH, S) -> h (BH, S, dv).
     ``scale`` defaults to dk ** -0.5."""
     if _on_cuda(q, "mlstm_scan"):
-        _no_backward("mlstm_scan", q, k, v, logf, i)
+        if _wants_grad(q, k, v, logf, i):
+            return MlstmScan.apply(q, k, v, logf, i, scale)
         return _mlstm_cuda(q, k, v, logf, i, scale=scale)
     return ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale)
 
@@ -120,7 +177,8 @@ def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
 def moe_topk(logits, top_k: int, n_valid: int | None = None):
     """logits: (T, E) -> (weights (T, k) float32, indices (T, k) int32)."""
     if _on_cuda(logits, "moe_topk"):
-        _no_backward("moe_topk", logits)
+        if _wants_grad(logits):
+            return MoeTopk.apply(logits, top_k, n_valid)
         return _moe_topk_cuda(logits, top_k, n_valid=n_valid)
     return ref.moe_topk_ref(logits, top_k, n_valid=n_valid)
 
@@ -130,7 +188,9 @@ def moe_route(logits, top_k: int, *, capacity: int, n_valid: int | None = None,
     """logits: (T, E) -> ``ref.Route``: weights, idx, slot (T, k), slot_tok
     (E, capacity), prob_sum and counts (E,)."""
     if _on_cuda(logits, "moe_route"):
-        _no_backward("moe_route", logits)
+        if _wants_grad(logits):
+            return ref.Route(*MoeRoute.apply(logits, top_k, capacity, n_valid,
+                                             router_scale))
         return _moe_route_cuda(logits, top_k, capacity=capacity,
                                n_valid=n_valid, router_scale=router_scale)
     return ref.moe_route_ref(logits, top_k, capacity=capacity, n_valid=n_valid,

@@ -12,8 +12,11 @@ kernel is held against.
 * ``moe_topk_ref`` -- the MoE router's top k (K4); ``moe_route_ref``, the
   router with the dispatch plan the reference builds by a stable sort, and
   ``moe_route_blocked_ref``, the kernel's count-based arithmetic for that
-  plan, for the tests;
+  plan, for the tests; ``moe_route_bwd_ref``, the gradient of the weights
+  and probability sums (K4's backward kernel);
 * ``mlstm_chunkwise_ref`` -- the chunkwise mLSTM scan (K3);
+  ``mlstm_chunkwise_bwd_ref``, its gradient written out (K3's backward
+  kernel's plain version);
   ``mlstm_chunk_parallel_ref``, the arithmetic of K3's chunk-parallel plan,
   and ``mlstm_scan_ref``, the step-by-step recurrence, for the tests.
 """
@@ -219,6 +222,31 @@ def moe_route_ref(logits, top_k: int, *, capacity: int,
                  torch.bincount(flat, minlength=e).int())
 
 
+def moe_route_bwd_ref(logits, idx, weights, dweights, dprob_sum=None, *,
+                      n_valid: int | None = None, router_scale: float = 1.0):
+    """The gradient of ``moe_route_ref``'s weights and probability sums
+    with respect to the logits (K4's backward kernel's plain version),
+    written out.  With p the softmax over the experts below ``n_valid`` in
+    float32, r = weights / router_scale (the renormalised picks, summing to
+    1) and g = dprob_sum (zeros if None: ``moe_topk``'s gradient),
+    ``dl_e = p_e (g_e - sum_e' p_e' g_e') + [e = idx_m] router_scale r_m
+    (dw_m - sum_j r_j dw_j)``: the softmax's denominator cancels in the
+    renormalised weights.  Padded experts get 0.  logits (T, E); idx,
+    weights, dweights (T, k); dprob_sum (E,).  Returns (T, E) in logits'
+    type."""
+    e = logits.shape[1]
+    p = _router_probs(logits, e if n_valid is None else n_valid)
+    dl = torch.zeros_like(p)
+    if dprob_sum is not None:
+        g = dprob_sum.float()[None, :]
+        dl = p * (g - (p * g).sum(dim=-1, keepdim=True))
+    r = weights.float() / router_scale
+    dw = dweights.float()
+    coeff = router_scale * r * (dw - (r * dw).sum(dim=-1, keepdim=True))
+    # a token picks an expert at most once, so the adds do not collide
+    return dl.scatter_add(1, idx.long(), coeff).to(logits.dtype)
+
+
 def moe_route_blocked_ref(logits, top_k: int, *, capacity: int,
                           tokens_per_block: int, n_valid: int | None = None,
                           router_scale: float = 1.0):
@@ -327,8 +355,11 @@ def mlstm_chunkwise_ref(q, k, v, logf, i, *, scale: float | None = None,
         qd = qb * la.exp()[..., None]
         inter = qd @ c                                      # (BH, ch, dv)
         n_inter = (qd @ n[..., None])[..., 0]               # (BH, ch)
-        dmat = torch.where(causal, (la64[:, :, None] - la64[:, None, :])
-                           .float().exp() * ib[:, None, :], 0.0)
+        # masked before the exponential: above the diagonal the difference
+        # is positive and may overflow, and inf there would turn the
+        # gradient of the masked entries into NaN
+        dmat = torch.where(causal, la64[:, :, None] - la64[:, None, :],
+                           -torch.inf).float().exp() * ib[:, None, :]
         smat = (qb @ kb.transpose(1, 2)) * dmat             # (BH, ch, ch)
         intra = smat @ vb
         den = (n_inter + smat.sum(-1)).abs().clamp(min=1.0)
@@ -387,3 +418,112 @@ def mlstm_chunk_parallel_ref(q, k, v, logf, i, *, scale: float | None = None,
     den = (n_inter + smat.sum(-1)).abs().clamp(min=1.0)
     h = (inter + smat @ vc) / den[..., None]
     return h.reshape(bh, nc * chunk, dv)[:, :s].to(q.dtype)
+
+
+def mlstm_chunkwise_bwd_ref(q, k, v, logf, i, dh, *, scale: float | None = None,
+                            chunk: int = 64):
+    """The gradient of ``mlstm_chunkwise_ref`` written out, float32 inside
+    (the cumulative gate sums float64): K3's backward kernel's plain
+    version, chunk for chunk.  In a chunk of ``chunk`` steps, with q~ =
+    scale q, la the cumulative log forget gate, A = exp(la), D_tj = [j <=
+    t] exp(la_t - la_j) i_j, P = q~ k^T, S = P o D, w_j = i_j exp(total -
+    la_j), C, n the state before the chunk:
+
+    * forward, recomputed: num = (A q~) C + S v, a = (A q~) n + rowsum S,
+      den = max(|a|, 1); G = dh / den, and the normaliser's row scalar
+      da = -(dh . num) / den^2 sign(a) [|a| > 1];
+    * the state's gradient runs backward over the chunks: dC_before =
+      exp(total) dC_after + (A q~)^T G, dn_before = exp(total) dn_after +
+      (A q~)^T da;
+    * dS = G v^T + da; dq~ = (dS o D) k + A (G C^T + da n); dk = (dS o
+      D)^T q~ + w (v dC^T + dn); dv = S^T G + w (k dC);
+    * gates: with E = dS o S, dla = rowsum E - colsum E + A dA - w dw, di
+      = colsum(dS o P o exp(la_t - la_j)) + dw exp(total - la), where dA =
+      q~ . (G C^T + da n) and dw = k . (v dC^T + dn); d total = exp(total)
+      (<C, dC> + n . dn) + sum_j dw_j w_j; dlogf is the reverse cumulative
+      sum of dla in the chunk plus d total.
+
+    q, k: (BH, S, dk); v, dh: (BH, S, dv); logf, i: (BH, S).  Any S: the
+    tail is padded to a whole chunk with logf = 0, i = 0 and zeros, as the
+    forward pads it.  Returns (dq, dk, dv) in the types of q, k, v and
+    (dlogf, di) float32."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    scale = scale if scale is not None else dk ** -0.5
+    nc = max(1, -(-s // chunk))
+    pad = nc * chunk - s
+
+    def tail(x):
+        x = x.float()
+        return torch.nn.functional.pad(x, (0, 0, 0, pad) if x.dim() == 3
+                                       else (0, pad))
+
+    qc = (tail(q) * scale).reshape(bh, nc, chunk, dk)
+    kc = tail(k).reshape(bh, nc, chunk, dk)
+    vc = tail(v).reshape(bh, nc, chunk, dv)
+    gc = tail(dh).reshape(bh, nc, chunk, dv)
+    ic = tail(i).reshape(bh, nc, chunk)
+    la64 = torch.cumsum(tail(logf).reshape(bh, nc, chunk).double(), dim=-1)
+    total64 = la64[..., -1]
+    total = total64.float()
+    amul = la64.float().exp()                                   # A
+    w = ic * (total64[..., None] - la64).float().exp()
+    tr = lambda x: x.transpose(-1, -2)                          # noqa: E731
+
+    # the state before each chunk
+    c_loc = tr(kc * w[..., None]) @ vc                          # (BH, nc, dk, dv)
+    n_loc = (w[..., None, :] @ kc)[..., 0, :]
+    c_st = torch.zeros((bh, nc, dk, dv), dtype=torch.float32, device=q.device)
+    n_st = torch.zeros((bh, nc, dk), dtype=torch.float32, device=q.device)
+    for j in range(1, nc):
+        g = total[:, j - 1].exp()
+        c_st[:, j] = g[:, None, None] * c_st[:, j - 1] + c_loc[:, j - 1]
+        n_st[:, j] = g[:, None] * n_st[:, j - 1] + n_loc[:, j - 1]
+
+    # the chunk's forward, recomputed, and the normaliser's row scalars
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=q.device).tril()
+    dec = torch.where(causal, la64[..., :, None] - la64[..., None, :],
+                      -torch.inf).float().exp()
+    dmat = dec * ic[..., None, :]
+    pmat = qc @ tr(kc)
+    smat = pmat * dmat
+    qa = qc * amul[..., None]
+    num = qa @ c_st + smat @ vc
+    a = (qa @ n_st[..., None])[..., 0] + smat.sum(-1)
+    den = a.abs().clamp(min=1.0)
+    g_mat = gc / den[..., None]
+    da = -(gc * num).sum(-1) / den ** 2 * a.sign() * (a.abs() > 1.0)
+
+    # the state's gradient, after each chunk
+    dc_loc = tr(qa) @ g_mat
+    dn_loc = (qa * da[..., None]).sum(-2)
+    dc_st = torch.zeros_like(c_st)
+    dn_st = torch.zeros_like(n_st)
+    for j in range(nc - 2, -1, -1):
+        g = total[:, j + 1].exp()
+        dc_st[:, j] = g[:, None, None] * dc_st[:, j + 1] + dc_loc[:, j + 1]
+        dn_st[:, j] = g[:, None] * dn_st[:, j + 1] + dn_loc[:, j + 1]
+
+    ds = g_mat @ tr(vc) + da[..., None]
+    dsd = ds * dmat
+    u = g_mat @ tr(c_st) + da[..., None] * n_st[..., None, :]   # (.., L, dk)
+    wv = vc @ tr(dc_st) + dn_st[..., None, :]
+    dq = (dsd @ kc + amul[..., None] * u) * scale
+    dkk = tr(dsd) @ qc + w[..., None] * wv
+    dvv = tr(smat) @ g_mat + w[..., None] * (kc @ dc_st)
+    e_mat = ds * smat
+    d_a = (qc * u).sum(-1)
+    d_w = (kc * wv).sum(-1)
+    dla = e_mat.sum(-1) - e_mat.sum(-2) + amul * d_a - w * d_w
+    di = ((ds * pmat * dec).sum(-2)
+          + d_w * (total64[..., None] - la64).float().exp())
+    dtotal = (total.exp() * ((c_st * dc_st).sum((-1, -2))
+                             + (n_st * dn_st).sum(-1))
+              + (d_w * w).sum(-1))
+    dlogf = dla.flip(-1).cumsum(-1).flip(-1) + dtotal[..., None]
+
+    def cut(x, like=None):
+        x = x.reshape(bh, nc * chunk, *x.shape[3:])[:, :s]
+        return x if like is None else x.to(like.dtype)
+    return (cut(dq, q), cut(dkk, k), cut(dvv, v), cut(dlogf), cut(di))

@@ -26,7 +26,14 @@ through ``slot`` and a sum over the k choices: no sort, no accumulating
 index op, the same result on the card from call to call.  A dropped pair
 reads a zero row placed after the expert outputs, so it adds exactly 0, as
 the reference's ``where`` makes it, whatever the experts computed.  The aux
-loss comes from the kernel's sums.
+loss comes from the kernel's sums, and its gradient reaches the logits
+through the probability sums, as the reference's does through ``probs``.
+
+Gradients.  ``ops.moe_route`` differentiates the weights and the
+probability sums (K4's backward kernel on the card).  The dispatch gather's
+gradient is ``DispatchGather``'s gather through ``slot``, summed over the k
+choices in a fixed order, so two backward passes on the same inputs give
+the same bits and a resumed run repeats an uninterrupted one.
 
 The expert products ``ecd,edf->ecf`` are batched matrix products, which the
 reference also leaves to its compiler.  Every expert's weights are read at
@@ -64,6 +71,33 @@ def capacity(t: int, top_k: int, capacity_factor: float, n_experts: int) -> int:
     return int(max(1, round(t * top_k * capacity_factor / n_experts)))
 
 
+class DispatchGather(torch.autograd.Function):
+    """Rows of x (T, d) into the slots (E C, d): slot s reads token
+    ``slot_tok[s]``, an empty slot (T) the zero row after the tokens.  Its
+    gradient gathers each token's k slot rows through ``slot`` (a dropped
+    pair, E C, reads a zero row) and sums them over k in order, in float32:
+    the transpose of the gather without ``index_add_``, whose atomic adds
+    on the card would sum a token's rows in another order from call to
+    call."""
+
+    @staticmethod
+    def forward(ctx, x, slot_tok, slot):
+        ctx.save_for_backward(slot)
+        xz = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+        return xz.index_select(0, slot_tok.reshape(-1))
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        (slot,) = ctx.saved_tensors
+        t, k = slot.shape
+        dz = torch.cat([dbuf, dbuf.new_zeros((1, dbuf.shape[1]))])
+        rows = dz.index_select(0, slot.reshape(-1)).reshape(t, k, -1).float()
+        dx = rows[:, 0]
+        for j in range(1, k):
+            dx = dx + rows[:, j]
+        return dx.to(dbuf.dtype), None, None
+
+
 def moe_forward(cfg, p, x, *, capacity_factor: float = 1.25):
     """x: (B, S, d) -> (y, aux_loss)."""
     m = cfg.moe
@@ -83,16 +117,22 @@ def moe_forward(cfg, p, x, *, capacity_factor: float = 1.25):
 
     # ---- dispatch: slot (e, c) holds token slot_tok[e, c]; T, an empty
     # slot, reads the zero row after the tokens
-    xz = torch.cat([xf, xf.new_zeros((1, d))])
-    buf = xz.index_select(0, r.slot_tok.reshape(-1)).reshape(e, cap, d)
+    buf = DispatchGather.apply(xf, r.slot_tok, r.slot).reshape(e, cap, d)
 
-    # ---- expert compute (E, C, d) -> (E, C, d), written above one zero row
+    # ---- expert compute (E, C, d) -> (E, C, d), above one zero row.
+    # Without a gradient the down product writes straight into the rows
+    # (no copy); ``out=`` records no gradient, so training concatenates.
     w_exp = p["experts"]
     h = F.silu(torch.bmm(buf, w_exp["gate"].to(buf.dtype)))
     h = h * torch.bmm(buf, w_exp["up"].to(buf.dtype))
-    yexp = xf.new_empty((e * cap + 1, d))
-    yexp[-1].zero_()
-    torch.bmm(h, w_exp["down"].to(buf.dtype), out=yexp[:-1].view(e, cap, d))
+    down = w_exp["down"].to(buf.dtype)
+    if torch.is_grad_enabled() and (h.requires_grad or down.requires_grad):
+        yexp = torch.cat([torch.bmm(h, down).view(e * cap, d),
+                          xf.new_zeros((1, d))])
+    else:
+        yexp = xf.new_empty((e * cap + 1, d))
+        yexp[-1].zero_()
+        torch.bmm(h, down, out=yexp[:-1].view(e, cap, d))
 
     # ---- combine: each token's k rows (a dropped pair's is the zero row),
     # weighted and summed over k by one (1, k) x (k, d) product a token.

@@ -3,8 +3,9 @@ memory), and the mamba-2/SSD-style heads of hymba's parallel SSM path.
 
 The mLSTM and SSD sequence mixes run the chunkwise mLSTM scan kernel
 (``ops.mlstm_scan``, K3; SSD with q = C, k = B, input weight dt, decay
--exp(a_log) dt and scale 1.0); their decode steps are one step of the
-recurrence in plain PyTorch, as in the reference.  The sLSTM block is a
+-exp(a_log) dt and scale 1.0), whose gradient on the card is K3's
+backward kernel (``ops.MlstmScan``); their decode steps are one step of
+the recurrence in plain PyTorch, as in the reference.  The sLSTM block is a
 per-channel linear recurrence, which the reference evaluates with an
 associative scan that has no Pallas kernel; here it is a log-depth
 doubling scan over time with the same combine.  A closed form through the

@@ -41,12 +41,16 @@ def init_state(model, train_cfg: TrainConfig, generator):
 def value_and_grad(model, params, batch):
     """(loss, grads): the model's training loss on ``batch`` and its
     gradient with respect to every leaf of ``params``, in the leaves'
-    types, as a tree of ``params``' layout."""
+    types, as a tree of ``params``' layout.  A leaf the loss does not
+    read (the empty MoE segment of a config whose layers are all dense)
+    gets zeros, as the reference's gradient gives it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, _ = model.train_loss(tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(params, list(grads))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
 
 
 def make_train_step(model, train_cfg: TrainConfig):

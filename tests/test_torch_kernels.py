@@ -392,3 +392,117 @@ def test_an_edited_header_gives_a_library_of_its_own(tmp_path, monkeypatch):
     assert after != before and after.parent == before.parent
     (tmp_path / "other.cuh").write_text("// new\n")
     assert build._lib_path("kern") not in (before, after)
+
+
+# ------------------------------------------------ plain backward versions
+# Each written-out gradient against torch autograd of its plain forward,
+# float32, 1e-5 of max(1, max |autograd|).
+def _grad_err(got, want) -> float:
+    return max(((g.float() - w.float()).abs().max()
+                / max(1.0, w.float().abs().max().item())).item()
+               for g, w in zip(got, want))
+
+
+def _scan_bwd_inputs(bh, s, dk, dv, qk_scale, ssd, seed):
+    t = lambda *shape, sd: torch.from_numpy(rand(shape, sd))  # noqa: E731
+    q, k = t(bh, s, dk, sd=seed) * qk_scale, t(bh, s, dk, sd=seed + 1) * qk_scale
+    v, dh = t(bh, s, dv, sd=seed + 2), t(bh, s, dv, sd=seed + 3)
+    g = t(bh, s, sd=seed + 4)
+    if ssd:     # hymba's SSD gates: decay -dt, input weight dt
+        dt = torch.nn.functional.softplus(g * 1.5)
+        return q, k, v, -dt, dt, dh
+    return (q, k, v, torch.nn.functional.logsigmoid(g + 2.0),
+            torch.sigmoid(t(bh, s, sd=seed + 5)), dh)
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,qk_scale,ssd,scale", [
+    (2, 64, 8, 16, 2.0, False, None),      # one whole chunk
+    (2, 150, 16, 24, 1.5, False, None),    # ragged S over 3 chunks
+    (2, 37, 16, 8, 2.0, False, None),      # S below one chunk
+    (3, 200, 16, 64, 0.7, True, 1.0),      # SSD gates, scale 1.0
+    (2, 130, 32, 32, 1.5, False, None),
+])
+def test_mlstm_chunkwise_bwd_ref_matches_autograd(bh, s, dk, dv, qk_scale,
+                                                  ssd, scale):
+    """Both branches of the normaliser max(|a|, 1) are exercised: some rows
+    have |a| > 1 (the gradient flows through a), others not."""
+    q, k, v, logf, i, dh = _scan_bwd_inputs(bh, s, dk, dv, qk_scale, ssd, 7)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v, logf, i)]
+    want = torch.autograd.grad(
+        tref.mlstm_chunkwise_ref(*xs, scale=scale), xs, dh)
+    got = tref.mlstm_chunkwise_bwd_ref(q, k, v, logf, i, dh, scale=scale)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert _grad_err(got, want) < 1e-5
+    # both branches: recompute a as the forward does (chunk 64)
+    sc = dk ** -0.5 if scale is None else scale
+    n = torch.zeros((bh, dk))
+    a = torch.empty((bh, s))
+    f, ig, qs = logf.exp(), i, q * sc
+    for t in range(s):
+        n = f[:, t, None] * n + ig[:, t, None] * k[:, t]
+        a[:, t] = (qs[:, t] * n).sum(-1)
+    assert (a.abs() > 1).any() and (a.abs() < 1).any()
+
+
+def test_mlstm_chunkwise_ref_gradient_is_finite_at_ssd_decays():
+    """Steep decays over a chunk of 256 overflow exp above the diagonal;
+    the plain forward masks before the exponential, so autograd of it
+    stays finite (the float32 training check on the card compares
+    against it)."""
+    q, k, v, logf, i, dh = _scan_bwd_inputs(2, 256, 16, 64, 1.0, True, 3)
+    logf = logf * 4.0
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v, logf, i)]
+    grads = torch.autograd.grad(
+        tref.mlstm_chunkwise_ref(*xs, scale=1.0, chunk=256), xs, dh)
+    assert all(torch.isfinite(g).all() for g in grads)
+    got = tref.mlstm_chunkwise_bwd_ref(q, k, v, logf, i, dh, scale=1.0)
+    assert _grad_err(got, grads) < 1e-5
+
+
+@pytest.mark.parametrize("t,e,k,n_valid,scale,cap", [
+    (8, 64, 4, 60, 1.0, 1),        # qwen2-moe decode: padded experts, drops
+    (200, 64, 4, 60, 1.0, 10),
+    (50, 256, 8, 256, 2.5, 2),     # deepseek's router scale
+    (40, 16, 1, 12, 1.0, 3),       # k = 1
+])
+def test_moe_route_bwd_ref_matches_autograd(t, e, k, n_valid, scale, cap):
+    logits = torch.from_numpy(rand((t, e), 30 + k))
+    dw = torch.from_numpy(rand((t, k), 31))
+    dps = torch.from_numpy(rand((e,), 32))
+    lg = logits.clone().requires_grad_(True)
+    r = tref.moe_route_ref(lg, k, capacity=cap, n_valid=n_valid,
+                           router_scale=scale)
+    assert (r.slot == e * cap).any()                    # dropped pairs
+    want, = torch.autograd.grad((r.weights * dw).sum()
+                                + (r.prob_sum * dps).sum(), lg)
+    got = tref.moe_route_bwd_ref(logits, r.idx, r.weights.detach(), dw, dps,
+                                 n_valid=n_valid, router_scale=scale)
+    assert _grad_err([got], [want]) < 1e-5
+    assert (got[:, n_valid:] == 0).all()
+    # without probability sums: moe_topk's gradient
+    lg = logits.clone().requires_grad_(True)
+    w, idx = tref.moe_topk_ref(lg, k, n_valid=n_valid)
+    want, = torch.autograd.grad((w * dw).sum(), lg)
+    got = tref.moe_route_bwd_ref(logits, idx, w.detach(), dw, n_valid=n_valid)
+    assert _grad_err([got], [want]) < 1e-5
+
+
+@pytest.mark.parametrize("b,sq,sk,h,causal", [
+    (2, 40, 40, 4, True), (1, 70, 70, 2, True), (2, 17, 50, 3, True)])
+def test_grouped_flash_bwd_ref_at_mla_dims_matches_autograd(b, sq, sk, h,
+                                                            causal):
+    """MLA's query-key dim 192 and value dim 128, every head its own KV
+    head, as ``mla_forward`` calls it."""
+    q = torch.from_numpy(rand((b, sq, h, 192), 40))
+    k = torch.from_numpy(rand((b, sk, h, 192), 41))
+    v = torch.from_numpy(rand((b, sk, h, 128), 42))
+    do = torch.from_numpy(rand((b, sq, h, 128), 43))
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o, lse = tref.grouped_flash_ref(*xs, causal=causal, scale=192 ** -0.5,
+                                    return_lse=True)
+    want = torch.autograd.grad(o, xs, do)
+    got = tref.grouped_flash_bwd_ref(q, k, v, o.detach(), lse.detach(), do,
+                                     causal=causal, scale=192 ** -0.5)
+    assert [g.shape for g in got] == [(b, sq, h, 192), (b, sk, h, 192),
+                                      (b, sk, h, 128)]
+    assert _grad_err(got, want) < 1e-5

@@ -17,7 +17,13 @@ backward against ``ref.grouped_flash_bwd_ref`` fed the plain forward's
 output and logsumexp: float32 to 1e-4 and bfloat16 to 3e-2, each of max(1,
 max |plain|) (sums over S in another order), and the error's norm within
 1e-4 (float32) and 1e-2 (bfloat16) of the plain gradient's; the forward's
-row logsumexp on its live rows, float32 to 1e-5 and bfloat16 to 1e-4."""
+row logsumexp on its live rows, float32 to 1e-5 and bfloat16 to 1e-4.
+K1's backward at MLA's (192, 128), K3's backward against
+``ref.mlstm_chunkwise_bwd_ref`` and K4's against ``ref.moe_route_bwd_ref``
+on the same inputs: the same two gates (max error of max(1, max |plain|)
+and error norm); the MoE and xLSTM / hymba training gradients bit-identical
+from call to call, each family's float32 training gradient through the
+kernels against the plain path."""
 import dataclasses
 
 import pytest
@@ -527,6 +533,15 @@ def _norm_err(got, want) -> float:
     return ((got.float() - want).norm() / want.norm()).item()
 
 
+def _norm_err_or_zero(got, want) -> float:
+    """``_norm_err``; where the plain gradient is exactly 0 (a router with
+    k = 1, whose weight is always 1; dlogf at one step), 0 if the kernel's
+    is exactly 0 too, else inf."""
+    if want.float().norm() == 0:
+        return 0.0 if (got.float() == 0).all() else float("inf")
+    return _norm_err(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,sk,h,kh,hd,causal,window", BWD_SHAPES)
 def test_flash_backward_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kh,
@@ -631,18 +646,26 @@ def test_grouped_flash_gradient_runs_the_kernels_not_the_plain_version(
 
 
 def test_kernels_without_a_backward_refuse_gradients(cuda):
+    """Every kernel on a training path has its backward now: K3's and K4's
+    gradients on the card launch their backward kernels; what K1's
+    backward does not take (unequal dims other than MLA's) is refused
+    before a launch."""
     logits = _randn((8, 64), torch.float32, cuda, 5).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.moe_route(logits, 4, capacity=2)
+    n = kmoe.bwd_launches.count
+    r = ops.moe_route(logits, 4, capacity=2)
+    torch.autograd.grad(r.weights.sum() + r.prob_sum.sum(), logits)
+    assert kmoe.bwd_launches.count == n + 1
     q, k, v, logf, i = _scan_inputs(2, 64, 32, 32, torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.mlstm_scan(q.requires_grad_(True), k, v, logf, i)
+    n = kscan.bwd_launches.count
+    q = q.requires_grad_(True)
+    torch.autograd.grad(ops.mlstm_scan(q, k, v, logf, i).sum(), q)
+    assert kscan.bwd_launches.count == n + 1
     q = torch.zeros((1, 8, 4, 192), device=cuda, dtype=torch.bfloat16)
-    v = torch.zeros((1, 8, 4, 128), device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros((1, 8, 4, 64), device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros((1, 4, 8), device=cuda)
     n = kflash.bwd_launches.count
     with pytest.raises(ValueError, match="head dims"):
-        kflash.flash_attention_bwd(q, q, v, q[..., :128], lse, q[..., :128])
+        kflash.flash_attention_bwd(q, q, v, q[..., :64], lse, q[..., :64])
     assert kflash.bwd_launches.count == n
 
 
@@ -666,3 +689,263 @@ def test_train_loss_gradient_on_the_card_matches_plain_path(cuda, monkeypatch):
     assert abs(loss.item() - ploss.item()) < 1e-4
     for g, w in zip(tree_leaves(grads), tree_leaves(pgrads)):
         assert ((g - w).abs().max() / w.abs().max()).item() < 1e-4
+
+
+# ------------------------------------- K1 backward at MLA's (192, 128)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,causal", [
+    (2, 256, 256, 16, True),        # deepseek-v3 training: every head its own
+    (1, 300, 300, 8, True),         # ragged
+    (2, 70, 200, 4, True),          # Sq < Sk
+    (1, 129, 129, 4, False),        # unmasked, one past a tile
+])
+def test_flash_backward_at_mla_dims_matches_plain(cuda, dtype, b, sq, sk, h,
+                                                  causal):
+    q = _randn((b, sq, h, 192), dtype, cuda, 70)
+    k = _randn((b, sk, h, 192), dtype, cuda, 71)
+    v = _randn((b, sk, h, 128), dtype, cuda, 72)
+    do = _randn((b, sq, h, 128), dtype, cuda, 73)
+    scale = 192 ** -0.5
+    o, lse = kflash.flash_attention(q, k, v, causal=causal, scale=scale,
+                                    return_lse=True)
+    want_o, want_lse = ref.grouped_flash_ref(q, k, v, causal=causal,
+                                             scale=scale, return_lse=True)
+    n = kflash.bwd_launches.count
+    got = kflash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                     scale=scale)
+    torch.cuda.synchronize()
+    assert kflash.bwd_launches.count == n + 1
+    want = ref.grouped_flash_bwd_ref(q, k, v, want_o, want_lse, do,
+                                     causal=causal, scale=scale)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) < TOL[dtype], (name, _rel_err(g, w))
+        assert _norm_err(g, w) < NORM_TOL[dtype], (name, _norm_err(g, w))
+    again = kflash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       scale=scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+# ------------------------------------------------------------ K3 backward
+SCAN_BWD_SHAPES = [
+    # bh, s, dk, dv, scale, qk: q and k scaled so that some rows have
+    # |a| > 1 and others not (both branches of the normaliser)
+    (4, 256, 512, 512, None, 2.0),   # xlstm-350m heads
+    (2, 150, 512, 512, None, 2.0),   # ragged S
+    (50, 256, 16, 64, 1.0, 1.0),     # hymba's SSD heads, scale 1.0
+    (3, 37, 16, 64, 1.0, 1.0),       # S below one chunk
+    (3, 130, 32, 96, None, 1.5),     # dv not a multiple of 64
+    # one step; q, k small: with |a| > 1 a single step gives h = sign(a) v,
+    # whose dq and dk are exactly 0, and both sides only rounding noise
+    (2, 1, 64, 64, None, 0.5),
+]
+
+
+def _scan_bwd_inputs(bh, s, dk, dv, qk, dtype, device, ssd):
+    q = (_randn((bh, s, dk), torch.float32, device, 80) * qk).to(dtype)
+    k = (_randn((bh, s, dk), torch.float32, device, 81) * qk).to(dtype)
+    v = _randn((bh, s, dv), dtype, device, 82)
+    dh = _randn((bh, s, dv), dtype, device, 83)
+    g = _randn((bh, s), torch.float32, device, 84)
+    if ssd:
+        dt = torch.nn.functional.softplus(g * 1.5)
+        return q, k, v, -dt, dt, dh
+    return (q, k, v, torch.nn.functional.logsigmoid(g + 2.0),
+            torch.sigmoid(_randn((bh, s), torch.float32, device, 85)), dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,dk,dv,scale,qk", SCAN_BWD_SHAPES)
+def test_scan_backward_kernel_matches_plain(cuda, dtype, bh, s, dk, dv, scale,
+                                            qk):
+    q, k, v, logf, i, dh = _scan_bwd_inputs(bh, s, dk, dv, qk, dtype, cuda,
+                                            ssd=scale == 1.0)
+    n = kscan.bwd_launches.count
+    got = kscan.mlstm_scan_bwd(q, k, v, logf, i, dh, scale=scale)
+    torch.cuda.synchronize()
+    assert kscan.bwd_launches.count == n + 1
+    want = ref.mlstm_chunkwise_bwd_ref(q, k, v, logf, i, dh, scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv", "dlogf", "di"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, w) < TOL[dtype], (name, _rel_err(g, w))
+        err = _norm_err_or_zero(g, w)
+        assert err < NORM_TOL[dtype], (name, err)
+    again = kscan.mlstm_scan_bwd(q, k, v, logf, i, dh, scale=scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_scan_backward_builds_without_spill(cuda, tmp_path, monkeypatch):
+    """ptxas reports no spill in any kernel of K3's backward (dk up to 512
+    changes no register count: the tiles are 64 x 64 whatever dk is)."""
+    import re
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    _, _, log_ = build.build(("mlstm_scan_bwd",))["mlstm_scan_bwd"]
+    assert "scan_bwd_grad_kernel" in log_
+    assert not [ln for ln in log_.splitlines()
+                if re.search(r"[1-9]\d* bytes spill", ln)], log_
+
+
+def test_scan_gradient_runs_the_kernels_not_the_plain_version(cuda,
+                                                              monkeypatch):
+    q, k, v, logf, i, dh = _scan_bwd_inputs(4, 200, 64, 64, 2.0,
+                                            torch.float32, cuda, ssd=False)
+    want = ref.mlstm_chunkwise_bwd_ref(q, k, v, logf, i, dh)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(ref, "mlstm_chunkwise_ref", refuse)
+    monkeypatch.setattr(ref, "mlstm_chunkwise_bwd_ref", refuse)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v, logf, i)]
+    n_fwd, n_bwd = kscan.launches.count, kscan.bwd_launches.count
+    got = torch.autograd.grad(ops.mlstm_scan(*xs), xs, dh)
+    torch.cuda.synchronize()
+    assert (kscan.launches.count, kscan.bwd_launches.count) == (
+        n_fwd + 1, n_bwd + 1)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) < TOL[torch.float32]
+
+
+# ------------------------------------------------------------ K4 backward
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,e,k,n_valid,scale", [
+    (8, 64, 4, 60, 1.0), (4096, 64, 4, 60, 1.0), (2048, 256, 8, 256, 2.5),
+    (37, 16, 1, 12, 1.0), (500, 8, 2, 8, 1.0)])
+def test_router_backward_kernel_matches_plain(cuda, dtype, t, e, k, n_valid,
+                                              scale):
+    logits = _randn((t, e), dtype, cuda, 90)
+    r = kmoe.moe_route(logits, k, capacity=max(1, t * k // e),
+                       n_valid=n_valid, router_scale=scale)
+    dw = _randn((t, k), torch.float32, cuda, 91)
+    dps = _randn((e,), torch.float32, cuda, 92)
+    for sums in (dps, None):
+        n = kmoe.bwd_launches.count
+        got = kmoe.moe_route_bwd(logits, r.idx, r.weights, dw, sums,
+                                 n_valid=n_valid, router_scale=scale)
+        torch.cuda.synchronize()
+        assert kmoe.bwd_launches.count == n + 1
+        want = ref.moe_route_bwd_ref(logits, r.idx, r.weights, dw, sums,
+                                     n_valid=n_valid, router_scale=scale)
+        assert got.dtype == dtype and got.shape == (t, e)
+        assert (got[:, n_valid:] == 0).all()
+        assert _rel_err(got, want) < TOL[dtype], _rel_err(got, want)
+        err = _norm_err_or_zero(got, want)
+        assert err < NORM_TOL[dtype], err
+        again = kmoe.moe_route_bwd(logits, r.idx, r.weights, dw, sums,
+                                   n_valid=n_valid, router_scale=scale)
+        assert torch.equal(got, again)
+
+
+def test_router_gradient_through_ops_runs_the_kernel(cuda):
+    """``ops.moe_route`` and ``ops.moe_topk`` under autograd: one forward
+    and one backward launch each, the gradient the plain one's."""
+    logits = _randn((300, 64), torch.float32, cuda, 93)
+    dw = _randn((300, 4), torch.float32, cuda, 94)
+    lg = logits.clone().requires_grad_(True)
+    n_fwd, n_bwd = kmoe.launches.count, kmoe.bwd_launches.count
+    r = ops.moe_route(lg, 4, capacity=20, n_valid=60)
+    got, = torch.autograd.grad((r.weights * dw).sum() + r.prob_sum.sum(), lg)
+    w, idx = ops.moe_topk(lg, 4, n_valid=60)
+    got_topk, = torch.autograd.grad((w * dw).sum(), lg)
+    torch.cuda.synchronize()
+    assert (kmoe.launches.count, kmoe.bwd_launches.count) == (
+        n_fwd + 2, n_bwd + 2)
+    pl = logits.clone().requires_grad_(True)
+    pr = ref.moe_route_ref(pl, 4, capacity=20, n_valid=60)
+    want, = torch.autograd.grad((pr.weights * dw).sum() + pr.prob_sum.sum(),
+                                pl)
+    assert _rel_err(got, want) < 1e-5
+    pl = logits.clone().requires_grad_(True)
+    pw, _ = ref.moe_topk_ref(pl, 4, n_valid=60)
+    want, = torch.autograd.grad((pw * dw).sum(), pl)
+    assert _rel_err(got_topk, want) < 1e-5
+
+
+# -------------------------------------------- family training gradients
+def _plain_kernels(monkeypatch):
+    monkeypatch.setattr(ops, "grouped_flash", ref.grouped_flash_ref)
+    monkeypatch.setattr(ops, "mlstm_scan", ref.mlstm_chunkwise_ref)
+    monkeypatch.setattr(ops, "moe_route", ref.moe_route_ref)
+
+
+def _card_cfg(arch, dtype):
+    """The reduced config with the dims the kernels take at full size:
+    MLA's query-key dim 192 and value dim 128, hymba's 16 SSD state dims
+    (the reduced 24 / 16 and 4 are no kernel's shapes)."""
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype=dtype)
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128))
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               state_dim=16))
+    return cfg
+
+
+def _family_batch(cfg, cuda, b=2, s=96):
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g).to(cuda)
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.encoder_layers:
+        batch["frames"] = _randn((b, cfg.encoder_len, cfg.d_model),
+                                 torch.float32, cuda, 95)
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = _randn((b, cfg.vision_tokens, cfg.d_model),
+                                        torch.float32, cuda, 96)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b",
+                                  "xlstm-350m", "hymba-1.5b",
+                                  "seamless-m4t-medium", "internvl2-1b"])
+def test_family_train_loss_gradient_on_the_card_matches_plain_path(
+        cuda, monkeypatch, arch):
+    """Each family reduced (kernel dims kept), float32: loss and every
+    gradient leaf through
+    the kernels and their backward kernels against the plain path, 1e-4
+    of the leaf's own max |plain|."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import tree_leaves
+    from repro_torch.training import trainer
+    model = Model(_card_cfg(arch, "float32"), device="cuda")
+    params = model.init_params(seed=3)
+    batch = _family_batch(model.cfg, cuda)
+    counts = {c: c.bwd_launches.count for c in (kflash, kscan, kmoe)}
+    loss, grads = trainer.value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    ran = {c.__name__.split(".")[-1]: c.bwd_launches.count - n
+           for c, n in counts.items()}
+    cfg = model.cfg
+    assert (ran["moe_topk"] > 0) == (cfg.moe is not None), ran
+    assert (ran["mlstm_scan"] > 0) == (cfg.ssm is not None), ran
+    assert (ran["flash_attention"] > 0) == (cfg.family != "ssm"), ran
+    _plain_kernels(monkeypatch)
+    ploss, pgrads = trainer.value_and_grad(model, params, batch)
+    assert abs(loss.item() - ploss.item()) < 1e-4
+    for g, w in zip(tree_leaves(grads), tree_leaves(pgrads)):
+        scale = max(w.abs().max().item(), 1e-30)
+        assert ((g - w).abs().max() / scale).item() < 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b",
+                                  "xlstm-350m", "hymba-1.5b"])
+def test_family_train_loss_gradient_on_the_card_is_bit_identical(cuda, dtype,
+                                                                 arch):
+    """Two gradients of one loss give the same bits: the dispatch gather's
+    gradient is a gather and a sum in order, the backward kernels use no
+    atomics (what ``--resume`` needs to repeat an uninterrupted run)."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import tree_leaves
+    from repro_torch.training import trainer
+    model = Model(_card_cfg(arch, dtype), device="cuda")
+    params = model.init_params(seed=4)
+    batch = _family_batch(model.cfg, cuda, s=128)
+    l1, g1 = trainer.value_and_grad(model, params, batch)
+    l2, g2 = trainer.value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
