@@ -41,15 +41,16 @@ def init_state(model, train_cfg: TrainConfig, generator):
 def value_and_grad(model, params, batch):
     """(loss, grads): the model's training loss on ``batch`` and its
     gradient with respect to every leaf of ``params``, in the leaves'
-    types, as a tree of ``params``' layout.  A leaf the loss does not
-    read (the empty MoE segment of a config whose layers are all dense)
-    gets zeros, as the reference's gradient gives it."""
+    types, as a tree of ``params``' layout.  An empty leaf (the MoE
+    segment of a config whose layers are all dense) gets its empty zeros,
+    as the reference's gradient gives it; any other leaf the loss does not
+    read is a fault, and autograd raises for it."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    live = [p for p in leaves if p.numel()]
     with torch.enable_grad():
         loss, _ = model.train_loss(tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
+        got = iter(torch.autograd.grad(loss, live))
+    grads = [next(got) if p.numel() else torch.zeros_like(p) for p in leaves]
     return loss.detach(), tree_unflatten(params, grads)
 
 

@@ -235,3 +235,15 @@ def test_all_dense_moe_config_trains_as_the_reference():
     assert abs(float(tl) - float(jl)) < 2e-5
     assert any(t.numel() == 0 for t in tree_leaves(tg))
     leaves_close(tg, jg, 2e-5)
+
+
+def test_value_and_grad_raises_for_a_disconnected_weight():
+    """Only empty leaves get zeros: a non-empty leaf that the loss does not
+    read is a fault and raises, rather than training on with a zero
+    gradient."""
+    _, _, tm, tp = _models("llama3.2-1b")
+    batch = _torch_batch(_batch(tm.cfg, 0))
+    _, g = TT.value_and_grad(tm, {**tp, "unread": torch.zeros(0)}, batch)
+    assert g["unread"].shape == (0,)
+    with pytest.raises(RuntimeError, match="not have been used"):
+        TT.value_and_grad(tm, {**tp, "unread": torch.zeros(3)}, batch)
