@@ -64,7 +64,9 @@ Phases, each printed on its own line and each fatal:
                probability sums' gradient; K1's at MLA's (192, 128) and
                hymba's training shape (window 1024); each timed at its
                training shape beside its bound (SDPA's backward at 192 /
-               128; no PyTorch call for K3's and K4's)
+               128; no PyTorch call for K3's and K4's), the profiler
+               seeing bf16 K3 and K1 at 192 / 128 run their wgmma kernels
+               and none of the CUDA-core ones
 4. model    -- float32, kernel path against the plain path (logits to
                1e-3, greedy tokens identical) over prefill_batch on ragged
                prompts and 8 decode steps: llama3.2-1b and xlstm-350m at
@@ -114,7 +116,8 @@ Phases, each printed on its own line and each fatal:
                family (``FAMILY_STEPS``: xlstm, hymba, seamless, internvl2
                at full size, qwen2-moe at 3 and deepseek at 1 layer of full
                width), losses finite and falling, its backward kernels
-               launched, the same measures; and the crash / ``--resume``
+               launched (the profiler: bf16 K1 and K3 backward on their
+               wgmma kernels), the same measures; and the crash / ``--resume``
                drill for qwen2-moe at full width with 2 layers
 
 Then a ``kernels`` JSON line, the card's name and power limit, and as the
@@ -167,47 +170,84 @@ def hgmma_counts(build, path) -> dict:
     return hgmma
 
 
+def ptxas_by_kernel(log_: str, pattern, name) -> dict:
+    """ptxas's registers a thread and spill stores of each kernel whose
+    mangled name the regex ``pattern`` matches, from a build's
+    ``-Xptxas=-v`` log: {name(match): {"registers": n,
+    "spill_store_bytes": n}}."""
+    out, key = {}, None
+    for ln in log_.splitlines():
+        if "Compiling entry function" in ln:
+            m = pattern.search(ln)
+            key = name(m) if m else None
+        elif key and (m := re.search(r"(\d+) bytes spill stores", ln)):
+            out.setdefault(key, {})["spill_store_bytes"] = int(m.group(1))
+        elif key and (m := re.search(r"Used (\d+) registers", ln)):
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
+# K3's backward on the tensor cores (bf16): the state walk forward <1> and
+# in reverse <-1> (mangled ILi1E, ILin1E), the normaliser, the gradient
+SCAN_BWD_WGMMA = re.compile(r"(scan_bwd_\w+?_wgmma_kernel)(?:ILi(n?)(\d+)E)?")
+SCAN_BWD_WGMMA_KERNELS = 4
+
+
+def scan_bwd_name(m) -> str:
+    return m.group(1) + (f"<{'-' if m.group(2) else ''}{m.group(3)}>"
+                         if m.group(3) else "")
+
+
 def check_scan_build(build, built) -> None:
     """ptxas reports no spill in the mLSTM scan or its backward (when this
-    run built them), and the scan's bf16 kernels' SASS holds tensor-core
-    instructions (HGMMA)."""
+    run built them), and the SASS of the scan's bf16 kernels and of its
+    backward's bf16 kernels (``scan_bwd_*_wgmma_kernel``) holds tensor-core
+    instructions (HGMMA); each backward wgmma kernel's registers and spill
+    stores are printed."""
     path, _, log_ = built["mlstm_scan"]
-    bwd_log = built["mlstm_scan_bwd"][2]
+    bwd_path, _, bwd_log = built["mlstm_scan_bwd"]
     spills = [ln.strip() for ln in (log_ + bwd_log).splitlines()
               if re.search(r"[1-9]\d* bytes spill", ln)]
     hgmma = hgmma_counts(build, path)
     wgmma = {n: c for n, c in hgmma.items() if "mlstm_wgmma_kernel" in n}
+    bwd_hgmma = {scan_bwd_name(m): c
+                 for n, c in hgmma_counts(build, bwd_path).items()
+                 if (m := SCAN_BWD_WGMMA.search(n))}
     log("build.mlstm_scan", spill_lines=spills, hgmma_per_kernel=wgmma,
         built_here=bool(log_), bwd_built_here=bool(bwd_log),
         bwd_registers=[ln.strip() for ln in bwd_log.splitlines()
-                       if "registers" in ln])
+                       if "registers" in ln],
+        bwd_wgmma_ptxas=ptxas_by_kernel(bwd_log, SCAN_BWD_WGMMA,
+                                        scan_bwd_name),
+        bwd_hgmma_per_kernel=bwd_hgmma)
     if spills or not wgmma or not all(wgmma.values()):
         raise AssertionError(f"mlstm_scan: spills {spills}, HGMMA {hgmma}")
+    if len(bwd_hgmma) != SCAN_BWD_WGMMA_KERNELS or not all(bwd_hgmma.values()):
+        raise AssertionError(f"mlstm_scan_bwd: HGMMA {bwd_hgmma}")
 
 
-BWD_WGMMA = re.compile(r"(flash_bwd_\w+?_wgmma_kernel)ILi(\d+)E")
+# K1's backward on the tensor cores: each kernel at each (query-key dim,
+# value dim) it is built for -- the five equal dims and MLA's (192, 128)
+BWD_WGMMA = re.compile(r"(flash_bwd_\w+?_wgmma_kernel)ILi(\d+)ELi(\d+)E")
+BWD_WGMMA_KERNELS = 2 * 6
+
+
+def bwd_name(m) -> str:
+    return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
 
 
 def check_bwd_build(build, built) -> None:
     """K1's backward: ptxas's registers a thread and spill stores of each
-    bf16 `wgmma` kernel at each head dim (when this run built it), and
-    HGMMA in each one's SASS."""
+    bf16 `wgmma` kernel at each pair of dims (when this run built it), and
+    HGMMA in each one's SASS, MLA's (192, 128) included."""
     path, _, log_ = built["flash_attention_bwd"]
-    ptxas, name = {}, None
-    for ln in log_.splitlines():
-        if "Compiling entry function" in ln:
-            m = BWD_WGMMA.search(ln)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
-        elif name and (m := re.search(r"(\d+) bytes spill stores", ln)):
-            ptxas.setdefault(name, {})["spill_store_bytes"] = int(m.group(1))
-        elif name and (m := re.search(r"Used (\d+) registers", ln)):
-            ptxas.setdefault(name, {})["registers"] = int(m.group(1))
-    hgmma = {f"{m.group(1)}<{m.group(2)}>": c
+    ptxas = ptxas_by_kernel(log_, BWD_WGMMA, bwd_name)
+    hgmma = {bwd_name(m): c
              for n, c in hgmma_counts(build, path).items()
              if (m := BWD_WGMMA.search(n))}
     log("build.flash_attention_bwd", ptxas=ptxas, hgmma_per_kernel=hgmma,
         built_here=bool(log_))
-    if len(hgmma) != 10 or not all(hgmma.values()):
+    if len(hgmma) != BWD_WGMMA_KERNELS or not all(hgmma.values()):
         raise AssertionError(f"flash_attention_bwd: HGMMA {hgmma}")
 
 
@@ -1097,6 +1137,27 @@ def grad_errors(got, want) -> tuple:
     return worst, worst_norm
 
 
+# bf16 backward kernels on the tensor cores, and the CUDA-core kernels
+# they replaced on the bf16 path (float32 still runs those): K3's, and K1's
+# at MLA's (192, 128)
+SCAN_BWD_BF16 = ("scan_bwd_walk_wgmma_kernel", "scan_bwd_norm_wgmma_kernel",
+                 "scan_bwd_grad_wgmma_kernel")
+SCAN_BWD_F32 = ("scan_bwd_outer_kernel", "scan_bwd_carry_kernel",
+                "scan_bwd_norm_kernel", "scan_bwd_grad_kernel")
+FLASH_BWD_BF16 = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+FLASH_BWD_F32 = ("bwd_dkdv_kernel", "bwd_dq_kernel")
+
+
+def check_ran(names, want: tuple, not_want: tuple, what: str) -> None:
+    """Every kernel of ``want`` and none of ``not_want`` among the kernel
+    names the profiler saw."""
+    missing = [n for n in want if n not in names]
+    stale = [n for n in not_want if n in names]
+    if missing or stale:
+        raise AssertionError(f"{what}: the profiler saw {sorted(names)}; "
+                             f"missing {missing}, not wanted {stale}")
+
+
 def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
     """The backward kernels this slice adds, against their plain versions
     (float32 1e-4, bf16 3e-2, of max(1, max |plain|), and the error's norm
@@ -1228,6 +1289,8 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
                                               max_per_call=7)
         d["device_ms_by_kernel" + tag] = device_ms_by_kernel(call, "scan_bwd",
                                                              iters=3)
+        check_ran(d["device_ms_by_kernel" + tag], SCAN_BWD_BF16,
+                  SCAN_BWD_F32, f"mlstm_scan_bwd bf16 BH {bh} dk {dk}")
         d["bound_ms" + tag], by = scan_bwd_bound_ms(q, v)
         if not tag:
             d["bound_by"] = by
@@ -1312,6 +1375,8 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
     d["device_ms"], d["launches_per_call"], d["grid"] = device_ms_per_call(
         call, "bwd_d", iters=3, max_per_call=3)
     d["device_ms_by_kernel"] = device_ms_by_kernel(call, "bwd_d", iters=3)
+    check_ran(d["device_ms_by_kernel"], FLASH_BWD_BF16, FLASH_BWD_F32,
+              "flash_attention_bwd bf16 (192, 128)")
     d["bound_ms"], d["bound_by"] = flash_bwd_bound_ms(q, k, True, 0, hdv=128)
     got = call()
     po, plse = ref.grouped_flash_ref(q, k, v, scale=sc, return_lse=True)
@@ -1323,8 +1388,10 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
         raise AssertionError(f"flash_attention_bwd {dt} (192, 128) B {b} S {s} "
                              f"H {h}: error {e}, norm error {d['norm_err']}")
     d["max_abs_err_f32"] = ferrs["float32"][0]
-    d["design"] = ("bwd_delta_kernel, bwd_dkdv_kernel<T, 192, 128>, "
-                   "bwd_dq_kernel<T, 192, 128> on the CUDA cores, both types")
+    d["design"] = ("bf16: bwd_delta_kernel, flash_bwd_dkdv_wgmma_kernel<192, "
+                   "128> (dV and dK blocks apart), flash_bwd_dq_wgmma_kernel"
+                   "<192, 128> on wgmma; float32: bwd_dkdv_kernel, "
+                   "bwd_dq_kernel on the CUDA cores")
     d["shape"] = "B=1 S=2048 H=KH=128 dk=192 dv=128 causal bf16 (deepseek-v3)"
     del got, want, po, plse, sdpa_out, qt, kt, vt
     # hymba's training shape (bf16 runs the wgmma kernels at hd 64)
@@ -2010,9 +2077,11 @@ def train_families_phase(Model, trainer, optimizer, get_arch) -> dict:
         step = trainer.make_train_step(model, tcfg)
         for c in counters.values():
             c.reset()
+        named = ("scan_bwd", "router_bwd", "bwd_d", *SCAN_BWD_BF16,
+                 *SCAN_BWD_F32, *FLASH_BWD_BF16, *FLASH_BWD_F32)
         r = run_steps(step, box, batch, 4,
                       lambda: {n: c.count for n, c in counters.items()},
-                      ("scan_bwd", "router_bwd", "bwd_d"))
+                      named)
         launches = r["launches"]
         losses, wall = r["losses"], r["wall"]
         flops = model_flops(cfg, box["state"]["params"], b, s)
@@ -2037,6 +2106,25 @@ def train_families_phase(Model, trainer, optimizer, get_arch) -> dict:
         if not all(launches[n] > 0 for n in need):
             raise AssertionError(f"{arch} training: backward kernels {need}, "
                                  f"launches {launches}")
+        # the bf16 backward kernels the step ran, by the profiler: the
+        # tensor-core ones and none of the CUDA-core ones
+        want, stale = (), ()
+        if "mlstm_scan_bwd" in need:
+            want, stale = want + SCAN_BWD_BF16, stale + SCAN_BWD_F32
+        if "flash_attention_bwd" in need:
+            want, stale = want + FLASH_BWD_BF16, stale + FLASH_BWD_F32
+
+        def one():
+            box["state"], _ = step(box["state"], batch)
+        seen = r["named"]
+        for _ in range(2):      # a window that lost device events: again
+            if all(seen[n][1] for n in want):
+                break
+            seen = busy_ms(one, named=named)[2]
+        check_ran({n for n, (_, c) in seen.items() if c}, want, stale,
+                  f"{arch} training")
+        log("train.families.kernels", arch=arch,
+            bwd_kernels_ms_launches={n: v for n, v in seen.items() if v[1]})
         out[arch] = launches
         del model, box, r, step, batch
         free_device_memory()

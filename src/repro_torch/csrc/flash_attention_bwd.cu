@@ -33,7 +33,7 @@
 //     hold the 1e-4 the float32 gradient checks need).  Neither is a
 //     fallback for the other.
 //
-// bf16, `flash_bwd_dkdv_wgmma_kernel<HD>`: one block of two warpgroups per
+// bf16, `flash_bwd_dkdv_wgmma_kernel<DK, DV>`: one block of two warpgroups per
 // (128 keys, KV head, batch row); each warpgroup owns 64 keys, `wgmma`'s M.
 // K and V are copied once into 128-byte-swizzled tiles (`hopper.cuh`).  The
 // block walks the G query heads and, for each, the 64-row query tiles the
@@ -53,7 +53,7 @@
 // Sk edge needs no mask.  Blocks are ordered so the heaviest (causal: the
 // first keys, which every later query sees) launch first.
 //
-// bf16, `flash_bwd_dq_wgmma_kernel<HD>`: one block of two warpgroups per
+// bf16, `flash_bwd_dq_wgmma_kernel<DK, DV>`: one block of two warpgroups per
 // (128 queries, head, batch row), 64 queries a warpgroup; Q and dO stay in
 // shared memory, each thread's two rows of lse log2(e) and D in registers.
 // It walks the forward's key range through a two-stage ring of 64-key K and
@@ -70,42 +70,64 @@
 // `test_torch_flash_grad.py` emulates this rounding against the float32
 // gradient within the bf16 gates (norm 1e-2, max 3e-2 of max(1, |plain|)).
 //
-// Head dims 16, 32, 64, 80 and 128 (query-key dim = value dim).  hd 80 is
-// laid out at 128 as in the forward: S and dP take its 5 k16 steps, the
-// products over N = hd run at n128 on tiles whose columns 80-127 are zeroed
-// once, and only 80 columns are stored.  At hd 16 the N = hd products are
-// n16 and S, dP have one k16 step.  MLA's (192, 128) runs the CUDA-core
-// kernels below in both types.  Shared memory: dK/dV 2 x 128 hp x 2
-// bytes of K and V plus two stages of (Q, dO: 64 hp x 2 each; lse, D: 256
-// bytes each), hp the padded hd (130 KB at 128, 66 KB at 64); dQ 2 x 128 hp
-// x 2 of Q and dO plus two stages of 64-key K and V (128 KB at 128).
-// Registers a thread (ptxas -v, `chip_smoke.py`'s build phase), hd 16 /
-// 32 / 64 / 80 / 128: dK/dV 134 / 152 / 194 / 254 / 255, dQ 112 / 124 /
-// 151 / 199 / 219; no spill except 48 bytes of spill stores in dK/dV at hd
-// 128, which holds dK, dV (64 floats each), S^T and dP^T (32 each).
-// `__launch_bounds__(256, 1)` lets each kernel take up to 255: one block an
-// SM, whose two warpgroups can overlap each other's products and
+// Head dims 16, 32, 64, 80 and 128 (query-key dim = value dim), and MLA's
+// (192, 128).  The kernels take the query-key dim DK and the value dim DV
+// apart: Q, K (and dQ, dK) are laid out at DK's padded dim, V and dO (dV)
+// at DV's.  hd 80 is laid out at 128 as in the forward: S and dP take its
+// 5 k16 steps, the products over N = hd run at n128 on tiles whose columns
+// 80-127 are zeroed once, and only 80 columns are stored.  At hd 16 the N =
+// hd products are n16 and S, dP have one k16 step.
+//
+// MLA's (192, 128) on `wgmma`.  Q and K at 192 are three 128-byte swizzled
+// panels, as in the forward (S^T and S take 12 k16 steps; dK and dQ run at
+// n192, `wgmma_rs_n192`); V and dO are laid out at 128.  A warpgroup that
+// held a 64 x 192 float32 dK tile (96 floats a thread) beside its 64 x 128
+// dV tile (64) and S^T, dP^T (32 each) would need 224 accumulator
+// registers before addresses, past the 255 a thread can have (the joint
+// kernel at hd 128 already uses 255).  Of the three splits -- three
+// warpgroups for 64 keys, two passes over the query tiles, dV and dK in
+// separate blocks -- this takes the third, inside one launch: the dK/dV
+// grid doubles, and block z sums dV (z even: S^T and P^T only, dV 64
+// floats) or dK (z odd: S^T, dP^T, dS^T, dK 96 floats) for key block z /
+// 2, so the heavy causal blocks of both kinds still launch first.  It
+// recomputes S^T once more than a joint block (a kept pair costs 2 x 192
+// more operations, 2 x (192 + 128) + 2 x 128 in the dV blocks and 2 x (192
+// + 128) + 2 x 192 in the dK blocks), needs no synchronisation between
+// warpgroups and no bf16 copy of P^T or dS^T in shared memory, and keeps
+// the equal-dim kernels' code.  The dQ kernel at 192 holds 96 dQ floats
+// beside S and dP: at 64-key tiles it spilled 152 bytes at 255 registers
+// (ptxas for sm_90a), so at DK = 192 it takes 32-key tiles (S and dP m64n32,
+// 16 floats each; `bkt`).
+//
+// Shared memory: dK/dV 128 keys x (HK + HV) x 2 bytes of K and V plus two
+// stages of (Q, dO: 64 x HK and 64 x HV x 2 bytes; lse, D: 256 bytes each),
+// HK, HV the padded dims (130 KB at 128, 66 KB at 64, 162 KB at 192 / 128);
+// dQ 128 queries x (HK + HV) x 2 of Q and dO plus two stages of K and V
+// tiles (128 KB at 128; 32-key tiles at 192 / 128: 120 KB).  Registers a
+// thread (ptxas -v on the H100 build, `chip_smoke.py`'s build phase), hd 16
+// / 32 / 64 / 80 / 128 / (192, 128): dK/dV 134 / 152 / 194 / 254 / 255 /
+// 253, dQ 112 / 124 / 151 / 199 / 219 / 225; no spill stores but 48 bytes
+// in dK/dV at hd 128, which holds dK, dV (64 floats each), S^T and dP^T
+// (32 each).  `__launch_bounds__(256, 1)` lets each kernel take up to 255: one
+// block an SM, whose two warpgroups can overlap each other's products and
 // exponentials between their barriers.
 //
 // What bounds it: at the training shape (B = 2, S = 4096, H = 32, KH = 8,
 // hd 64, causal) 537 M kept pairs; the bound counts 6 dk + 4 dv operations
 // a pair at the tensor cores' bf16 rate (0.35 ms), far above its bytes
-// (0.05 ms).  The design does 14 hd a pair.  Left for later (PERF.md):
-// TMA copies with a producer warp and `setmaxnreg`, overlapping a tile's
-// exponentials with the next tile's products, a deterministic single-pass
-// dQ, and MLA's 192 / 128 on `wgmma`.
+// (0.05 ms).  The design does 14 hd a pair (at 192 / 128: 2 x 192 more for
+// the split, and dQ's 2 (192 + 128) + 2 x 192 again).  Left for later
+// (PERF.md): TMA copies with a producer warp and `setmaxnreg`, overlapping a
+// tile's exponentials with the next tile's products, a deterministic
+// single-pass dQ.
 //
-// float32 and MLA, `bwd_dkdv_kernel<T, DK, DV>` and `bwd_dq_kernel<T, DK,
-// DV>`: the same blocking at 64 keys / 64 queries with K, V (or Q, dO, lse,
-// D) in shared memory as float32, P and dS through shared memory, each
-// thread 4 rows x DK / 16 (and DV / 16) columns of the accumulators, on the
-// CUDA cores.  They take the query-key dim DK and the value dim DV apart:
-// every float32 call (DK = DV), and MLA's (192, 128) in float32 and bf16.
-// At (192, 128) a dK/dV block holds 4 x (12 + 8) float32 accumulators a
-// thread and 199 KB of shared memory (K, V, Q, dO at 193 / 129 floats a
-// row, P and dS): a 64 x 192 float32 dK tile a warpgroup beside dV would
-// not fit the bf16 kernels' registers (255 at hd 128 already), so MLA's
-// gradient stays on this design until a `wgmma` version splits dK.
+// float32, `bwd_dkdv_kernel<DK, DV>` and `bwd_dq_kernel<DK, DV>`: the same
+// blocking at 64 keys / 64 queries with K, V (or Q, dO, lse, D) in shared
+// memory, P and dS through shared memory, each thread 4 rows x DK / 16
+// (and DV / 16) columns of the accumulators, on the CUDA cores, at every
+// pair of dims.  At (192, 128) a dK/dV block holds 4 x (12 + 8)
+// accumulators a thread and 199 KB of shared memory (K, V, Q, dO at 193 /
+// 129 floats a row, P and dS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -175,32 +197,25 @@ __global__ void __launch_bounds__(NT) bwd_delta_kernel(Params p) {
   }
 }
 
-// ------------------------------------- CUDA cores: float32, and MLA's dims
+// ------------------------------------------------- CUDA cores: float32
 //
-// `bwd_dkdv_kernel<T, DK, DV>` and `bwd_dq_kernel<T, DK, DV>` run every
-// float32 call (DK = DV) and MLA's (192, 128) in both types: the inputs are
-// widened to float32 as they are copied into shared memory, and the
-// gradients rounded to T once, when they are stored.
+// `bwd_dkdv_kernel<DK, DV>` and `bwd_dq_kernel<DK, DV>` run every float32
+// call, at every pair of dims.
 namespace f32 {
 
 constexpr int BQ = 64;   // query rows a tile
 constexpr int BK = 64;   // keys a tile
 
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Rows [r0, r0 + 64) of a (rows x W) matrix of T with row stride ld into
-// shared memory as float32, row stride W + 1 (no bank conflicts down a
-// column); rows at or past nrows are zero.
-template <int W, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+// Rows [r0, r0 + 64) of a (rows x W) matrix with row stride ld into
+// shared memory, row stride W + 1 (no bank conflicts down a column); rows
+// at or past nrows are zero.
+template <int W>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long ld, int r0, int nrows) {
   for (int i = threadIdx.x; i < 64 * W; i += NT) {
     const int r = i / W, d = i % W;
     const int row = r0 + r;
-    dst[r * (W + 1) + d] = row < nrows ? to_f(src[row * ld + d]) : 0.f;
+    dst[r * (W + 1) + d] = row < nrows ? src[row * ld + d] : 0.f;
   }
 }
 
@@ -226,7 +241,7 @@ constexpr size_t dkdv_smem() {
 // that the mask lets see a key of the tile, recomputes S and dO V^T, P and
 // dS into shared memory, and accumulates dK and dV in registers: each
 // thread owns 4 keys x DK / 16 columns of dK and DV / 16 of dV.
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
   extern __shared__ float smem[];
   constexpr int RK = DK + 1, RV = DV + 1;
@@ -255,8 +270,8 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
   const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * DK;
   const long long voff = static_cast<long long>(b) * p.Sk * vld + kh * DV;
 
-  load_rows<DK>(Ks, static_cast<const T*>(p.k) + koff, kld, k0, p.Sk);
-  load_rows<DV>(Vs, static_cast<const T*>(p.v) + voff, vld, k0, p.Sk);
+  load_rows<DK>(Ks, static_cast<const float*>(p.k) + koff, kld, k0, p.Sk);
+  load_rows<DV>(Vs, static_cast<const float*>(p.v) + voff, vld, k0, p.Sk);
 
   // Query rows that can see a key of [k0, k_last]: [i_begin, i_end).
   const int k_last = min(k0 + BK, p.Sk) - 1;
@@ -276,9 +291,9 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
-    const T* q = static_cast<const T*>(p.q) +
+    const float* q = static_cast<const float*>(p.q) +
                  static_cast<long long>(b) * p.Sq * qld + h * DK;
-    const T* dout = static_cast<const T*>(p.dout) +
+    const float* dout = static_cast<const float*>(p.dout) +
                     static_cast<long long>(b) * p.Sq * dold + h * DV;
     const long long roff = (static_cast<long long>(b) * p.H + h) * p.Sq;
     for (int i0 = i_begin; i0 < i_end; i0 += BQ) {
@@ -361,17 +376,17 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
     }
   }
 
-  T* dk = static_cast<T*>(p.dk) + koff;
-  T* dv = static_cast<T*>(p.dv) + voff;
+  float* dk = static_cast<float*>(p.dk) + koff;
+  float* dv = static_cast<float*>(p.dv) + voff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + ty * 4 + i;
     if (kj >= p.Sk) continue;
 #pragma unroll
     for (int j = 0; j < NCK; ++j)
-      put(dk + kj * kld + tx + 16 * j, adk[i][j] * p.scale);
+      dk[kj * kld + tx + 16 * j] = adk[i][j] * p.scale;
 #pragma unroll
-    for (int j = 0; j < NCV; ++j) put(dv + kj * vld + tx + 16 * j, adv[i][j]);
+    for (int j = 0; j < NCV; ++j) dv[kj * vld + tx + 16 * j] = adv[i][j];
   }
 }
 
@@ -387,7 +402,7 @@ constexpr size_t dq_smem() {
 // shared memory; it walks the KV tiles the mask keeps (the forward's
 // range), recomputes P and dS, and accumulates dQ in registers, 4 queries
 // x DK / 16 columns a thread.
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
   extern __shared__ float smem[];
   constexpr int RK = DK + 1, RV = DV + 1;
@@ -418,8 +433,9 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
   const long long voff = static_cast<long long>(b) * p.Sk * vld + kh * DV;
   const long long roff = (static_cast<long long>(b) * p.H + h) * p.Sq;
 
-  load_rows<DK>(Qs, static_cast<const T*>(p.q) + qoff, qld, q0, p.Sq);
-  load_rows<DV>(dOs, static_cast<const T*>(p.dout) + ooff, dold, q0, p.Sq);
+  load_rows<DK>(Qs, static_cast<const float*>(p.q) + qoff, qld, q0, p.Sq);
+  load_rows<DV>(dOs, static_cast<const float*>(p.dout) + ooff, dold, q0,
+                p.Sq);
   if (tid < BQ) {
     const int qi = q0 + tid;
     Ls[tid] = qi < p.Sq ? p.lse[roff + qi] : -INFINITY;
@@ -440,8 +456,8 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
 
-  const T* k = static_cast<const T*>(p.k) + koff;
-  const T* v = static_cast<const T*>(p.v) + voff;
+  const float* k = static_cast<const float*>(p.k) + koff;
+  const float* v = static_cast<const float*>(p.v) + voff;
   for (int t0 = k_begin; t0 < k_end; t0 += BK) {
     __syncthreads();  // the previous tile is consumed (and Q is in)
     load_rows<DK>(Ks, k, kld, t0, p.Sk);
@@ -506,36 +522,36 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
     }
   }
 
-  T* dq = static_cast<T*>(p.dq) + qoff;
+  float* dq = static_cast<float*>(p.dq) + qoff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
     if (qi >= p.Sq) continue;
 #pragma unroll
     for (int j = 0; j < NC; ++j)
-      put(dq + qi * qld + tx + 16 * j, acc[i][j] * p.scale);
+      dq[qi * qld + tx + 16 * j] = acc[i][j] * p.scale;
   }
 }
 
-template <typename T, int DK, int DV>
+template <int DK, int DV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr size_t s_b = dkdv_smem<DK, DV>();
   constexpr size_t s_c = dq_smem<DK, DV>();
   // Above 48 KB a block's shared memory must be opted into, once per
   // instantiation (thread-safe static initialisation).
   static const cudaError_t attr_b = cudaFuncSetAttribute(
-      bwd_dkdv_kernel<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dkdv_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(s_b));
   static const cudaError_t attr_c = cudaFuncSetAttribute(
-      bwd_dq_kernel<T, DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bwd_dq_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(s_c));
   if (attr_b != cudaSuccess) return attr_b;
   if (attr_c != cudaSuccess) return attr_c;
-  bwd_dkdv_kernel<T, DK, DV>
+  bwd_dkdv_kernel<DK, DV>
       <<<dim3((p.Sk + BK - 1) / BK, p.KH, p.B), NT, s_b, stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  bwd_dq_kernel<T, DK, DV>
+  bwd_dq_kernel<DK, DV>
       <<<dim3((p.Sq + BQ - 1) / BQ, p.H, p.B), NT, s_c, stream>>>(p);
   return cudaGetLastError();
 }
@@ -550,34 +566,42 @@ using namespace hopper;
 constexpr int BKV = 128;  // keys a dK/dV block: two warpgroups of 64
 constexpr int BQT = 64;   // queries a tile of the dK/dV block's ring
 constexpr int BQB = 128;  // queries a dQ block: two warpgroups of 64
-constexpr int BKT = 64;   // keys a tile of the dQ block's ring
+// Keys a tile of the dQ block's ring: 32 at a query-key dim of 192, where
+// the m64n192 dQ accumulator (96 floats a thread) beside S and dP at 64
+// keys (32 each) spilled at 255 registers.
+template <int DK>
+constexpr int bkt() { return DK > 128 ? 32 : 64; }
 constexpr int STAGES = 2;
 static_assert(ROW_PAD % BQB == 0 && ROW_PAD % BQT == 0, "row padding");
 
 constexpr int round1k(int x) { return (x + 1023) / 1024 * 1024; }
 
-// Shared memory of the dK/dV kernel, bytes: K and V (BKV rows each), then
-// the ring's stages of (Q tile, dO tile, lse log2 e, D), each tile on 1024
-// bytes.
-template <int HD>
+// Shared memory of the dK/dV kernel, bytes: K (BKV rows at the padded
+// query-key dim HK) and V (at the padded value dim HV), then the ring's
+// stages of (Q tile, dO tile, lse log2 e, D), each tile on 1024 bytes.
+template <int DK, int DV>
 struct DkdvSmem {
-  static constexpr int HP = padded_hd(HD);
-  static constexpr int KV = BKV * HP * 2;
-  static constexpr int TILE = BQT * HP * 2;
-  static constexpr int ROWS = 2 * TILE;  // lse log2 e, then D, BQT floats each
-  static constexpr int STAGE = round1k(2 * TILE + 2 * BQT * 4);
-  static constexpr int BYTES = 2 * KV + STAGES * STAGE;
+  static constexpr int HK = padded_hd(DK), HV = padded_hd(DV);
+  static constexpr int K = BKV * HK * 2;
+  static constexpr int V = BKV * HV * 2;
+  static constexpr int QT = BQT * HK * 2;
+  static constexpr int OT = BQT * HV * 2;
+  static constexpr int ROWS = QT + OT;  // lse log2 e, then D, BQT floats each
+  static constexpr int STAGE = round1k(QT + OT + 2 * BQT * 4);
+  static constexpr int BYTES = K + V + STAGES * STAGE;
 };
 
 // Shared memory of the dQ kernel, bytes: Q and dO (BQB rows each), then the
 // ring's stages of (K tile, V tile).
-template <int HD>
+template <int DK, int DV>
 struct DqSmem {
-  static constexpr int HP = padded_hd(HD);
-  static constexpr int QO = BQB * HP * 2;
-  static constexpr int TILE = BKT * HP * 2;
-  static constexpr int STAGE = 2 * TILE;
-  static constexpr int BYTES = 2 * QO + STAGES * STAGE;
+  static constexpr int HK = padded_hd(DK), HV = padded_hd(DV);
+  static constexpr int BKT = bkt<DK>();
+  static constexpr int Q = BQB * HK * 2;
+  static constexpr int O = BQB * HV * 2;
+  static constexpr int KT = BKT * HK * 2;
+  static constexpr int STAGE = KT + BKT * HV * 2;
+  static constexpr int BYTES = Q + O + STAGES * STAGE;
 };
 
 // Stores rows r and r + 8 of a warpgroup's m64nN float32 accumulator (N =
@@ -600,16 +624,22 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long ld,
   }
 }
 
-// Grid (KH, B, key blocks): block z holds keys [128 z, 128 z + 128).
-template <int HD>
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
+// One dK/dV block's keys [k0, k0 + 128): DO_DV / DO_DK choose the
+// gradients it sums (both at equal dims; one each in MLA's split).  The
+// parameters come by value: taken by reference, the hd-64 kernel used 213
+// registers instead of 194 and its dK/dV took 1.16 device ms instead of
+// 0.87-0.91 at llama's training shape (`chip_smoke.py`, H100 80GB HBM3 at
+// 700 W), with the same bits.
+template <int DK, int DV, bool DO_DV, bool DO_DK>
+__device__ __forceinline__ void dkdv_block(Params p, int k0) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  using SM = DkdvSmem<HD>;
-  constexpr int HP = SM::HP;
-  using L = Layout<HP>;
+  using SM = DkdvSmem<DK, DV>;
+  constexpr int HK = SM::HK, HV = SM::HV;
+  using LK = Layout<HK>;
+  using LV = Layout<HV>;
   const uint32_t s0 = smem_addr(smem);
-  const uint32_t sk = s0, sv = s0 + SM::KV;
-  const uint32_t ring = sv + SM::KV;  // stage s at ring + s STAGE
+  const uint32_t sk = s0, sv = s0 + SM::K;
+  const uint32_t ring = sv + SM::V;  // stage s at ring + s STAGE
 
   const int tid = threadIdx.x;
   const int wgi = tid / 128;  // warpgroup: keys 64 wgi ... of the block
@@ -617,12 +647,14 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
   const int lane = tid % 32;
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
-  const int k0 = blockIdx.z * BKV;
   const int G = p.H / p.KH;
   const int offs = p.causal ? p.Sk - p.Sq : 0;
-  const long long qld = static_cast<long long>(p.H) * HD;
-  const long long kld = static_cast<long long>(p.KH) * HD;
-  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * HD;
+  const long long qld = static_cast<long long>(p.H) * DK;
+  const long long old = static_cast<long long>(p.H) * DV;
+  const long long kld = static_cast<long long>(p.KH) * DK;
+  const long long vld = static_cast<long long>(p.KH) * DV;
+  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * DK;
+  const long long voff = static_cast<long long>(b) * p.Sk * vld + kh * DV;
   const bf16* q = static_cast<const bf16*>(p.q);
   const bf16* dout = static_cast<const bf16*>(p.dout);
 
@@ -640,11 +672,12 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
   auto load_stage = [&](int t, int st) {
     const int h = kh * G + t / n_it;
     const int i0 = i_begin + (t % n_it) * BQT;
-    const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * HD;
+    const long long bq = static_cast<long long>(b) * p.Sq;
     const uint32_t base = ring + st * SM::STAGE;
-    load_tile<BQT, HD, HP, NT>(base, q + qoff, qld, i0, p.Sq, tid);
-    load_tile<BQT, HD, HP, NT>(base + SM::TILE, dout + qoff, qld, i0, p.Sq,
+    load_tile<BQT, DK, HK, NT>(base, q + bq * qld + h * DK, qld, i0, p.Sq,
                                tid);
+    load_tile<BQT, DV, HV, NT>(base + SM::QT, dout + bq * old + h * DV, old,
+                               i0, p.Sq, tid);
     if (tid < 2 * BQT / 4) {  // 16 chunks of 4 floats each
       const long long roff = (static_cast<long long>(b) * p.H + h) * p.sq_ld +
                              i0 + (tid % (BQT / 4)) * 4;
@@ -654,21 +687,24 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
     }
   };
 
-  // A padded hd: the N = HP products read the Q and dO tiles' columns
-  // HD ... HP - 1, zeroed here once (the copies never write them); the
+  // A padded hd: the N = HK / HV products read the Q and dO tiles' columns
+  // past DK / DV, zeroed here once (the copies never write them); the
   // first iteration's proxy fence and barrier order these stores before
-  // any wgmma reads them.  S^T and dP^T take HD / 16 k16 steps only.
+  // any wgmma reads them.  S^T and dP^T take DK / 16 and DV / 16 k16 steps
+  // only.
 #pragma unroll
   for (int st = 0; st < STAGES; ++st) {
-    zero_pad_cols<BQT, HD, HP, NT>(smem, ring - s0 + st * SM::STAGE, tid);
-    zero_pad_cols<BQT, HD, HP, NT>(smem, ring - s0 + st * SM::STAGE + SM::TILE,
+    zero_pad_cols<BQT, DK, HK, NT>(smem, ring - s0 + st * SM::STAGE, tid);
+    zero_pad_cols<BQT, DV, HV, NT>(smem, ring - s0 + st * SM::STAGE + SM::QT,
                                    tid);
   }
-  // Copy group 0 holds K, V and tile 0; group t tile t.
-  load_tile<BKV, HD, HP, NT>(sk, static_cast<const bf16*>(p.k) + koff, kld,
+  // Copy group 0 holds K, V and tile 0; group t tile t.  A dV-only block
+  // reads no V.
+  load_tile<BKV, DK, HK, NT>(sk, static_cast<const bf16*>(p.k) + koff, kld,
                              k0, p.Sk, tid);
-  load_tile<BKV, HD, HP, NT>(sv, static_cast<const bf16*>(p.v) + koff, kld,
-                             k0, p.Sk, tid);
+  if (DO_DK)
+    load_tile<BKV, DV, HV, NT>(sv, static_cast<const bf16*>(p.v) + voff, vld,
+                               k0, p.Sk, tid);
   if (n_tiles > 0) load_stage(0, 0);
   cp_async_commit();
 
@@ -679,12 +715,14 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
   const int kA = kw0 + warp * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
   const float sl2 = p.scale * LOG2E;
-  const uint32_t ka = sk + wgi * 64 * L::W;  // its 64 rows of K and V
-  const uint32_t va = sv + wgi * 64 * L::W;
+  const uint32_t ka = sk + wgi * 64 * LK::W;  // its 64 rows of K and V
+  const uint32_t va = sv + wgi * 64 * LV::W;
 
-  float dk[HP / 2], dv[HP / 2];
+  float dk[DO_DK ? HK / 2 : 1], dv[DO_DV ? HV / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < HP / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < (DO_DK ? HK / 2 : 1); ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (DO_DV ? HV / 2 : 1); ++i) dv[i] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     // Tile t has landed (and K, V), and every thread is done with tile
@@ -701,7 +739,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
     if (p.window > 0) live = live && kw_last > i0 + offs - p.window;
     if (!live) continue;
     const uint32_t sq = ring + (t % STAGES) * SM::STAGE;
-    const uint32_t sdo = sq + SM::TILE;
+    const uint32_t sdo = sq + SM::QT;
     const float* rl = reinterpret_cast<const float*>(smem + (sq - s0) +
                                                      SM::ROWS);
     const float* rd = rl + BQT;
@@ -709,19 +747,23 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
     // S^T = K Q^T and dP^T = V dO^T, two groups: S^T is ready first.
     float s[32], dp[32];
     fence_regs(s);
-    fence_regs(dp);
+    if (DO_DK) fence_regs(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(s, L::template kmajor<BKV>(ka, kk),
-                   L::template kmajor<BQT>(sq, kk), kk > 0);
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_ss_n64(s, LK::template kmajor<BKV>(ka, kk),
+                   LK::template kmajor<BQT>(sq, kk), kk > 0);
     wgmma_commit();
+    if constexpr (DO_DK) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(dp, L::template kmajor<BKV>(va, kk),
-                   L::template kmajor<BQT>(sdo, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<1>();
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss_n64(dp, LV::template kmajor<BKV>(va, kk),
+                     LV::template kmajor<BQT>(sdo, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
     fence_regs(s);
 
     // P^T, masked only on tiles that cross the causal or window edge.
@@ -741,55 +783,85 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
       }
       s[i] = pv;
     }
-    wgmma_wait<0>();
-    fence_regs(dp);
+
+    if constexpr (DO_DK) {
+      wgmma_wait<0>();
+      fence_regs(dp);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = 8 * (i / 4) + cq + (i & 1);
-      dp[i] = s[i] * (dp[i] - rd[c]);
+      for (int i = 0; i < 32; ++i) {
+        const int c = 8 * (i / 4) + cq + (i & 1);
+        dp[i] = s[i] * (dp[i] - rd[c]);
+      }
     }
 
     // dV += P^T dO, dK += dS^T Q: A from registers, B MN-major.
     uint32_t pa[BQT / 16][4], da[BQT / 16][4];
-    acc_to_a(pa, s);
-    acc_to_a(da, dp);
-    fence_regs(dv);
-    fence_regs(dk);
-    fence_regs(pa);
-    fence_regs(da);
+    if constexpr (DO_DV) acc_to_a(pa, s);
+    if constexpr (DO_DK) acc_to_a(da, dp);
+    if constexpr (DO_DV) fence_regs(dv);
+    if constexpr (DO_DK) fence_regs(dk);
+    if constexpr (DO_DV) fence_regs(pa);
+    if constexpr (DO_DK) fence_regs(da);
     wgmma_fence();
+    if constexpr (DO_DV) {
 #pragma unroll
-    for (int kk = 0; kk < BQT / 16; ++kk)
-      wgmma_rs<HP>(dv, pa[kk], L::template mnmajor<BQT>(sdo, kk));
+      for (int kk = 0; kk < BQT / 16; ++kk)
+        wgmma_rs<HV>(dv, pa[kk], LV::template mnmajor<BQT>(sdo, kk));
+    }
+    if constexpr (DO_DK) {
 #pragma unroll
-    for (int kk = 0; kk < BQT / 16; ++kk)
-      wgmma_rs<HP>(dk, da[kk], L::template mnmajor<BQT>(sq, kk));
+      for (int kk = 0; kk < BQT / 16; ++kk)
+        wgmma_rs<HK>(dk, da[kk], LK::template mnmajor<BQT>(sq, kk));
+    }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(dv);
-    fence_regs(dk);
-    fence_regs(pa);
-    fence_regs(da);
+    if constexpr (DO_DV) {
+      fence_regs(dv);
+      fence_regs(pa);
+    }
+    if constexpr (DO_DK) {
+      fence_regs(dk);
+      fence_regs(da);
+    }
   }
   cp_async_wait<0>();
 
-  bf16* dkp = static_cast<bf16*>(p.dk) + koff;
-  bf16* dvp = static_cast<bf16*>(p.dv) + koff;
-  store_rows<HD, HP>(dkp, kld, dk, kA, p.Sk, cq, p.scale);
-  store_rows<HD, HP>(dvp, kld, dv, kA, p.Sk, cq, 1.f);
+  if constexpr (DO_DK)
+    store_rows<DK, HK>(static_cast<bf16*>(p.dk) + koff, kld, dk, kA, p.Sk, cq,
+                       p.scale);
+  if constexpr (DO_DV)
+    store_rows<DV, HV>(static_cast<bf16*>(p.dv) + voff, vld, dv, kA, p.Sk, cq,
+                       1.f);
+}
+
+// Grid (KH, B, key blocks) at equal dims: block z holds keys [128 z, 128 z
+// + 128).  MLA's (192, 128), grid (KH, B, 2 x key blocks): block z holds
+// key block z / 2, and sums dV (z even) or dK (z odd) -- the split that
+// keeps a thread's accumulators within its registers (design notes above).
+template <int DK, int DV>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
+  if constexpr (DK == DV) {
+    dkdv_block<DK, DV, true, true>(p, blockIdx.z * BKV);
+  } else {
+    if (blockIdx.z & 1)
+      dkdv_block<DK, DV, false, true>(p, (blockIdx.z >> 1) * BKV);
+    else
+      dkdv_block<DK, DV, true, false>(p, (blockIdx.z >> 1) * BKV);
+  }
 }
 
 // Grid (H, B, query blocks); causal: block z holds the query block
 // counted from the last, the heaviest first.
-template <int HD>
+template <int DK, int DV>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  using SM = DqSmem<HD>;
-  constexpr int HP = SM::HP;
-  using L = Layout<HP>;
+  using SM = DqSmem<DK, DV>;
+  constexpr int HK = SM::HK, HV = SM::HV, BKT = SM::BKT;
+  using LK = Layout<HK>;
+  using LV = Layout<HV>;
   const uint32_t sq = smem_addr(smem);
-  const uint32_t sdo = sq + SM::QO;
-  const uint32_t ring = sdo + SM::QO;  // stage s: K at ring + s STAGE, V after
+  const uint32_t sdo = sq + SM::Q;
+  const uint32_t ring = sdo + SM::O;  // stage s: K at ring + s STAGE, V after
 
   const int tid = threadIdx.x;
   const int wgi = tid / 128;  // warpgroup: queries 64 wgi ... of the block
@@ -801,12 +873,16 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
   const int q0 = qb * BQB;
   const int kh = h / (p.H / p.KH);
   const int offs = p.causal ? p.Sk - p.Sq : 0;
-  const long long qld = static_cast<long long>(p.H) * HD;
-  const long long kld = static_cast<long long>(p.KH) * HD;
-  const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * HD;
-  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * HD;
-  const bf16* k = static_cast<const bf16*>(p.k) + koff;
-  const bf16* v = static_cast<const bf16*>(p.v) + koff;
+  const long long qld = static_cast<long long>(p.H) * DK;
+  const long long old = static_cast<long long>(p.H) * DV;
+  const long long kld = static_cast<long long>(p.KH) * DK;
+  const long long vld = static_cast<long long>(p.KH) * DV;
+  const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * DK;
+  const long long ooff = static_cast<long long>(b) * p.Sq * old + h * DV;
+  const bf16* k = static_cast<const bf16*>(p.k) +
+                  static_cast<long long>(b) * p.Sk * kld + kh * DK;
+  const bf16* v = static_cast<const bf16*>(p.v) +
+                  static_cast<long long>(b) * p.Sk * vld + kh * DV;
 
   // Keys any real query row of this block can see: [k_begin, k_end), as
   // the forward walks them.
@@ -817,19 +893,19 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
   k_begin = (k_begin / BKT) * BKT;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BKT - 1) / BKT : 0;
 
-  // A padded hd: dQ += dS K runs at N = HP over the K tiles' columns HD ...
-  // HP - 1, zeroed once (S and dP take HD / 16 k16 steps only).
+  // A padded hd: dQ += dS K runs at N = HK over the K tiles' columns past
+  // DK, zeroed once (S and dP take DK / 16 and DV / 16 k16 steps only).
 #pragma unroll
   for (int st = 0; st < STAGES; ++st)
-    zero_pad_cols<BKT, HD, HP, NT>(smem, ring - sq + st * SM::STAGE, tid);
+    zero_pad_cols<BKT, DK, HK, NT>(smem, ring - sq + st * SM::STAGE, tid);
   // Copy group 0 holds Q, dO and KV tile 0; group j KV tile j.
-  load_tile<BQB, HD, HP, NT>(sq, static_cast<const bf16*>(p.q) + qoff, qld,
+  load_tile<BQB, DK, HK, NT>(sq, static_cast<const bf16*>(p.q) + qoff, qld,
                              q0, p.Sq, tid);
-  load_tile<BQB, HD, HP, NT>(sdo, static_cast<const bf16*>(p.dout) + qoff,
-                             qld, q0, p.Sq, tid);
+  load_tile<BQB, DV, HV, NT>(sdo, static_cast<const bf16*>(p.dout) + ooff,
+                             old, q0, p.Sq, tid);
   if (n_tiles > 0) {
-    load_tile<BKT, HD, HP, NT>(ring, k, kld, k_begin, p.Sk, tid);
-    load_tile<BKT, HD, HP, NT>(ring + SM::TILE, v, kld, k_begin, p.Sk, tid);
+    load_tile<BKT, DK, HK, NT>(ring, k, kld, k_begin, p.Sk, tid);
+    load_tile<BKT, DV, HV, NT>(ring + SM::KT, v, vld, k_begin, p.Sk, tid);
   }
   cp_async_commit();
 
@@ -844,12 +920,12 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
   const float l0 = p.lse2[roff + rA], l1 = p.lse2[roff + rA + 8];
   const float d0 = p.delta[roff + rA], d1 = p.delta[roff + rA + 8];
   const float sl2 = p.scale * LOG2E;
-  const uint32_t qa = sq + wgi * 64 * L::W;  // its 64 rows of Q and dO
-  const uint32_t oa = sdo + wgi * 64 * L::W;
+  const uint32_t qa = sq + wgi * 64 * LK::W;  // its 64 rows of Q and dO
+  const uint32_t oa = sdo + wgi * 64 * LV::W;
 
-  float dq[HP / 2];
+  float dq[HK / 2];
 #pragma unroll
-  for (int i = 0; i < HP / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < HK / 2; ++i) dq[i] = 0.f;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int t0 = k_begin + j * BKT;
@@ -860,8 +936,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
     __syncthreads();
     if (j + 1 < n_tiles) {
       const uint32_t st = ring + ((j + 1) % STAGES) * SM::STAGE;
-      load_tile<BKT, HD, HP, NT>(st, k, kld, t0 + BKT, p.Sk, tid);
-      load_tile<BKT, HD, HP, NT>(st + SM::TILE, v, kld, t0 + BKT, p.Sk, tid);
+      load_tile<BKT, DK, HK, NT>(st, k, kld, t0 + BKT, p.Sk, tid);
+      load_tile<BKT, DV, HV, NT>(st + SM::KT, v, vld, t0 + BKT, p.Sk, tid);
     }
     cp_async_commit();
 
@@ -870,22 +946,22 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
     if (p.window > 0) live = live && t0 + BKT - 1 > wq0 + offs - p.window;
     if (!live) continue;
     const uint32_t skt = ring + (j % STAGES) * SM::STAGE;
-    const uint32_t svt = skt + SM::TILE;
+    const uint32_t svt = skt + SM::KT;
 
     // S = Q K^T and dP = dO V^T, two groups: S is ready first.
-    float s[32], dp[32];
+    float s[BKT / 2], dp[BKT / 2];
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(s, L::template kmajor<BQB>(qa, kk),
-                   L::template kmajor<BKT>(skt, kk), kk > 0);
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_ss<BKT>(s, LK::template kmajor<BQB>(qa, kk),
+                    LK::template kmajor<BKT>(skt, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss_n64(dp, L::template kmajor<BQB>(oa, kk),
-                   L::template kmajor<BKT>(svt, kk), kk > 0);
+    for (int kk = 0; kk < DV / 16; ++kk)
+      wgmma_ss<BKT>(dp, LV::template kmajor<BQB>(oa, kk),
+                    LV::template kmajor<BKT>(svt, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(s);
@@ -895,7 +971,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
                       (p.causal && t0 + BKT - 1 > wq0 + offs) ||
                       (p.window > 0 && t0 <= wq_last + offs - p.window);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < BKT / 2; ++i) {
       float pv = exp2f(fmaf(s[i], sl2, (i & 2) ? -l1 : -l0));
       if (edge) {
         const int qpos = rA + ((i & 2) ? 8 : 0) + offs;
@@ -910,7 +986,8 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
     wgmma_wait<0>();
     fence_regs(dp);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - ((i & 2) ? d1 : d0));
+    for (int i = 0; i < BKT / 2; ++i)
+      dp[i] = s[i] * (dp[i] - ((i & 2) ? d1 : d0));
 
     // dQ += dS K: A from registers, K MN-major.
     uint32_t da[BKT / 16][4];
@@ -920,7 +997,7 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKT / 16; ++kk)
-      wgmma_rs<HP>(dq, da[kk], L::template mnmajor<BKT>(skt, kk));
+      wgmma_rs<HK>(dq, da[kk], LK::template mnmajor<BKT>(skt, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -928,38 +1005,40 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
   }
   cp_async_wait<0>();
 
-  store_rows<HD, HP>(static_cast<bf16*>(p.dq) + qoff, qld, dq, rA, p.Sq, cq,
+  store_rows<DK, HK>(static_cast<bf16*>(p.dq) + qoff, qld, dq, rA, p.Sq, cq,
                      p.scale);
 }
 
-template <int HD>
+template <int DK, int DV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr int s_b = DkdvSmem<HD>::BYTES;
-  constexpr int s_c = DqSmem<HD>::BYTES;
+  constexpr int s_b = DkdvSmem<DK, DV>::BYTES;
+  constexpr int s_c = DqSmem<DK, DV>::BYTES;
+  constexpr int parts = DK == DV ? 1 : 2;  // MLA: dV and dK blocks apart
   static const cudaError_t attr_b = cudaFuncSetAttribute(
-      flash_bwd_dkdv_wgmma_kernel<HD>,
+      flash_bwd_dkdv_wgmma_kernel<DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, s_b);
   static const cudaError_t attr_c = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<HD>,
+      flash_bwd_dq_wgmma_kernel<DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, s_c);
   if (attr_b != cudaSuccess) return attr_b;
   if (attr_c != cudaSuccess) return attr_c;
-  flash_bwd_dkdv_wgmma_kernel<HD>
-      <<<dim3(p.KH, p.B, (p.Sk + BKV - 1) / BKV), NT, s_b, stream>>>(p);
+  flash_bwd_dkdv_wgmma_kernel<DK, DV>
+      <<<dim3(p.KH, p.B, parts * ((p.Sk + BKV - 1) / BKV)), NT, s_b,
+         stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_wgmma_kernel<HD>
+  flash_bwd_dq_wgmma_kernel<DK, DV>
       <<<dim3(p.H, p.B, (p.Sq + BQB - 1) / BQB), NT, s_c, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace wg
 
-// (a), then (b) and (c): bf16 at equal dims on the tensor cores, float32
-// and MLA's (192, 128) on the CUDA cores.
+// (a), then (b) and (c): bf16 on the tensor cores, float32 on the CUDA
+// cores.
 template <typename T, int DK, int DV>
 cudaError_t launch(Params p, cudaStream_t stream) {
-  constexpr bool WG = sizeof(T) == 2 && DK == DV;
+  constexpr bool WG = sizeof(T) == 2;
   p.sq_ld = WG ? (p.Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD : p.Sq;
   p.lse2 = WG ? p.delta + static_cast<long long>(p.B) * p.H * p.sq_ld
               : nullptr;
@@ -971,9 +1050,9 @@ cudaError_t launch(Params p, cudaStream_t stream) {
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if constexpr (WG)
-    return wg::launch<DK>(p, stream);
+    return wg::launch<DK, DV>(p, stream);
   else
-    return f32::launch<T, DK, DV>(p, stream);
+    return f32::launch<DK, DV>(p, stream);
 }
 
 template <typename T>

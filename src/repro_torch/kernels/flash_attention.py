@@ -29,11 +29,13 @@ it stores.  ``flash_attention_bwd`` is the gradient, a source of its own
 (``csrc/flash_attention_bwd.cu``, three launches a call, counted once a
 call in ``bwd_launches``), with ``ref.grouped_flash_bwd_ref`` as its plain
 version; ``ops.grouped_flash`` reaches it through autograd.  As in the
-forward the input type picks the kernels: bfloat16 runs dK/dV and dQ on the
-tensor cores (``flash_bwd_dkdv_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``),
-float32 on the CUDA cores (``bwd_dkdv_kernel``, ``bwd_dq_kernel``); both
-start with ``bwd_delta_kernel``.  MLA's (192, 128) runs the CUDA-core
-kernels in both types.
+forward the input type alone picks the kernels, at every pair of dims:
+bfloat16 runs dK/dV and dQ on the tensor cores
+(``flash_bwd_dkdv_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``; at MLA's
+(192, 128) the dK/dV launch sums dV and dK in separate blocks, and dQ takes
+32-key tiles), float32 on the CUDA cores (``bwd_dkdv_kernel``,
+``bwd_dq_kernel``); both start with ``bwd_delta_kernel``.  A pair of dims
+the kernels do not take is refused before a launch.
 """
 from __future__ import annotations
 

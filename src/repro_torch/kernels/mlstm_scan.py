@@ -23,10 +23,16 @@ Unlike the Pallas kernel it takes any sequence length.  What bounds it on
 the card is written at the top of the CUDA source.  The plain version is
 ``ref.mlstm_chunkwise_ref``.
 
-``mlstm_scan_bwd`` is the gradient, ``csrc/mlstm_scan_bwd.cu`` (seven
-launches a call on the CUDA cores, float32 inside for both types, counted
-once a call in ``bwd_launches``), with ``ref.mlstm_chunkwise_bwd_ref`` as
-its plain version; ``ops.mlstm_scan`` reaches it through autograd.
+``mlstm_scan_bwd`` is the gradient, ``csrc/mlstm_scan_bwd.cu``, counted
+once a call in ``bwd_launches``, with ``ref.mlstm_chunkwise_bwd_ref`` as its
+plain version; ``ops.mlstm_scan`` reaches it through autograd.  The input
+type alone picks its kernels: bfloat16 runs six launches with every product
+on the tensor cores (``wgmma``: two walks over the chunks that carry the
+state and its gradient in float32 registers, the normaliser, the gradient
+kernel by 64-column tiles, the gates), bf16 operands and float32 sums;
+float32 runs seven launches on the CUDA cores, float32 throughout.  Every
+bfloat16 shape the forward takes (dk, dv multiples of 8, dk up to 512) runs
+the tensor-core route, hymba's dk 16, dv 64 included.
 """
 from __future__ import annotations
 
@@ -66,7 +72,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
              + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 4
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 4
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -187,6 +193,8 @@ def mlstm_scan_bwd(q, k, v, logf, i, dh, *, scale: float | None = None):
     dv = v.shape[-1]
     scale = dk ** -0.5 if scale is None else scale
     q, k, v, dh = (t.contiguous() for t in (q, k, v, dh))
+    if not build.aligned16(dh):
+        dh = dh.clone()
     logf = logf.float().contiguous()
     i = i.float().contiguous()
     dev = q.device
@@ -196,18 +204,31 @@ def mlstm_scan_bwd(q, k, v, logf, i, dh, *, scale: float | None = None):
     chunk = BWD_CHUNK
     nc = -(-s // chunk)
 
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+    def buf(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+    bf16 = q.dtype == torch.bfloat16
+    nd, ne = -(-dk // 64), -(-dv // 64)
+    # the state before each chunk, float32; for float32 its gradient after
+    # each chunk too, for bfloat16 both as bf16 operand copies instead
+    states = (buf(bh, nc, dk, dv), None if bf16 else buf(bh, nc, dk, dv))
+    copies = ((buf(bh, nc, dk, dv, dtype=torch.bfloat16),
+               buf(bh, nc, dk, dv, dtype=torch.bfloat16)) if bf16
+              else (None, None))
     scratch = [torch.empty((bh, nc * chunk), dtype=torch.float64, device=dev),
-               f32(4, bh, nc * chunk), f32(bh, nc),
-               f32(bh, nc, dk, dv), f32(bh, nc, dk),       # C, n
-               f32(bh, nc, dk, dv), f32(bh, nc, dk),       # dC, dn
-               f32(bh, nc, chunk, chunk), f32(bh, nc, chunk, chunk)]  # P, Y
+               buf(4, bh, nc * chunk), buf(bh, nc),
+               states[0], buf(bh, nc, dk),                 # C, n
+               states[1], buf(bh, nc, dk),                 # dC, dn
+               buf(bh, nc, chunk, chunk), buf(bh, nc, chunk, chunk),  # P, Y
+               # bf16: each 64-column tile of dk's shares of dA and dw (a
+               # row each), each 64 x 64 state tile's share of <C, dC>
+               buf(bh * nc * nd * (2 * chunk + ne)) if bf16 else None,
+               *copies]
     fn = build.function("mlstm_scan_bwd", "mlstm_scan_bwd", _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dh.data_ptr(),
              logf.data_ptr(), i.data_ptr(),
              *(t.data_ptr() for t in grads), dlogf.data_ptr(), di.data_ptr(),
-             *(t.data_ptr() for t in scratch), bh, s, dk, dv, float(scale),
+             *(0 if t is None else t.data_ptr() for t in scratch), bh, s, dk,
+             dv, float(scale),
              DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mlstm_scan_bwd")
     bwd_launches.add()

@@ -30,12 +30,14 @@ SHAPES = [
 ]
 
 
-def _inputs(b, sq, sk, h, kh, hd, seed=0):
+def _inputs(b, sq, sk, h, kh, hd, seed=0, hdv=None):
+    """q, k at head dim hd; v, do at hdv (default hd)."""
+    hdv = hd if hdv is None else hdv
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, sq, h, hd)).astype(np.float32)
     k = rng.standard_normal((b, sk, kh, hd)).astype(np.float32)
-    v = rng.standard_normal((b, sk, kh, hd)).astype(np.float32)
-    do = rng.standard_normal((b, sq, h, hd)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kh, hdv)).astype(np.float32)
+    do = rng.standard_normal((b, sq, h, hdv)).astype(np.float32)
     return q, k, v, do
 
 
@@ -167,15 +169,16 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _grouped_bwd_rounded(q, k, v, o, lse, do, causal, window, rnd):
+def _grouped_bwd_rounded(q, k, v, o, lse, do, causal, window, rnd, scale):
     """The grouped backward as the bf16 kernels order it: float32 sums, and
     ``rnd`` applied to P and dS where they become the A operands of the
-    dV, dK and dQ products."""
+    dV, dK and dQ products (at MLA's (192, 128) too: its dV and dK blocks
+    apart, each rounding the same P and dS)."""
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
-    scale = hd ** -0.5
-    qf, of, dof = (t.reshape(b, sq, kh, g, hd) for t in (q, o, do))
+    qf = q.reshape(b, sq, kh, g, hd)
+    of, dof = (t.reshape(b, sq, kh, g, -1) for t in (o, do))
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k) * scale
     lse = lse.reshape(b, kh, g, sq)
     live = torch.isfinite(lse)
@@ -192,7 +195,7 @@ def _grouped_bwd_rounded(q, k, v, o, lse, do, causal, window, rnd):
     return dq.reshape(b, sq, h, hd), dk, dv
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, (192, 128)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 100)])
 def test_bf16_products_keep_the_backward_within_the_bf16_gates(hd, causal,
                                                                window):
@@ -201,19 +204,22 @@ def test_bf16_products_keep_the_backward_within_the_bf16_gates(hd, causal,
     there and dq, dk, dv stored in bf16, the gradient stays within the
     gates the card holds the kernels to against the float32 plain gradient:
     ||err|| / ||plain|| < 1e-2 and max |err| < 3e-2 max(1, max |plain|).
-    G = 4, a ragged S of 259."""
+    G = 4, a ragged S of 259; MLA's query-key dim 192 with value dim 128 at
+    its scale 192 ** -0.5."""
+    hd, hdv = hd if isinstance(hd, tuple) else (hd, hd)
+    scale = hd ** -0.5
     q, k, v, do = (_bf16(torch.from_numpy(x))
-                   for x in _inputs(1, 259, 259, 8, 2, hd, seed=2))
+                   for x in _inputs(1, 259, 259, 8, 2, hd, seed=2, hdv=hdv))
     o, lse = ref.grouped_flash_ref(q, k, v, causal=causal, window=window,
-                                   return_lse=True)
+                                   scale=scale, return_lse=True)
     want = ref.grouped_flash_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                     window=window)
+                                     window=window, scale=scale)
     same = _grouped_bwd_rounded(q, k, v, o, lse, do, causal, window,
-                                lambda x: x)
+                                lambda x: x, scale)
     for name, g, w in zip("qkv", same, want):   # the helper is the backward
         assert _err(g, w) < TOL, (name, _err(g, w))
     got = _grouped_bwd_rounded(q, k, v, _bf16(o), lse, do, causal, window,
-                               _bf16)
+                               _bf16, scale)
     for name, g, w in zip("qkv", got, want):
         g = _bf16(g)
         norm = ((g - w).norm() / w.norm()).item()

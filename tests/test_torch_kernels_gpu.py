@@ -25,6 +25,7 @@ and error norm); the MoE and xLSTM / hymba training gradients bit-identical
 from call to call, each family's float32 training gradient through the
 kernels against the plain path."""
 import dataclasses
+import re
 
 import pytest
 import torch
@@ -578,21 +579,25 @@ def test_flash_backward_is_deterministic_and_takes_strided_grads(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _bwd_kernel_names(call) -> set:
-    """Names of the device kernels one ``call`` launches whose name holds
-    ``bwd_``, from ``torch.profiler``: up to three windows until one holds
-    three, as the profiler can drop device events (a call launches
-    three)."""
+def _bwd_kernel_names(call, expect: int = 3) -> set:
+    """Names of the device kernels ``call`` launches whose name holds
+    ``bwd_``, from ``torch.profiler`` over two calls after one outside the
+    window: up to three windows until one holds ``expect``, as the
+    profiler can drop device events, the first launches of a window most
+    (K1's backward launches three kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             call()
+            call()
             torch.cuda.synchronize()
         names = {e.key for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA and "bwd_" in e.key}
-        if len(names) >= 3:
+        if len(names) >= expect:
             break
     return names
 
@@ -619,6 +624,32 @@ def test_flash_backward_launches_the_kernels_of_its_input_type(cuda, hd):
             assert not wgmma, names
             assert (sum("bwd_dkdv_kernel" in n for n in names),
                     sum("bwd_dq_kernel" in n for n in names)) == (1, 1), names
+
+
+def test_flash_backward_at_mla_dims_launches_the_kernels_of_its_input_type(
+        cuda):
+    """MLA's (192, 128): bfloat16 runs the ``wgmma`` kernels (dV and dK
+    blocks apart inside one dK/dV launch), float32 the CUDA-core ones."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn((1, 130, 4, 192), dtype, cuda, 74)
+        k = _randn((1, 130, 4, 192), dtype, cuda, 75)
+        v = _randn((1, 130, 4, 128), dtype, cuda, 76)
+        do = _randn((1, 130, 4, 128), dtype, cuda, 77)
+        o, lse = kflash.flash_attention(q, k, v, return_lse=True)
+        names = _bwd_kernel_names(
+            lambda: kflash.flash_attention_bwd(q, k, v, o, lse, do))
+        assert len(names) == 3, (dtype, names)
+        assert sum("bwd_delta_kernel" in n for n in names) == 1, names
+        wgmma = (sum("flash_bwd_dkdv_wgmma_kernel<192, 128>" in n
+                     for n in names),
+                 sum("flash_bwd_dq_wgmma_kernel<192, 128>" in n
+                     for n in names))
+        cuda_cores = (sum("bwd_dkdv_kernel<192, 128>" in n for n in names),
+                      sum("bwd_dq_kernel<192, 128>" in n for n in names))
+        if dtype == torch.bfloat16:
+            assert wgmma == (1, 1) and cuda_cores == (0, 0), names
+        else:
+            assert wgmma == (0, 0) and cuda_cores == (1, 1), names
 
 
 def test_grouped_flash_gradient_runs_the_kernels_not_the_plain_version(
@@ -776,15 +807,114 @@ def test_scan_backward_kernel_matches_plain(cuda, dtype, bh, s, dk, dv, scale,
 
 
 def test_scan_backward_builds_without_spill(cuda, tmp_path, monkeypatch):
-    """ptxas reports no spill in any kernel of K3's backward (dk up to 512
+    """ptxas reports no spill in any kernel of K3's backward, the float32
+    CUDA-core kernels and the bf16 ``wgmma`` ones alike (dk up to 512
     changes no register count: the tiles are 64 x 64 whatever dk is)."""
-    import re
     from repro_torch.kernels import build
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     _, _, log_ = build.build(("mlstm_scan_bwd",))["mlstm_scan_bwd"]
-    assert "scan_bwd_grad_kernel" in log_
+    for name in ("scan_bwd_grad_kernel", "scan_bwd_walk_wgmma_kernel",
+                 "scan_bwd_norm_wgmma_kernel", "scan_bwd_grad_wgmma_kernel"):
+        assert name in log_, name
     assert not [ln for ln in log_.splitlines()
                 if re.search(r"[1-9]\d* bytes spill", ln)], log_
+
+
+# Spill stores K1's bf16 backward kernels may have, as the design notes in
+# csrc/flash_attention_bwd.cu state them: the dK/dV kernel at hd 128 (dK,
+# dV, S^T and dP^T in registers); every other one none, MLA's (192, 128)
+# included (its dQ kernel takes 32-key tiles for that).
+BWD_SPILL_STORES = {"flash_bwd_dkdv_wgmma_kernelILi128ELi128E": 48}
+
+
+def test_flash_backward_wgmma_kernels_spill_no_more_than_stated(
+        cuda, tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    _, _, log_ = build.build(("flash_attention_bwd",))["flash_attention_bwd"]
+    spills, name = {}, None
+    for ln in log_.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"flash_bwd_\w+?_wgmma_kernelILi\d+ELi\d+E", ln)
+            name = m.group(0) if m else None
+        elif name and (m := re.search(r"(\d+) bytes spill stores", ln)):
+            spills[name] = int(m.group(1))
+    assert len(spills) == 2 * (len(kflash.HEAD_DIMS) + len(kflash.DIM_PAIRS))
+    over = {n: b for n, b in spills.items() if b > BWD_SPILL_STORES.get(n, 0)}
+    assert not over, spills
+
+
+def test_scan_backward_launches_the_kernels_of_its_input_type(cuda):
+    """bfloat16 runs K3's backward on the tensor cores (the two state walks,
+    the normaliser and the gradient kernel on ``wgmma``, then the gates'
+    kernel); float32 keeps the CUDA-core kernels.  Both start with the
+    gates."""
+    bf16 = {"scan_bwd_gates_kernel", "scan_bwd_walk_wgmma_kernel<1>",
+            "scan_bwd_walk_wgmma_kernel<-1>", "scan_bwd_norm_wgmma_kernel",
+            "scan_bwd_grad_wgmma_kernel", "scan_bwd_final_kernel"}
+    f32 = {"scan_bwd_gates_kernel", "scan_bwd_outer_kernel",
+           "scan_bwd_carry_kernel", "scan_bwd_norm_kernel",
+           "scan_bwd_grad_kernel"}
+    for dtype, want in ((torch.bfloat16, bf16), (torch.float32, f32)):
+        q, k, v, logf, i, dh = _scan_bwd_inputs(2, 200, 64, 64, 2.0, dtype,
+                                                cuda, ssd=False)
+        names = _bwd_kernel_names(
+            lambda: kscan.mlstm_scan_bwd(q, k, v, logf, i, dh), len(want))
+        short = {re.search(r"scan_bwd_\w+(?:<[^>]*>)?", n).group(0)
+                 for n in names}
+        assert short == want, (dtype, names)
+
+
+# bh, s, dk, dv, scale, qk, ssd: the training shapes of xlstm-350m (B 4)
+# and hymba-1.5b's SSD heads (B 2)
+SCAN_TRAIN_SHAPES = [(16, 2048, 512, 512, None, 1.0, False),
+                     (50, 2048, 16, 64, 1.0, 0.5, True)]
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,scale,qk,ssd", SCAN_TRAIN_SHAPES)
+def test_scan_backward_at_training_shapes_matches_plain(cuda, bh, s, dk, dv,
+                                                        scale, qk, ssd):
+    q, k, v, logf, i, dh = _scan_bwd_inputs(bh, s, dk, dv, qk, torch.bfloat16,
+                                            cuda, ssd=ssd)
+    got = kscan.mlstm_scan_bwd(q, k, v, logf, i, dh, scale=scale)
+    want = ref.mlstm_chunkwise_bwd_ref(q, k, v, logf, i, dh, scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv", "dlogf", "di"), got, want):
+        assert _rel_err(g, w) < TOL[torch.bfloat16], (name, _rel_err(g, w))
+        err = _norm_err_or_zero(g, w)
+        assert err < NORM_TOL[torch.bfloat16], (name, err)
+    again = kscan.mlstm_scan_bwd(q, k, v, logf, i, dh, scale=scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_backward_at_mla_training_shape_matches_plain(cuda):
+    """deepseek-v3's training shape: B 1, S 2048, 128 heads, (192, 128),
+    causal, bf16; two calls bit-identical."""
+    dt = torch.bfloat16
+    q, k = (_randn((1, 2048, 128, 192), dt, cuda, 90 + j) for j in range(2))
+    v, do = (_randn((1, 2048, 128, 128), dt, cuda, 92 + j) for j in range(2))
+    scale = 192 ** -0.5
+    o, lse = kflash.flash_attention(q, k, v, scale=scale, return_lse=True)
+    got = kflash.flash_attention_bwd(q, k, v, o, lse, do, scale=scale)
+    po, plse = ref.grouped_flash_ref(q, k, v, scale=scale, return_lse=True)
+    want = ref.grouped_flash_bwd_ref(q, k, v, po, plse, do, scale=scale)
+    for name, g, w in zip("qkv", got, want):
+        assert _rel_err(g, w) < TOL[dt], (name, _rel_err(g, w))
+        assert _norm_err(g, w) < NORM_TOL[dt], (name, _norm_err(g, w))
+    again = kflash.flash_attention_bwd(q, k, v, o, lse, do, scale=scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_scan_backward_refuses_what_it_does_not_take(cuda):
+    """A bf16 call the tensor-core kernels do not take is refused before a
+    launch: dk not a multiple of 8, dk past 512."""
+    n = kscan.bwd_launches.count
+    for dk in (12, 520):
+        q, k, v, logf, i, dh = _scan_bwd_inputs(2, 64, dk, 64, 1.0,
+                                                torch.bfloat16, cuda,
+                                                ssd=False)
+        with pytest.raises(ValueError, match="bfloat16"):
+            kscan.mlstm_scan_bwd(q, k, v, logf, i, dh)
+    assert kscan.bwd_launches.count == n
 
 
 def test_scan_gradient_runs_the_kernels_not_the_plain_version(cuda,
