@@ -5,8 +5,9 @@
 
 Drives the port's serving and training paths -- the UFS live scheduler, the
 continuous-batching engine and the models at their published widths:
-llama3.2-1b (dense GQA), qwen2-moe-a2.7b (MoE), xlstm-350m (mLSTM and
-sLSTM blocks), hymba-1.5b (attention and SSD heads side by side,
+llama3.2-1b (dense GQA), qwen2-0.5b (GQA, G = 7, QKV bias), granite-8b
+(dense GQA, hd 128), qwen2-moe-a2.7b (MoE), xlstm-350m (mLSTM and sLSTM
+blocks), hymba-1.5b (attention and SSD heads side by side,
 sliding-window attention in 29 of 32 layers), internvl2-1b (the VLM
 backbone, text only through the engine), deepseek-v3-671b (MLA and MoE, 5
 of its 61 layers) and, at model level, seamless-m4t-medium (encoder over
@@ -14,8 +15,10 @@ stub frames, cross-attention in every decoder layer) -- on the card; trains
 llama3.2-1b (AdamW, K1's backward kernel) and drives the scheduled
 training driver's crash and resume; trains every other family (MoE, xLSTM,
 hymba, MLA, enc-dec, VLM) through the backward kernels of K1 (MLA's 192 /
-128 too), K3 and K4; and holds each hand-written Hopper kernel against its
-plain PyTorch version.
+128 too), K3 and K4; prices three llama3.2-1b steps on the card's
+roofline; drives the distributed layer on one NCCL rank and both ported
+examples; and holds each hand-written Hopper kernel against its plain
+PyTorch version.
 Phases, each printed on its own line and each fatal:
 
 1. device   -- the card's name and power limit, compute capability 9.0
@@ -92,6 +95,12 @@ Phases, each printed on its own line and each fatal:
                capacity factor 64, where no expert overflows; xlstm and
                hymba on a prompt of one whole length bucket, so no pad
                token enters a recurrent state or a ring)
+5b. distributed -- a one-rank NCCL group (one card): llama3.2-1b at full
+               width through ``Model.shardmap_attn`` (K1 on the rank's
+               heads, ``all_reduce`` over the model axis), prefill logits
+               against the plain mixer (float32 to 1e-3, bf16 printed),
+               K1's launches and the all-reduces counted on that path;
+               ``compressed_psum`` equal to the local int8 round trip
 6. serving  -- per model, at full width and depth in bfloat16 (deepseek-v3:
                3 dense and 2 MoE layers) (the models with recurrent heads
                or a stub frontend first print their prefill_batch logits,
@@ -103,12 +112,25 @@ Phases, each printed on its own line and each fatal:
                prompts over their frames and 31 decode steps, its kernels'
                counts set to 0 just before and read just after; llama3.2-1b
                served once more beside serve's background-train lane,
-               which must take a step, with K1's backward launched
+               which must take a step, with K1's backward launched;
+               qwen2-0.5b (hd 64, G = 7, QKV bias) and granite-8b (hd
+               128) at full width and depth; before llama3.2-1b is
+               served, the ``roofline`` lines of its decode step (B 8,
+               S_max 1024, 700 live) and ``prefill_batch`` (8 x 256)
+6b. examples -- ``examples/mixed_serving_torch.py`` as it runs by
+               default (qwen2-0.5b, full size, the training lane): 8 of 8
+               requests, a lane step, K1, K2 and K1's backward launched;
+               ``examples/train_100m_torch.py`` for 20 steps, a crash after
+               15 and a resume from step 10 against an uninterrupted run:
+               identical losses
 7. training -- bf16 llama3.2-1b at full size, S=4096, B=4 in 2 micro-
                batches, remat: 4 AdamW steps, losses finite and falling,
                K1's forward and backward launched (counts set to 0 just
                before); step wall and busy ms, tokens/s, peak memory and
-               the model-flops share; then ``launch/train.py --scheduled``
+               the model-flops share, and the step's ``roofline`` line
+               (``roofline.analysis.analyze``: flops, unfused bytes,
+               terms, bottleneck, ``mfu_bound``, beside wall and busy);
+               then ``launch/train.py --scheduled``
                at full width with 2 layers: a crash after step 4,
                ``--resume`` and an uninterrupted run give the same losses,
                and the scheduled save of step 2 equals the unscheduled one;
@@ -142,8 +164,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The card's peaks (``roofline.analysis``) and each kernel's work
+# (``kernels.work``), imported by ``main`` once a card is found.
+RA = W = None
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # ||got - plain|| / ||plain||
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
@@ -403,43 +426,6 @@ def randn(shape, dtype, seed):
 
 
 # ---------------------------------------------------------------- phase 3
-def flash_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask keeps, per batch row and head."""
-    offs = sk - sq if causal else 0
-    n = 0
-    for i in range(sq):
-        hi = min(sk, i + offs + 1) if causal else sk
-        lo = max(0, i + offs - window + 1) if window > 0 else 0
-        n += max(0, hi - lo)
-    return n
-
-
-def flash_bound_ms(q, k, v, causal, window) -> tuple:
-    """q, k and v read once and the output written once, each at its own
-    head dim; 2 dk operations a kept (query, key) pair for Q K^T and 2 dv
-    for P V, at the inputs' peak rate."""
-    b, sq, h, dk = q.shape
-    sk, dv = k.shape[1], v.shape[3]
-    es = q.element_size()
-    nbytes = (q.numel() + k.numel() + v.numel() + b * sq * h * dv) * es
-    ops = 2 * b * h * (dk + dv) * flash_pairs(sq, sk, causal, window)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def decode_bound_ms(q, k, lengths) -> tuple:
-    b, _, h, hd = q.shape
-    kh = k.shape[2]
-    es = q.element_size()
-    live = int(lengths.clamp(max=k.shape[1]).sum())
-    nbytes = 2 * q.numel() * es + 2 * live * kh * hd * es + lengths.numel() * 4
-    ops = 4 * h * hd * live
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def kernel_phase(ref, kflash, kdecode) -> dict:
     """Parity of both kernels over their shapes, then times at the serving
     shapes.  Returns the per-kernel entries of the kernels line."""
@@ -630,7 +616,7 @@ def time_flash(ref, kflash, b, s, h, kh, hd, dv=None, causal=True,
     _, d["launches_per_call"], _ = device_ms_per_call(
         call, "flash_fwd_wgmma", max_per_call=1)
     d["library_backend"], d["library_kernels"] = sdpa_backend(library)
-    d["bound_ms"], d["bound_by"] = flash_bound_ms(q, k, v, causal, 0)
+    d["bound_ms"], d["bound_by"] = RA.bound_ms(W.flash(q, k, v, causal=causal))
     d["shape"] = (f"B={b} Sq={sq} Sk={s} H={h} KH={kh} hd={hd}"
                   f"{f' dv={dv}' if dv else ''} "
                   f"{'causal' if causal else 'unmasked'} bf16")
@@ -662,30 +648,13 @@ def time_decode(ref, kdecode, b, smax, live, h, kh, hd) -> dict:
     _, d["launches_per_call"], _ = device_ms_per_call(
         lambda: kdecode.decode_attention(q, k, v, lengths),
         "decode_split_kernel", max_per_call=1)
-    d["bound_ms"], d["bound_by"] = decode_bound_ms(q, k, lengths)
+    d["bound_ms"], d["bound_by"] = RA.bound_ms(W.decode(q, k, v, lengths))
     d["n_split"], d["chunk"] = kdecode.split_plan(smax, b, kh)
     d["shape"] = f"B={b} S_max={smax} live={live} H={h} KH={kh} hd={hd} bf16"
     got = kdecode.decode_attention(q, k, v, lengths)
     d["max_abs_err"] = (got.float() - ref.grouped_decode_ref(
         q, k, v, lengths).float()).abs().max().item()
     return d
-
-
-def flash_bwd_bound_ms(q, k, causal, window, hdv=None) -> tuple:
-    """K1's backward: q, k, v, o, dO and lse read once, dq, dk and dv
-    written once; 6 dk + 4 dv operations a kept (query, key) pair (S and
-    dP recomputed, dV, dQ and dK), at the inputs' peak rate.  ``hdv``: the
-    value dim where it is not the query-key dim (MLA)."""
-    b, sq, h, hd = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    hdv = hd if hdv is None else hdv
-    es = q.element_size()
-    nbytes = ((2 * b * sq * h + 2 * b * sk * kh) * hd
-              + (2 * b * sq * h + 2 * b * sk * kh) * hdv) * es + b * h * sq * 4
-    ops = b * h * (6 * hd + 4 * hdv) * flash_pairs(sq, sk, causal, window)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def norm_err(got, want) -> float:
@@ -797,8 +766,8 @@ def backward_phase(ref, kflash) -> dict:
                    "queries a block, wgmma S, dP, dQ); float32 on the CUDA "
                    "cores (bwd_dkdv_kernel, bwd_dq_kernel)")
     d["library_backend"], d["library_kernels"] = sdpa_backend(library)
-    d["bound_ms"], d["bound_by"] = flash_bwd_bound_ms(q, k, True, 0)
-    d["kept_pairs"] = b * h * flash_pairs(s, s, True, 0)
+    d["bound_ms"], d["bound_by"] = RA.bound_ms(W.flash_bwd(q, k, v))
+    d["kept_pairs"] = b * h * W.flash_pairs(s, s, True, 0)
     d["fwd_lse_device_ms"] = device_ms(
         lambda: kflash.flash_attention(q, k, v, return_lse=True),
         "flash_fwd_wgmma", iters=5, alone=True)
@@ -808,11 +777,9 @@ def backward_phase(ref, kflash) -> dict:
     # operations a kept pair; q, k, v read, o and lse written), and the
     # library's flash forward that returns the logsumexp, on K and V
     # repeated to the query heads outside the timing
-    fb = b * h * 4 * hd * flash_pairs(s, s, True, 0) / PEAK_OPS[dt] * 1e3
-    fbytes = ((2 * q.numel() + 2 * k.numel()) * q.element_size()
-              + b * h * s * 4) / HBM_BYTES_PER_S * 1e3
-    d["fwd_lse_bound_ms"] = max(fb, fbytes)
-    d["fwd_lse_bound_by"] = "operations" if fb >= fbytes else "bytes"
+    fwd = W.flash(q, k, v, causal=True, window=0)
+    d["fwd_lse_bound_ms"], d["fwd_lse_bound_by"] = RA.bound_ms(
+        fwd._replace(bytes=fwd.bytes + b * h * s * 4))
     kr, vr = (t.repeat_interleave(h // kh, dim=1) for t in (kt, vt))
     d["fwd_lse_library_ms"] = cuda_ms(
         lambda: torch.ops.aten._scaled_dot_product_flash_attention(
@@ -834,21 +801,6 @@ def backward_phase(ref, kflash) -> dict:
     return d
 
 
-def router_bound_ms(logits, top_k: int, cap: int) -> tuple:
-    """Each logit read once; weights, indices and slots (T, k), the slot
-    tokens (E, C), the probability sums and counts (E,) written once; (5 +
-    2k) float32 operations a logit (mask, max, exp, sum, divide; a compare
-    and a select per argmax pass), at the float32 rate: the reference
-    computes the router in float32."""
-    t, e = logits.shape
-    nbytes = (logits.numel() * logits.element_size() + t * top_k * 12
-              + e * cap * 4 + e * 8)
-    ops = t * e * (5 + 2 * top_k)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def route_errors(got, want) -> tuple:
     """(integer outputs identical, weights' max abs error, probability
     sums' max relative error) of a ``Route`` against the plain one."""
@@ -859,20 +811,6 @@ def route_errors(got, want) -> tuple:
            / want.prob_sum.abs().clamp(min=1e-30))
     rel = torch.where(got.prob_sum == want.prob_sum, 0.0, rel)
     return ints, w_err, rel.max().item()
-
-
-def scan_bound_ms(q, v) -> tuple:
-    """q, k, v read once, out written once, the two float32 gates read
-    once; 4 dk dv operations a step for q C and the update of C, at the
-    peak rate of the inputs' type (bf16 tensor cores, float32 CUDA cores)."""
-    bh, s, dk = q.shape
-    dv = v.shape[-1]
-    es = q.element_size()
-    nbytes = (2 * q.numel() + 2 * v.numel()) * es + 2 * bh * s * 4
-    ops = 4 * bh * s * dk * dv
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def scan_inputs(bh, s, dk, dv, dtype, seed):
@@ -986,7 +924,7 @@ def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
         router["launches_per_call" + tag] = n
         router["device_ms_topk_only" + tag] = device_ms(
             lambda: kmoe.moe_topk(logits, 4, 60), "router_kernel", alone=True)
-        b, by = router_bound_ms(logits, 4, cap)
+        b, by = RA.bound_ms(W.route(logits, 4, capacity=cap))
         router["bound_ms" + tag] = b
         if not tag:
             router["bound_by"] = by
@@ -1021,7 +959,7 @@ def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
             scan[key + tag] = scan[f"{key}{tag}_{own.design}"]
         scan["plain_ms" + tag] = cuda_ms(
             lambda: ref.mlstm_chunkwise_ref(q, k, v, logf, i), iters=20, warmup=3)
-        b, by = scan_bound_ms(q, v)
+        b, by = RA.bound_ms(W.scan(q, k, v, logf, i))
         scan["bound_ms" + tag] = b
         if not tag:
             scan["bound_by"] = by
@@ -1038,7 +976,8 @@ def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
      scan["grid_hymba"]) = device_ms_per_call(hymba, "mlstm_")
     scan["plain_ms_hymba"] = cuda_ms(lambda: ref.mlstm_chunkwise_ref(
         q, k, v, logf, i, scale=1.0), iters=20, warmup=3)
-    scan["bound_ms_hymba"], scan["bound_by_hymba"] = scan_bound_ms(q, v)
+    scan["bound_ms_hymba"], scan["bound_by_hymba"] = RA.bound_ms(
+        W.scan(q, k, v, logf, i))
     want = ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=1.0).float()
     scan["max_abs_err_hymba"] = (hymba().float() - want).abs().max().item()
     if not scan["max_abs_err_hymba"] < SCAN_TOL[dt] * max(
@@ -1063,33 +1002,6 @@ def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
     router["max_abs_err_f32"] = worst_w["float32"]
     scan["max_abs_err_f32"] = worst_s["float32"]
     return {"moe_topk": router, "mlstm_scan": scan}
-
-
-def scan_bwd_bound_ms(q, v) -> tuple:
-    """K3's backward: q, k, v, dh and the two float32 gates read once, dq,
-    dk, dv and the two gate gradients written once; 8 dk dv operations a
-    step (twice the forward's 4 dk dv), at the inputs' peak rate."""
-    bh, s, dk = q.shape
-    dv = v.shape[-1]
-    es = q.element_size()
-    nbytes = (4 * q.numel() + 3 * v.numel()) * es + 4 * bh * s * 4
-    ops = 8 * bh * s * dk * dv
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[q.dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def router_bwd_bound_ms(logits, top_k: int) -> tuple:
-    """K4's backward: the logits read and their gradient written once, the
-    picks, weights and their gradient (T, k) and the probability sums'
-    gradient (E,) read once; about 10 float32 operations a logit (the
-    softmax again, p o g, its sum, the gradient), at the float32 rate."""
-    t, e = logits.shape
-    nbytes = 2 * logits.numel() * logits.element_size() + 12 * t * top_k + 4 * e
-    ops = 10 * t * e
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[torch.float32] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def scan_bwd_inputs(bh, s, dk, dv, dtype, seed, qk: float, ssd: bool):
@@ -1291,7 +1203,7 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
                                                              iters=3)
         check_ran(d["device_ms_by_kernel" + tag], SCAN_BWD_BF16,
                   SCAN_BWD_F32, f"mlstm_scan_bwd bf16 BH {bh} dk {dk}")
-        d["bound_ms" + tag], by = scan_bwd_bound_ms(q, v)
+        d["bound_ms" + tag], by = RA.bound_ms(W.scan_bwd(q, k, v, logf, i))
         if not tag:
             d["bound_by"] = by
         # held at the training shape too: many chunks through the carries
@@ -1334,7 +1246,7 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
             logits, r.idx, r.weights, dw, dps, n_valid=n_valid,
             router_scale=rs))
         d["device_ms" + tag] = device_ms(call, "router_bwd_kernel", alone=True)
-        d["bound_ms" + tag], by = router_bwd_bound_ms(logits, k)
+        d["bound_ms" + tag], by = RA.bound_ms(W.route_bwd(logits, k))
         if not tag:
             d["bound_by"] = by
             d["max_abs_err"] = (call().float() - ref.moe_route_bwd_ref(
@@ -1377,7 +1289,7 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
     d["device_ms_by_kernel"] = device_ms_by_kernel(call, "bwd_d", iters=3)
     check_ran(d["device_ms_by_kernel"], FLASH_BWD_BF16, FLASH_BWD_F32,
               "flash_attention_bwd bf16 (192, 128)")
-    d["bound_ms"], d["bound_by"] = flash_bwd_bound_ms(q, k, True, 0, hdv=128)
+    d["bound_ms"], d["bound_by"] = RA.bound_ms(W.flash_bwd(q, k, v))
     got = call()
     po, plse = ref.grouped_flash_ref(q, k, v, scale=sc, return_lse=True)
     want = ref.grouped_flash_bwd_ref(q, k, v, po, plse, do, scale=sc)
@@ -1404,7 +1316,7 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
         return kflash.flash_attention_bwd(q, k, v, o, lse, do, window=1024)
     d["device_ms_hymba"], _, _ = device_ms_per_call(hymba, "bwd_d", iters=3,
                                                     max_per_call=3)
-    d["bound_ms_hymba"], _ = flash_bwd_bound_ms(q, k, True, 1024)
+    d["bound_ms_hymba"], _ = RA.bound_ms(W.flash_bwd(q, k, v, window=1024))
     d["shape_hymba"] = "B=2 S=2048 H=25 KH=5 hd=64 window 1024 bf16"
     log("kernels.time", kernel="flash_attention_bwd_mla", **d)
     out["flash_attention_bwd_mla"] = d
@@ -1743,9 +1655,9 @@ def serving_phase(model, params, core, InferenceEngine, Request, counters,
                          if r.first_token],
         "n_layers": model.cfg.n_layers,
         "decode_step_weight_bytes": step_bytes,
-        "decode_step_weight_read_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "decode_step_weight_read_ms": step_bytes / RA.HBM_BW * 1e3,
         "decode_step_routed_weight_read_ms":
-            routed_bytes / HBM_BYTES_PER_S * 1e3,
+            routed_bytes / RA.HBM_BW * 1e3,
         "launches": launches,
         "memory_allocated_at_start_bytes": held_before,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -1840,7 +1752,7 @@ def model_flops(cfg, params, b: int, s: int) -> float:
         return flops + 12.0 * hd * hd * cfg.n_heads * b * s * n_m
     for layer in range(cfg.n_layers):
         w = 0 if layer in cfg.global_attn_layers else cfg.sliding_window
-        flops += per_pair * flash_pairs(s, s, True, w)
+        flops += per_pair * W.flash_pairs(s, s, True, w)
     if cfg.family == "hybrid":
         n = cfg.ssm.state_dim
         flops += 12.0 * n * cfg.hd * cfg.n_heads * b * s * cfg.n_layers
@@ -1901,6 +1813,14 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
     launches = r["launches"]
     losses, wall = r["losses"], r["wall"]
     flops = model_flops(cfg, box["state"]["params"], b, s)
+    from repro_torch.configs.base import ShapeConfig
+    n = RA.count_params(box["state"]["params"])
+    roof = RA.analyze(lambda: step(box["state"], batch),
+                      model_flops=RA.model_flops(
+                          cfg, ShapeConfig("train.steps", s, b, "train"), n, 1),
+                      dtype=cfg.dtype)
+    roofline_log("train_step", roof, wall, r["busy"], arch=cfg.name, batch=b,
+                 seq=s, grad_accum=2, remat=cfg.remat)
     result = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
               "batch": b, "seq": s, "grad_accum": 2, "remat": cfg.remat,
               "losses": losses, "step_wall_ms": r["walls"],
@@ -1911,7 +1831,7 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
               "tokens_per_s": b * s / wall * 1e3,
               "max_memory_allocated_bytes": r["peak"],
               "model_flops_per_step": flops,
-              "model_flops_share_of_989_tflops": flops / (wall / 1e3) / 989e12,
+              "model_flops_share_of_989_tflops": flops / (wall / 1e3) / RA.PEAK_FLOPS[torch.bfloat16],
               "launches": launches}
     log("train.steps", **result)
     if not (all(np.isfinite(losses)) and losses[3] < losses[0]):
@@ -2097,7 +2017,7 @@ def train_families_phase(Model, trainer, optimizer, get_arch) -> dict:
                   "max_memory_allocated_bytes": r["peak"],
                   "model_flops_per_step": flops,
                   "model_flops_share_of_989_tflops":
-                      flops / (wall / 1e3) / 989e12,
+                      flops / (wall / 1e3) / RA.PEAK_FLOPS[torch.bfloat16],
                   "launches": launches, "backward_kernels": need,
                   "seconds": time.monotonic() - t0}
         log("train.families", **result)
@@ -2239,13 +2159,251 @@ def scheduled_moe_phase(train) -> dict:
 
 
 # ------------------------------------------------------------------- main
+# ---------------------------------------------------------------- roofline
+def roofline_log(step: str, roof, wall_ms: float, busy: float,
+                 **extra) -> None:
+    """One ``roofline`` line: ``roofline.analysis.analyze``'s counts and
+    terms for a step, beside its measured wall and busy ms."""
+    d = roof.to_dict()
+    t_roof = roof.roofline_time * 1e3
+    log("roofline", step=step, flops=d["flops"], hbm_bytes=d["hbm_bytes"],
+        coll_bytes=d["coll_bytes"], model_flops=d["model_flops"],
+        t_compute_ms=d["t_compute"] * 1e3, t_memory_ms=d["t_memory"] * 1e3,
+        t_collective_ms=d["t_collective"] * 1e3, bottleneck=d["bottleneck"],
+        roofline_ms=t_roof, mfu_bound=d["mfu_bound"],
+        useful_flops_ratio=d["useful_flops_ratio"], dtype=d["dtype"],
+        flops_by_type=d["flops_by_type"], kernels=d["kernels"],
+        wall_ms=wall_ms, busy_ms=busy, wall_over_roofline=wall_ms / t_roof,
+        busy_over_roofline=busy / t_roof,
+        peak_flops={t: RA.PEAK_FLOPS[getattr(torch, t)]
+                    for t in d["flops_by_type"]},
+        hbm_bytes_per_s=RA.HBM_BW, card=card_line(),
+        **extra)
+    if not (roof.flops > 0 and roof.hbm_bytes > 0 and t_roof > 0
+            and roof.kernels):
+        raise AssertionError(f"roofline of {step}: nothing counted, {d}")
+
+
+def wall_ms(fn, n: int) -> float:
+    """Host ms a call, over ``n`` calls ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def roofline_serving_phase(model, params) -> None:
+    """The roofline of llama3.2-1b's decode step (B 8, S_max 1024, 700
+    positions live, random caches) and ``prefill_batch`` (8 x 256), bf16,
+    as ``launch/profile_decode.py`` times them: ``analyze`` counts in one
+    run; the wall is timed over 20 calls and the busy time in a profiler
+    window, in runs of their own."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.weights import tree_leaves
+    cfg = model.cfg
+    caches = model.init_cache(8, 1024)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for leaf in tree_leaves(caches):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    tok = torch.randint(0, cfg.vocab_size, (8, 1), generator=gen,
+                        device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (8, 256))
+             .astype(np.int32), "lengths": np.full((8,), 256, np.int32)}
+    n = RA.count_params(params)
+    for name, fn, shape in (
+            ("decode_step", lambda: model.decode_step(params, caches, tok, 700),
+             ShapeConfig("decode_step", 701, 8, "decode")),
+            ("prefill_batch", lambda: model.prefill_batch(params, batch, 1024),
+             ShapeConfig("prefill_batch", 256, 8, "prefill"))):
+        for _ in range(3):
+            fn()
+        roof = RA.analyze(fn, model_flops=RA.model_flops(cfg, shape, n, 1),
+                          dtype=cfg.dtype)
+        wall = wall_ms(fn, 20)
+        busy, top, _ = busy_ms(fn)
+        roofline_log(name, roof, wall, busy, arch=cfg.name, batch=8,
+                     seq=shape.seq_len, top_kernels=top[:5])
+
+
+# ------------------------------------------------------------ distributed
+def distributed_phase(Model, get_arch, kflash) -> dict:
+    """The distributed layer on a one-rank NCCL group (one card: two ranks
+    cannot share it; the CPU tests hold 2 and 4 gloo ranks).  llama3.2-1b
+    at full width and depth through ``Model.shardmap_attn`` (K1 on the
+    rank's heads, the ``all_reduce`` over the model axis): prefill
+    logits against the same model without the hook, float32 to
+    ``MODEL_TOL``, bf16's max error printed; K1's launches counted on that
+    path (set to 0 just before, read just after) and the collectives the
+    prefill issues; then ``compressed_psum`` over NCCL equal to one local
+    int8 round trip.  Returns the launches of the bf16 path."""
+    import torch.distributed as dist
+    from repro_torch.distributed.shardmap_attention import make_shardmap_gqa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import grad_compress as gc_
+    # the rendezvous is a file of this checkout: no port to share
+    store = ROOT / "build" / "chip_smoke_pg"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        launches = {}
+        rng = np.random.default_rng(5)
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_arch("llama3.2-1b"), dtype=dtype)
+            model = Model(cfg, device="cuda")
+            params = model.init_params(
+                torch.Generator(device="cuda").manual_seed(0))
+            batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 512))
+                     .astype(np.int32)}
+            want, _ = model.prefill(params, batch, 1024)
+            model.shardmap_attn = make_shardmap_gqa(mesh, cfg)
+            kflash.launches.reset()
+            got, _ = model.prefill(params, batch, 1024)
+            torch.cuda.synchronize()
+            launches = {"flash_attention": kflash.launches.count}
+            coll = RA.collective_bytes(model.prefill, params, batch, 1024)
+            err = (got.float() - want.float()).abs().max().item()
+            log("distributed.shardmap_attn", arch=cfg.name, dtype=dtype,
+                batch=4, seq=512, max_abs_err=err,
+                tol=MODEL_TOL if dtype == "float32" else None,
+                launches=launches, collectives=coll,
+                mesh={"data": 1, "model": 1}, backend="nccl")
+            if dtype == "float32" and not err < MODEL_TOL:
+                raise AssertionError(f"shardmap_attn prefill: {err}")
+            if not (launches["flash_attention"] >= cfg.n_layers
+                    and coll["counts"]["all-reduce"] == cfg.n_layers):
+                raise AssertionError(f"shardmap_attn path: {launches}, {coll}")
+            del model, params, got, want
+            free_device_memory()
+        x = randn((1 << 20,), torch.float32, 77)
+        y = gc_.compressed_psum(x)
+        q, scale = gc_._quant(x)
+        want = gc_._dequant(q, scale)
+        err = (y - x).abs().max().item()
+        log("distributed.compressed_psum", n=x.numel(), backend="nccl",
+            world_size=1, equal_to_local_round_trip=torch.equal(y, want),
+            max_abs_err_vs_input=err, quant_step=scale.item())
+        if not torch.equal(y, want):
+            raise AssertionError("compressed_psum over one rank is not the "
+                                 "local int8 round trip")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+# --------------------------------------------------------------- examples
+def run_example(name: str, *args) -> str:
+    """Run ``examples/<name>`` in this process as ``python <name> <args>``
+    would (its launch counts land in this process's counters); returns
+    what it printed.  A ``SystemExit`` with a message (a simulated crash)
+    is returned as that message's last line."""
+    import contextlib
+    import io
+    import runpy
+    out = io.StringIO()
+    argv = sys.argv
+    sys.argv = [name, *args]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(str(ROOT / "examples" / name), run_name="__main__")
+    except SystemExit as e:
+        if not isinstance(e.code, str):
+            raise
+        out.write(e.code + "\n")
+    finally:
+        sys.argv = argv
+    text = out.getvalue()
+    print(text[-4000:], flush=True)
+    return text
+
+
+def example_losses(text: str) -> dict:
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^step\s+(\d+) loss\s+([-\d.]+)", text, re.MULTILINE)}
+
+
+def examples_phase(counters) -> dict:
+    """``examples/mixed_serving_torch.py`` as it runs by default (qwen2-0.5b
+    at full size, bf16, beside the background-train lane): every request
+    completes, the lane takes a step, K1, K2 and K1's backward are
+    launched (counts set to 0 just before, read just after).  Then
+    ``examples/train_100m_torch.py`` (demo-100m, float32) for 20 steps
+    with checkpoints every 10: a crash after step 15 and a rerun, which
+    resumes from step 10, give the losses of an uninterrupted run.
+    Returns the launches by example."""
+    import shutil
+    by = {}
+    for c in counters.values():
+        c.reset()
+    text = run_example("mixed_serving_torch.py")
+    torch.cuda.synchronize()
+    by["qwen2-0.5b mixed_serving_torch.py"] = launches = {
+        n: c.count for n, c in counters.items()}
+    done = re.search(r"completed (\d+)/(\d+) requests", text)
+    steps = re.search(r"background train steps: (\d+)", text)
+    log("examples.mixed_serving", arch="qwen2-0.5b", full_size=True,
+        completed=done and done.group(0), background_train_steps=steps and
+        int(steps.group(1)), launches=launches)
+    if not (done and done.group(1) == done.group(2) == "8" and steps
+            and int(steps.group(1)) >= 1 and all(
+                launches[n] > 0 for n in ("flash_attention",
+                                          "decode_attention",
+                                          "flash_attention_bwd"))):
+        raise AssertionError(f"mixed_serving_torch.py: {done}, {steps}, "
+                             f"{launches}")
+    free_device_memory()
+
+    drill, whole = (ROOT / "build" / f"chip_smoke_ckpt_100m_{n}"
+                    for n in ("drill", "whole"))
+    for d in (drill, whole):
+        shutil.rmtree(d, ignore_errors=True)
+    common = ("--steps", "20", "--ckpt-every", "10", "--log-every", "1")
+    for c in counters.values():
+        c.reset()
+    t0 = time.monotonic()
+    crash = run_example("train_100m_torch.py", *common, "--ckpt-dir",
+                        str(drill), "--fail-at", "15")
+    resume = run_example("train_100m_torch.py", *common, "--ckpt-dir",
+                         str(drill))
+    torch.cuda.synchronize()
+    by["demo-100m train_100m_torch.py"] = launches = {
+        n: c.count for n, c in counters.items()}
+    full = run_example("train_100m_torch.py", *common, "--ckpt-dir",
+                       str(whole))
+    want, before, after = (example_losses(t) for t in (full, crash, resume))
+    ok = (sorted(want) == list(range(1, 21))
+          and before == {s: want[s] for s in range(1, 16)}
+          and after == {s: want[s] for s in range(11, 21)}
+          and "simulated failure at step 15" in crash
+          and "resumed from checkpoint step 10" in resume)
+    log("examples.train_100m", arch="demo-100m", dtype="float32", steps=20,
+        crash_after=15, resumed_from=10, losses_identical=ok,
+        losses=want, seconds=time.monotonic() - t0, launches=launches)
+    for d in (drill, whole):
+        shutil.rmtree(d, ignore_errors=True)
+    if not ok or not all(launches[n] > 0 for n in ("flash_attention",
+                                                   "flash_attention_bwd")):
+        raise AssertionError(f"train_100m_torch.py drill: {want}, {before}, "
+                             f"{after}, {launches}")
+    free_device_memory()
+    return by
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card",
               file=sys.stderr)
         return 2
+    global RA, W
     from repro_torch import core
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import work as W
+    from repro_torch.roofline import analysis as RA
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels import decode_attention as kdecode
     from repro_torch.kernels import flash_attention as kflash
@@ -2357,6 +2515,10 @@ def main() -> int:
     train_check_families_phase(ops, ref, Model, trainer, get_arch)
     done("train.check", t0)
 
+    t0 = time.monotonic()
+    shardmap = distributed_phase(Model, get_arch, kflash)
+    done("distributed", t0)
+
     # Serving, bfloat16, full width and depth (deepseek-v3-671b: its 3
     # dense layers and 2 of its 58 MoE layers, 53.2 GB, as the card's 80 GB
     # allow); each path's own kernels must run on it.  seamless-m4t-medium's
@@ -2381,6 +2543,8 @@ def main() -> int:
              ("hymba-1.5b", "hymba-1.5b", {}, attn + ("mlstm_scan",), False),
              ("seamless-m4t-medium", "seamless-m4t-medium", {}, attn, False),
              ("internvl2-1b", "internvl2-1b", {}, attn, False),
+             ("qwen2-0.5b", "qwen2-0.5b", {}, attn, False),
+             ("granite-8b", "granite-8b", {}, attn, False),
              ("deepseek-v3-671b", "deepseek-v3-671b", {"n_layers": 5},
               ("flash_attention", "moe_topk"), False)]
     by_path = {}
@@ -2393,6 +2557,8 @@ def main() -> int:
             bf16_prefill_phase(model, params, ops, ref, cfg.vocab_size,
                                **({"lengths": vlm_lengths}
                                   if cfg.vision_tokens else {}))
+        if name == "llama3.2-1b":
+            roofline_serving_phase(model, params)
         if cfg.encoder_layers:
             by_path[name] = model_path_phase(model, params, counters,
                                              required, cfg.vocab_size)
@@ -2406,6 +2572,11 @@ def main() -> int:
         free_device_memory()
         done("serving", t0, arch=name,
              total_seconds=time.monotonic() - t_start)
+
+    by_path["llama3.2-1b shardmap_attn (distributed)"] = shardmap
+    t0 = time.monotonic()
+    by_path.update(examples_phase(counters))
+    done("examples", t0, total_seconds=time.monotonic() - t_start)
 
     # Training, bf16: llama3.2-1b at full size for 4 steps, then the
     # scheduled driver's crash and resume at full width with 2 layers.
@@ -2439,8 +2610,10 @@ def main() -> int:
     # Each kernel's launches are read on its own slice's path: K1, K2 on
     # llama3.2-1b, K4 on qwen2-moe, K3 on xlstm, K1's backward on the
     # training steps; every path is listed
-    # (hymba-1.5b's runs K1, K2 and K3; seamless-m4t-medium's and
-    # internvl2-1b's K1 and K2; deepseek-v3-671b's K1 at 192 / 128 and K4).
+    # (hymba-1.5b's runs K1, K2 and K3; seamless-m4t-medium's,
+    # internvl2-1b's, qwen2-0.5b's and granite-8b's K1 and K2;
+    # deepseek-v3-671b's K1 at 192 / 128 and K4; the shardmap_attn prefill
+    # K1; the two examples K1, K2 and K1's backward).
     own = {"flash_attention": "llama3.2-1b", "decode_attention": "llama3.2-1b",
            "moe_topk": "qwen2-moe-a2.7b", "mlstm_scan": "xlstm-350m",
            "flash_attention_bwd": "llama3.2-1b training",

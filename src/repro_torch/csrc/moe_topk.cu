@@ -77,6 +77,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+#include <cstring>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -429,16 +432,32 @@ extern "C" int moe_route_fwd(const void* logits, void* w, void* idx,
 // are never picked: their gradient is 0.  dprob_sum may be null (the
 // gradient of `moe_topk`, which has no sums).
 //
-// One warp a token, each lane experts lane + 32 j; max, sums and the
-// p o g reduction are warp shuffles in a fixed order, and nothing is
-// reduced across tokens, so there are no atomics and two calls give the
-// same bits.  What bounds it: bytes, the logits read and dlogits written
-// once (4 T E or 2 T E bytes each) and 12 T k + 4 E bytes besides; about
-// 10 float32 operations a logit.
+// One warp a token.  Lane l holds the V consecutive experts l V ... l V +
+// V - 1, V the least power of two with 32 V >= E (2 at E 64, 8 at E 256).
+// What bounds it: bytes, the logits read and dlogits written once (4 T E
+// or 2 T E bytes each) and 12 T k + 4 E bytes besides, about 10 float32
+// operations a logit -- a fraction of a microsecond at a training
+// micro-batch, so the launch and the chain of memory latencies set the
+// time.  The design cuts that chain to one round:
+//
+//  * every global read is issued before the first reduction: the lane's
+//    logits, its probability sums' gradients, and on lanes m < k the
+//    token's pick m (index, weight, weight gradient), each read once and
+//    handed to the other lanes by shuffles after the reductions;
+//  * a lane's logits (and its gradients' stores) are one vector access of
+//    V elements, 8 to 32 bytes, where the rows are aligned for it; a lane
+//    whose experts run past E uses scalar accesses;
+//  * the launch allows programmatic dependent launch, so the blocks are
+//    set up while the kernel before them ends; `griddepcontrol.wait`
+//    (what `cudaGridDependencySynchronize()` compiles to) comes before
+//    the first read of an input.
+//
+// Max, sums, p o g and sum_j r_j dw_j are warp shuffles in a fixed order,
+// and nothing is reduced across tokens, so there are no atomics and two
+// calls give the same bits.
 namespace {
 
 constexpr int BWD_THREADS = 256;
-constexpr int BWD_VPL = MAXE / 32;
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -447,6 +466,42 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// The machine word of a vector access of `BYTES` bytes.
+template <int BYTES>
+struct Word;
+template <>
+struct Word<2> { using type = unsigned short; };
+template <>
+struct Word<4> { using type = unsigned int; };
+template <>
+struct Word<8> { using type = uint2; };
+template <>
+struct Word<16> { using type = uint4; };
+
+// N values of type T from `src` (aligned to N sizeof(T) bytes) in 16-byte
+// or narrower vector loads.
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* src, T (&dst)[N]) {
+  constexpr int BYTES = N * static_cast<int>(sizeof(T));
+  constexpr int PIECE = BYTES < 16 ? BYTES : 16;
+  using W = typename Word<PIECE>::type;
+  W w[BYTES / PIECE];
+#pragma unroll
+  for (int i = 0; i < BYTES / PIECE; ++i) w[i] = reinterpret_cast<const W*>(src)[i];
+  memcpy(dst, w, BYTES);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* dst, const T (&src)[N]) {
+  constexpr int BYTES = N * static_cast<int>(sizeof(T));
+  constexpr int PIECE = BYTES < 16 ? BYTES : 16;
+  using W = typename Word<PIECE>::type;
+  W w[BYTES / PIECE];
+  memcpy(w, src, BYTES);
+#pragma unroll
+  for (int i = 0; i < BYTES / PIECE; ++i) reinterpret_cast<W*>(dst)[i] = w[i];
 }
 
 struct BwdArgs {
@@ -459,21 +514,52 @@ struct BwdArgs {
   long long ld, dld;
   int T, E, k, n_valid;
   float scale;
+  int vec;  // rows aligned for V-element vector accesses
 };
 
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(BWD_THREADS) router_bwd_kernel(BwdArgs a) {
   const int lane = threadIdx.x & 31;
   const long long tok = static_cast<long long>(blockIdx.x) *
                             (BWD_THREADS / 32) + threadIdx.x / 32;
   if (tok >= a.T) return;
+  const int e0 = lane * V;
+  const bool whole = a.vec && e0 + V <= a.E;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  // Every read of the token's inputs, before any reduction.
   const T* row = static_cast<const T*>(a.logits) + tok * a.ld;
-  float p[BWD_VPL];
+  T x[V];
+  float g[V];
+  if (whole) {
+    load_vec<T, V>(row + e0, x);
+    if (a.dps != nullptr) load_vec<float, V>(a.dps + e0, g);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      x[j] = e0 + j < a.E ? row[e0 + j] : from_f<T>(0.f);
+      g[j] = (a.dps != nullptr && e0 + j < a.E) ? a.dps[e0 + j] : 0.f;
+    }
+  }
+  if (a.dps == nullptr) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) g[j] = 0.f;
+  }
+  int pick = -1;
+  float pw = 0.f, pdw = 0.f;
+  if (lane < a.k) {  // lane m holds pick m
+    const long long at = tok * a.k + lane;
+    pick = a.idx[at];
+    pw = a.w[at];
+    pdw = a.dw[at];
+  }
+
+  float p[V];
   float mx = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < BWD_VPL; ++j) {
-    const int e = lane + 32 * j;
-    p[j] = (e < a.E && e < a.n_valid) ? to_f(row[e]) : -INFINITY;
+  for (int j = 0; j < V; ++j) {
+    const int e = e0 + j;
+    p[j] = (e < a.E && e < a.n_valid) ? to_f(x[j]) : -INFINITY;
     mx = fmaxf(mx, p[j]);
   }
 #pragma unroll
@@ -481,42 +567,83 @@ __global__ void __launch_bounds__(BWD_THREADS) router_bwd_kernel(BwdArgs a) {
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   float sum = 0.f;
 #pragma unroll
-  for (int j = 0; j < BWD_VPL; ++j) {
+  for (int j = 0; j < V; ++j) {
     p[j] = p[j] == -INFINITY ? 0.f : expf(p[j] - mx);
     sum += p[j];
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  float g[BWD_VPL];
   float pg = 0.f;
 #pragma unroll
-  for (int j = 0; j < BWD_VPL; ++j) {
-    const int e = lane + 32 * j;
+  for (int j = 0; j < V; ++j) {
     p[j] /= sum;
-    g[j] = (a.dps != nullptr && e < a.E) ? a.dps[e] : 0.f;
     pg = fmaf(p[j], g[j], pg);
   }
+  float rdw = lane < a.k ? (pw / a.scale) * pdw : 0.f;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = 16; off > 0; off >>= 1) {
     pg += __shfl_xor_sync(0xffffffffu, pg, off);
-
-  // Every lane reads the token's k picks (one broadcast load each).
-  const int* ids = a.idx + tok * a.k;
-  const float* w = a.w + tok * a.k;
-  const float* dw = a.dw + tok * a.k;
-  float rdw = 0.f;
-  for (int m = 0; m < a.k; ++m) rdw = fmaf(w[m] / a.scale, dw[m], rdw);
-  T* out = static_cast<T*>(a.dlogits) + tok * a.dld;
-#pragma unroll
-  for (int j = 0; j < BWD_VPL; ++j) {
-    const int e = lane + 32 * j;
-    if (e >= a.E) continue;
-    float d = p[j] * (g[j] - pg);
-    for (int m = 0; m < a.k; ++m)
-      if (ids[m] == e) d += w[m] * (dw[m] - rdw);  // scale r_m = w_m
-    out[e] = from_f<T>(d);
+    rdw += __shfl_xor_sync(0xffffffffu, rdw, off);
   }
+
+  float d[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) d[j] = p[j] * (g[j] - pg);
+  const float c = pw * (pdw - rdw);  // scale r_m (dw_m - sum_j r_j dw_j)
+#pragma unroll
+  for (int m = 0; m < MAXK; ++m) {
+    if (m >= a.k) break;  // uniform over the warp
+    const int e = __shfl_sync(0xffffffffu, pick, m);
+    const float cm = __shfl_sync(0xffffffffu, c, m);
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (e == e0 + j) d[j] += cm;
+  }
+  T* out = static_cast<T*>(a.dlogits) + tok * a.dld;
+  if (whole) {
+    T o[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) o[j] = from_f<T>(d[j]);
+    store_vec<T, V>(out + e0, o);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (e0 + j < a.E) out[e0 + j] = from_f<T>(d[j]);
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch_bwd(const BwdArgs& a0, cudaStream_t stream) {
+  BwdArgs a = a0;
+  const auto al = [](const void* p, size_t bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  a.vec = al(a.logits, V * sizeof(T)) && a.ld % V == 0 &&
+          al(a.dlogits, V * sizeof(T)) && a.dld % V == 0 &&
+          (a.dps == nullptr || al(a.dps, V * sizeof(float)));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(
+      (static_cast<long long>(a.T) + BWD_THREADS / 32 - 1) /
+      (BWD_THREADS / 32)), 1, 1);
+  cfg.blockDim = dim3(BWD_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, router_bwd_kernel<T, V>, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_v(const BwdArgs& a, cudaStream_t st) {
+  if (a.E <= 32) return launch_bwd<T, 1>(a, st);
+  if (a.E <= 64) return launch_bwd<T, 2>(a, st);
+  if (a.E <= 128) return launch_bwd<T, 4>(a, st);
+  return launch_bwd<T, 8>(a, st);
 }
 
 }  // namespace
@@ -538,15 +665,14 @@ extern "C" int moe_route_bwd(const void* logits, const void* idx,
   BwdArgs a{logits, static_cast<const int*>(idx),
             static_cast<const float*>(w), static_cast<const float*>(dw),
             static_cast<const float*>(dps), dlogits, ld, dld, T, E, k,
-            n_valid, scale};
-  const unsigned blocks = static_cast<unsigned>(
-      (static_cast<long long>(T) + BWD_THREADS / 32 - 1) / (BWD_THREADS / 32));
+            n_valid, scale, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
   if (dtype == 0)
-    router_bwd_kernel<float><<<blocks, BWD_THREADS, 0, st>>>(a);
+    e = launch_bwd_v<float>(a, st);
   else if (dtype == 1)
-    router_bwd_kernel<__nv_bfloat16><<<blocks, BWD_THREADS, 0, st>>>(a);
+    e = launch_bwd_v<__nv_bfloat16>(a, st);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }

@@ -17,8 +17,10 @@ CUDA source.  The plain versions are ``ref.moe_route_ref`` and
 
 ``moe_route_bwd`` is the gradient of the weights and probability sums
 with respect to the logits, ``router_bwd_kernel`` in the same source: one
-warp a token, no atomics.  One launch a call, counted in
-``bwd_launches``.  Its plain version is ``ref.moe_route_bwd_ref``;
+warp a token, no atomics; every global read issued before the first
+reduction (a lane's logits in one vector load, the token's k picks read
+once by lanes 0..k-1 and shuffled), launched with programmatic dependent
+launch.  One launch a call, counted in ``bwd_launches``.  Its plain version is ``ref.moe_route_bwd_ref``;
 ``ops.moe_route`` and ``ops.moe_topk`` reach it through autograd.
 """
 from __future__ import annotations

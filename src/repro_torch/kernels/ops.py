@@ -23,12 +23,17 @@ forward keeping the row logsumexp; MLA's 192 / 128 too), ``MlstmScan``
 (K3) and ``MoeRoute`` / ``MoeTopk`` (K4: the gradient of the weights and
 of the probability sums; the integer outputs have none).  K2 runs only in
 decode, which records no gradient.
+
+Counting.  Each entry point that reaches a kernel reports its call's
+operations and bytes (and its backward's) to ``work.recording()``, which
+``roofline.analysis.analyze`` opens; outside it the decorator only calls
+the entry point.
 """
 from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import ref, work
 from .decode_attention import decode_attention as _decode_cuda
 from .flash_attention import flash_attention as _flash_cuda
 from .flash_attention import flash_attention_bwd as _flash_bwd_cuda
@@ -132,6 +137,7 @@ class MoeTopk(torch.autograd.Function):
                                     n_valid=ctx.n_valid), None, None)
 
 
+@work.counted(work.flash, work.flash_bwd)
 def grouped_flash(q, k, v, *, causal: bool = True, window: int = 0,
                   scale: float | None = None):
     """q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, hdv) ->
@@ -144,6 +150,7 @@ def grouped_flash(q, k, v, *, causal: bool = True, window: int = 0,
                                  scale=scale)
 
 
+@work.counted(work.decode)
 def grouped_decode(q, k, v, lengths, *, scale: float | None = None):
     """q: (B, 1, H, hd); k, v: (B, S, KH, hd); lengths: (B,) int32."""
     if _on_cuda(q, "grouped_decode"):
@@ -164,6 +171,7 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None):
                           lengths, scale=scale)[:, :, 0]
 
 
+@work.counted(work.scan, work.scan_bwd)
 def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
     """q, k: (BH, S, dk); v: (BH, S, dv); logf, i: (BH, S) -> h (BH, S, dv).
     ``scale`` defaults to dk ** -0.5."""
@@ -174,6 +182,7 @@ def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
     return ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale)
 
 
+@work.counted(work.topk, work.route_bwd)
 def moe_topk(logits, top_k: int, n_valid: int | None = None):
     """logits: (T, E) -> (weights (T, k) float32, indices (T, k) int32)."""
     if _on_cuda(logits, "moe_topk"):
@@ -183,6 +192,7 @@ def moe_topk(logits, top_k: int, n_valid: int | None = None):
     return ref.moe_topk_ref(logits, top_k, n_valid=n_valid)
 
 
+@work.counted(work.route, work.route_bwd)
 def moe_route(logits, top_k: int, *, capacity: int, n_valid: int | None = None,
               router_scale: float = 1.0):
     """logits: (T, E) -> ``ref.Route``: weights, idx, slot (T, k), slot_tok

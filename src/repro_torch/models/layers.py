@@ -22,11 +22,20 @@ def dtype_of(name) -> torch.dtype:
             "float16": torch.float16}[str(name)]
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, which
+    torch does not have: an init given it makes shapes without memory."""
+    device = torch.device("meta")
+
+
 def _normal(gen, shape, scale: float, dtype):
     """Normal(0, scale) values drawn in float32 and stored in ``dtype``.  A
     tensor of more than two dims is drawn one leading slice at a time, so
     the float32 draw never holds more than a slice (a stacked expert
-    tensor of qwen2-moe is 17.7 GB in float32)."""
+    tensor of qwen2-moe is 17.7 GB in float32).  On the ``meta`` device
+    only the shape is made."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype_of(dtype), device="meta")
     if len(shape) > 2:
         out = torch.empty(shape, dtype=dtype_of(dtype), device=gen.device)
         for i in range(shape[0]):

@@ -127,8 +127,22 @@ def _layer_init(gen, cfg: ArchConfig, seg: Segment, lead: tuple = ()):
 
 
 def _apply_mixer_seq(cfg, seg, lp, xn, positions, *, want_cache, smax,
-                     kv_quant):
-    """Full-sequence mixer; returns (y, cache_leaf or None)."""
+                     kv_quant, shardmap_attn=None):
+    """Full-sequence mixer; returns (y, cache_leaf or None).
+    ``shardmap_attn`` (a ``distributed.shardmap_attention`` mixer) takes
+    the GQA mixer's place, as in the reference."""
+    if seg.mixer == "attn" and shardmap_attn is not None:
+        y = shardmap_attn(lp["attn"], xn, positions, seg.window)
+        if want_cache:
+            # cache K/V via the plain projections (cheap vs attention)
+            k = A._split_heads(L.linear(lp["attn"]["wk"], xn),
+                               cfg.n_kv_heads, cfg.hd)
+            v = A._split_heads(L.linear(lp["attn"]["wv"], xn),
+                               cfg.n_kv_heads, cfg.hd)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
+            return y, A.gqa_prefill_cache(cfg, smax, k, v, seg.window,
+                                          quant=kv_quant)
+        return y, None
     if seg.mixer == "attn":
         if want_cache:
             y, kv = A.gqa_forward(cfg, lp["attn"], xn, positions,
@@ -181,7 +195,7 @@ def _apply_ffn(cfg, seg, lp, x, capacity_factor):
 
 def _apply_layer_seq(cfg, seg, lp, x, positions, *, want_cache=False,
                      smax=0, kv_quant=False, capacity_factor=1.25,
-                     enc_out=None):
+                     enc_out=None, shardmap_attn=None):
     """x -> x', aux (the MoE loss, or None), cache_leaf (or None).  A cross
     segment given the encoder's output attends to it, unmasked and without
     RoPE, after its mixer; its cache leaf then holds the encoder K/V beside
@@ -189,7 +203,8 @@ def _apply_layer_seq(cfg, seg, lp, x, positions, *, want_cache=False,
     xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     y, cache = _apply_mixer_seq(cfg, seg, lp, xn, positions,
                                 want_cache=want_cache, smax=smax,
-                                kv_quant=kv_quant)
+                                kv_quant=kv_quant,
+                                shardmap_attn=shardmap_attn)
     x = x + y
     if seg.cross and enc_out is not None:
         xc = L.rmsnorm(lp["normc"], x, cfg.norm_eps)
@@ -293,6 +308,10 @@ class Model(nn.Module):
         self.capacity_factor = capacity_factor
         self.plan = build_plan(cfg)
         self.params = None
+        # The reference's explicit tensor-parallel mixer
+        # (``distributed.shardmap_attention.make_shardmap_gqa``): when set,
+        # every "attn" layer's full-sequence mixer runs through it.
+        self.shardmap_attn = None
 
     def _cf(self, default: float) -> float:
         return self.capacity_factor if self.capacity_factor is not None else default
@@ -301,10 +320,13 @@ class Model(nn.Module):
     def init_params(self, generator: torch.Generator | None = None,
                     seed: int = 0):
         """Random weights from ``generator`` (one on the model's device,
-        seeded with ``seed``, when none is given)."""
+        seeded with ``seed``, when none is given).  A model on the ``meta``
+        device makes the tree's shapes alone, without memory."""
         cfg = self.cfg
         gen = generator
-        if gen is None:
+        if gen is None and self.device.type == "meta":
+            gen = L.MetaGenerator()
+        elif gen is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
         segs = [_layer_init(gen, cfg, seg, lead=_lead(seg)) for seg in self.plan]
         params = {
@@ -405,7 +427,8 @@ class Model(nn.Module):
                                            want_cache=want_cache, smax=smax,
                                            kv_quant=self.kv_quant,
                                            capacity_factor=self._cf(1.25),
-                                           enc_out=enc_out)
+                                           enc_out=enc_out,
+                                           shardmap_attn=self.shardmap_attn)
                 return x, aux if a is None else aux + a, c
             layer_caches = []
             for lp in _layers(seg, sp):

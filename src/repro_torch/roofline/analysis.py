@@ -1,0 +1,346 @@
+"""Three-term roofline of one call on one NVIDIA H100.
+
+    compute term    = sum over types of flops / that type's peak (per card)
+    memory term     = bytes / HBM bandwidth                     (per card)
+    collective term = collective bytes / NVLink bandwidth       (per card)
+
+The reference package reads its flops and bytes from the compiled step's
+cost analysis and its collectives from the optimized HLO text.  PyTorch
+runs eagerly, so ``analyze`` runs the call once and counts as it goes:
+
+* flops: ``torch.utils.flop_counter.FlopCounterMode`` over the dispatched
+  operations (matrix products and convolutions), plus each hand-written
+  kernel's own operations (``kernels.work``: the kernels are bound with
+  ``ctypes`` and no dispatcher sees them), each at its own type: a float32
+  product inside a bf16 step (a tied unembedding) runs at float32's peak;
+* bytes: the operand and output bytes of every dispatched operation that
+  is not a view -- the unfused count, which is what the reference's "bytes
+  accessed" is on its CPU backend -- plus each kernel's bytes;
+* collectives: the ``torch.distributed`` operations the call issues
+  (``collective_bytes``), by kind, at their result's bytes.
+
+Hardware model, one H100 SXM (NVIDIA's data sheet, dense rates; the same
+figures as the ``hopper-kernels`` table of this repository's kernels):
+989 TFLOP/s bf16 and fp16, 67 TFLOP/s float32 outside the tensor cores,
+3.35 TB/s HBM3, NVLink 900 GB/s to the other cards of the host, 450 GB/s
+each way.  Those rates assume the card's full 700 W power limit, and
+float32 products with TF32 off (``chip_smoke.py`` turns it off).
+
+The analytic part -- ``analytic_memory_bytes``, ``active_params``,
+``attn_model_flops``, ``model_flops`` -- is the reference's, held to its
+numbers by the tests; ``count_params`` counts the port's parameter tree,
+which a model on the ``meta`` device builds at full size without memory.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as _pytree_leaves
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
+
+from ..kernels import work as W
+from ..models.layers import dtype_of
+from ..models.weights import tree_leaves
+
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}          # per card, by the step's type
+HBM_BW = 3.35e12                             # bytes/s per card
+NVLINK_BW = 450e9                            # bytes/s per card, each way
+
+_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")
+
+# torch.distributed's operations as the dispatcher sees them, by the
+# reference's collective kinds; the first argument holds each one's result.
+# A point-to-point receive stands in for collective-permute (a send has no
+# result, and each permuted tensor is received once).
+_C10D = {
+    "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+    "_allgather_base_": "all-gather", "allgather_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+    "alltoall_base_": "all-to-all", "alltoall_": "all-to-all",
+    "recv_": "collective-permute", "recv_any_source_": "collective-permute",
+}
+
+
+def bound_ms(w: W.Work) -> tuple:
+    """The least time the card could take for a kernel's ``Work``: the
+    larger of its bytes over ``HBM_BW`` and its operations over the peak of
+    its type, in ms, and which of the two it is ("bytes" or
+    "operations")."""
+    t_bytes = w.bytes / HBM_BW * 1e3
+    t_ops = w.ops / PEAK_FLOPS[w.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _tensor_bytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in _pytree_leaves(x)
+               if isinstance(t, torch.Tensor))
+
+
+class _Counter(TorchDispatchMode):
+    """Operand and output bytes of every dispatched operation that is not a
+    view or an allocation, and the collectives by kind."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+        self.coll = {k: 0 for k in _COLLECTIVES}
+        self.counts = {k: 0 for k in _COLLECTIVES}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func.namespace == "c10d":
+            kind = _C10D.get(func._schema.name.split("::")[-1])
+            if kind is not None:
+                self.coll[kind] += _tensor_bytes(args[0])
+                self.counts[kind] += 1
+        elif not func.is_view and not func._schema.name.startswith(
+                "aten::empty"):
+            self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+        return out
+
+    def collectives(self) -> dict:
+        out = dict(self.coll)
+        out["total"] = sum(self.coll.values())
+        out["counts"] = dict(self.counts)
+        return out
+
+
+def collective_bytes(fn, *args, **kwargs) -> dict:
+    """Per-collective-kind byte totals of the ``torch.distributed``
+    operations that ``fn(*args, **kwargs)`` issues (each at its result's
+    bytes), in the reference's layout: one key a kind, ``total`` and
+    ``counts``."""
+    with _Counter() as c:
+        fn(*args, **kwargs)
+    return c.collectives()
+
+
+@dataclass
+class Roofline:
+    flops: float                  # per-card flops of the call, all types
+    hbm_bytes: float              # per-card bytes accessed
+    coll_bytes: float             # per-card collective bytes
+    model_flops: float = 0.0      # 6*N*D (analytic, per card share)
+    coll_detail: dict = field(default_factory=dict)
+    dtype: torch.dtype = torch.bfloat16    # whose peak bounds the flops
+    kernels: dict = field(default_factory=dict)   # name -> calls, ops, bytes
+    # flops by the type each operation ran in; empty: all of type ``dtype``
+    flops_by_type: dict = field(default_factory=dict)
+
+    @property
+    def t_compute(self) -> float:
+        by_type = self.flops_by_type or {self.dtype: self.flops}
+        return sum(f / PEAK_FLOPS[dt] for dt, f in by_type.items())
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes / HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes / NVLINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def roofline_time(self) -> float:
+        """Ideal overlapped execution: bounded by the slowest term."""
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def mfu_bound(self) -> float:
+        """Model-FLOPs utilization upper bound at the roofline time."""
+        if self.roofline_time <= 0:
+            return 0.0
+        return (self.model_flops / PEAK_FLOPS[self.dtype]) / self.roofline_time
+
+    def useful_flops_ratio(self) -> float:
+        return self.model_flops / self.flops if self.flops else 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "flops": self.flops, "hbm_bytes": self.hbm_bytes,
+            "coll_bytes": self.coll_bytes, "model_flops": self.model_flops,
+            "t_compute": self.t_compute, "t_memory": self.t_memory,
+            "t_collective": self.t_collective, "bottleneck": self.bottleneck,
+            "mfu_bound": self.mfu_bound,
+            "useful_flops_ratio": self.useful_flops_ratio(),
+            "coll_detail": {k: v for k, v in self.coll_detail.items()
+                            if k != "counts"},
+            "coll_counts": self.coll_detail.get("counts", {}),
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "flops_by_type": {str(dt).replace("torch.", ""): f
+                              for dt, f in self.flops_by_type.items()},
+            "kernels": self.kernels,
+        }
+
+
+def _flops_by_type(by_type: dict) -> dict:
+    """``FlopCounterMode``'s formulas, each adding its count to
+    ``by_type`` under the type of the operation's first floating-point
+    operand.  Marked raw, so the counter hands them tensors, which they
+    pass on to the formula (it takes their shapes itself)."""
+    def wrap(formula):
+        def count(*args, out_val=None, **kwargs):
+            n = formula(*args, out_val=out_val, **kwargs)
+            dt = next((t.dtype for t in _pytree_leaves((args, kwargs))
+                       if isinstance(t, torch.Tensor)
+                       and t.is_floating_point()), None)
+            by_type[dt] = by_type.get(dt, 0) + n
+            return n
+        count._get_raw = True
+        return count
+    return {op: wrap(f) for op, f in flop_registry.items()}
+
+
+def analyze(fn, *args, model_flops: float = 0.0, dtype=torch.bfloat16,
+            **kwargs) -> Roofline:
+    """Run ``fn(*args, **kwargs)`` once and count its flops by type, bytes
+    and collectives (the module docstring says how); ``dtype`` is the
+    step's type, whose peak prices the model flops.  On the card the call
+    is synchronised before anything is read.  Count in one run and time in
+    another: the counting run is slower."""
+    by_type = {}
+    flop = FlopCounterMode(display=False,
+                           custom_mapping=_flops_by_type(by_type))
+    counter = _Counter()
+    with W.recording() as calls, flop, counter:
+        fn(*args, **kwargs)
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    kernels = {}
+    for w in calls:
+        by_type[w.dtype] = by_type.get(w.dtype, 0) + w.ops
+        k = kernels.setdefault(w.name, {"calls": 0, "ops": 0, "bytes": 0})
+        k["calls"] += 1
+        k["ops"] += w.ops
+        k["bytes"] += w.bytes
+    coll = counter.collectives()
+    if None in by_type:
+        raise RuntimeError(f"flops without a type: {by_type}")
+    return Roofline(
+        flops=float(flop.get_total_flops()
+                    + sum(k["ops"] for k in kernels.values())),
+        hbm_bytes=float(counter.bytes
+                        + sum(k["bytes"] for k in kernels.values())),
+        coll_bytes=float(coll["total"]), model_flops=model_flops,
+        coll_detail=coll, dtype=dtype_of(dtype), kernels=kernels,
+        flops_by_type={dt: float(f) for dt, f in by_type.items()})
+
+
+def analytic_memory_bytes(cfg, shape, arg_bytes: float, out_bytes: float,
+                          n_devices: int) -> float:
+    """Analytic per-device HBM traffic per step (the reference's).
+
+    The unfused count of ``analyze`` sums every operation's operands with
+    no fusion and overstates HBM traffic; this analytic estimate is what
+    the reference's roofline memory term uses.
+
+    train   : params read fwd+bwd + grad write + opt m/v read/write
+              (~2.5x resident argument bytes) + remat activation traffic
+              (~12 x tokens x d x L x 2B: fwd save + bwd recompute + reads)
+    prefill : params + activations (~6x) + cache writes (output bytes)
+    decode  : params + full cache read (= argument bytes) + small writes
+    """
+    d, L = cfg.d_model, cfg.n_layers
+    tokens_loc = shape.global_batch * shape.seq_len / n_devices
+    if shape.kind == "train":
+        return 2.5 * arg_bytes + 12.0 * tokens_loc * d * L * 2.0
+    if shape.kind == "prefill":
+        return arg_bytes + 6.0 * tokens_loc * d * L * 2.0 + out_bytes
+    return arg_bytes + out_bytes / max(shape.seq_len, 1)
+
+
+# ---------------------------------------------------------------------------
+# analytic MODEL_FLOPS
+# ---------------------------------------------------------------------------
+
+def count_params(shapes_tree) -> int:
+    """Parameters of a tree; at full size, give it the tree of a model on
+    the ``meta`` device (``Model(cfg, device="meta").init_params()``):
+    shapes without memory (deepseek-v3 has 671 B)."""
+    return sum(int(x.numel()) for x in tree_leaves(shapes_tree))
+
+
+def active_params(cfg, total_params: int) -> int:
+    """MoE: only shared + top-k routed experts are active per token."""
+    if cfg.moe is None:
+        return total_params
+    m = cfg.moe
+    e = m.routed_total()
+    # per-layer routed expert params
+    per_expert = 3 * cfg.d_model * m.expert_ff
+    n_moe_layers = cfg.n_layers - cfg.first_k_dense
+    routed_total = e * per_expert * n_moe_layers
+    routed_active = m.top_k * per_expert * n_moe_layers
+    return total_params - routed_total + routed_active
+
+
+def _attn_flops_per_token(cfg, ctx: float) -> float:
+    """Score + AV matmul FLOPs per token at effective context ``ctx``."""
+    d_attn = cfg.n_heads * cfg.hd
+    n_attn = cfg.n_layers if cfg.family != "ssm" else 0
+    per = 4.0 * d_attn * ctx * n_attn
+    if cfg.family == "hybrid" and cfg.ssm is not None:
+        # SSD heads: state update + readout ~ 4 * n * hd per head per token
+        per += 4.0 * cfg.ssm.state_dim * cfg.hd * cfg.n_heads * cfg.n_layers
+    if cfg.family == "ssm" and cfg.ssm is not None:
+        di = cfg.ssm.expand * cfg.d_model
+        hd = di // cfg.n_heads
+        per += 4.0 * hd * hd * cfg.n_heads * cfg.n_layers   # matrix memory
+    return per
+
+
+def attn_model_flops(cfg, shape, n_devices: int) -> float:
+    """Per-device analytic attention FLOPs for the whole step (the part a
+    blocked attention kernel hides from a counter of dispatched
+    operations)."""
+    s, b = shape.seq_len, shape.global_batch
+    if shape.kind in ("train", "prefill"):
+        ctx = (min(s, cfg.sliding_window) if cfg.sliding_window else s) / 2.0
+        per = _attn_flops_per_token(cfg, ctx)
+        mult = 3.0 if shape.kind == "train" else 1.0
+        return mult * b * s * per / n_devices
+    ctx = min(s, cfg.sliding_window) if cfg.sliding_window else s
+    per = _attn_flops_per_token(cfg, ctx)
+    if cfg.family == "hybrid":
+        d_attn = cfg.n_heads * cfg.hd
+        per += 4.0 * d_attn * (s - cfg.sliding_window) * len(cfg.global_attn_layers)
+    return b * per / n_devices
+
+
+def model_flops(cfg, shape, params_total: int, n_devices: int) -> float:
+    """Analytic useful FLOPs per device: 6*N*D train / 2*N*D forward over
+    matmul params, plus attention context terms and the LM head where it is
+    actually computed (prefill emits last-position logits only)."""
+    n_act = active_params(cfg, params_total)
+    vocab_d = cfg.vocab_size * cfg.d_model
+    # Embedding gather costs ~no FLOPs. The unembed matmul costs 2*vocab_d
+    # per logits-position whether the head is tied (reuses the table) or a
+    # separate parameter -- n_body excludes both.
+    n_body = n_act - vocab_d - (0 if cfg.tie_embeddings else vocab_d)
+    head = 2.0 * vocab_d
+    s = shape.seq_len
+    b = shape.global_batch
+    attn = attn_model_flops(cfg, shape, n_devices) * n_devices
+    if shape.kind == "train":
+        tokens = b * s
+        total = 3.0 * tokens * (2.0 * n_body + head) + attn
+    elif shape.kind == "prefill":
+        tokens = b * s
+        total = tokens * 2.0 * n_body + b * head + attn
+    else:                                    # decode: one token per sequence
+        total = b * (2.0 * n_body + head) + attn
+    return total / n_devices

@@ -1,4 +1,5 @@
-"""The port stands alone: ``repro_torch`` (and ``chip_smoke.py``) import no
+"""The port stands alone: ``repro_torch`` (with ``chip_smoke.py`` and the
+port's two examples) imports no
 JAX and nothing of the reference package, and the scheduler and configs it
 copied stay equal to the reference's, docstrings aside."""
 import ast
@@ -59,7 +60,12 @@ def test_port_modules_found():
               "repro_torch.training.optimizer",
               "repro_torch.training.checkpoint",
               "repro_torch.training.grad_compress",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.launch.mesh",
+              "repro_torch.kernels.work", "repro_torch.roofline.analysis",
+              "repro_torch.roofline.report",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.shardmap_attention",
+              "repro_torch.distributed.pipeline_parallel"):
         assert m in MODULES
 
 
@@ -87,7 +93,12 @@ def _imported_roots(tree):
 _SCHEMA_ID = '"repro.core.trace/v1"'
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+EXAMPLES = [ROOT / "examples" / "mixed_serving_torch.py",
+            ROOT / "examples" / "train_100m_torch.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"]
+                         + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_file_names_neither_jax_nor_reference(path):
     text = path.read_text()

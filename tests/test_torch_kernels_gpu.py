@@ -967,6 +967,37 @@ def test_router_backward_kernel_matches_plain(cuda, dtype, t, e, k, n_valid,
         assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [8, 2048])
+@pytest.mark.parametrize("e,k,n_valid,scale", [(64, 4, 60, 1.0),
+                                               (256, 8, 256, 2.5)])
+@pytest.mark.parametrize("pad", [0, 1])
+def test_router_backward_at_training_shapes_is_bit_identical(
+        cuda, dtype, t, e, k, n_valid, scale, pad):
+    """K4's backward at qwen2-moe's (E 64, k 4) and deepseek's (E 256, k 8)
+    training widths: against the plain gradient and bit-identical from
+    call to call.  ``pad`` 1 gives rows one element longer than E, so the
+    lanes take the scalar path in place of the vector loads."""
+    wide = _randn((t, e + pad), dtype, cuda, 95)
+    logits = wide[:, :e]
+    r = kmoe.moe_route(logits, k, capacity=max(1, t * k // e),
+                       n_valid=n_valid, router_scale=scale)
+    dw = _randn((t, k), torch.float32, cuda, 96)
+    dps = _randn((e,), torch.float32, cuda, 97)
+    for sums in (dps, None):
+        got = kmoe.moe_route_bwd(logits, r.idx, r.weights, dw, sums,
+                                 n_valid=n_valid, router_scale=scale)
+        want = ref.moe_route_bwd_ref(logits, r.idx, r.weights, dw, sums,
+                                     n_valid=n_valid, router_scale=scale)
+        assert (got[:, n_valid:] == 0).all()
+        assert _rel_err(got, want) < TOL[dtype], _rel_err(got, want)
+        assert _norm_err_or_zero(got, want) < NORM_TOL[dtype]
+        for _ in range(3):
+            assert torch.equal(got, kmoe.moe_route_bwd(
+                logits, r.idx, r.weights, dw, sums, n_valid=n_valid,
+                router_scale=scale))
+
+
 def test_router_gradient_through_ops_runs_the_kernel(cuda):
     """``ops.moe_route`` and ``ops.moe_topk`` under autograd: one forward
     and one backward launch each, the gradient the plain one's."""
@@ -1079,3 +1110,44 @@ def test_family_train_loss_gradient_on_the_card_is_bit_identical(cuda, dtype,
     assert torch.equal(l1, l2)
     assert all(torch.equal(a, b)
                for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+
+
+# ------------------------------------------------- counting on the card
+def test_analyze_on_the_card_counts_each_kernel_by_its_formula(cuda):
+    """``roofline.analysis.analyze`` of a prefill and a train step on the
+    card: the kernels (bound with ctypes, unseen by the dispatcher) report
+    their ``kernels.work`` counts, the matrix products theirs, and the
+    result equals the uncounted call's."""
+    from repro_torch.kernels import work
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import tree_leaves
+    from repro_torch.roofline import analysis as RA
+    cfg = get_arch("llama3.2-1b").reduced()
+    model = Model(cfg, device="cuda")
+    params = model.init_params(seed=0)
+    b, s = 2, 64
+    toks = torch.randint(0, cfg.vocab_size, (b, s), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0)).cuda()
+    want, _ = model.prefill(params, {"tokens": toks}, 128)
+    n = kflash.launches.count
+    r = RA.analyze(model.prefill, params, {"tokens": toks}, 128,
+                   dtype=torch.float32)
+    assert kflash.launches.count == n + cfg.n_layers
+    one = work.flash(torch.empty(b, s, cfg.n_heads, cfg.hd),
+                     torch.empty(b, s, cfg.n_kv_heads, cfg.hd),
+                     torch.empty(b, s, cfg.n_kv_heads, cfg.hd))
+    k1 = r.kernels["flash_attention"]
+    assert (k1["calls"], k1["ops"]) == (cfg.n_layers, cfg.n_layers * one.ops)
+    layer_w = sum(x.numel() for x in tree_leaves(params["segments"])
+                  if x.dim() == 3)
+    assert r.flops - k1["ops"] == 2 * b * s * layer_w \
+        + 2 * b * cfg.vocab_size * cfg.d_model
+    got, _ = model.prefill(params, {"tokens": toks}, 128)
+    assert torch.equal(got, want)
+    leaves = [x.requires_grad_(True) for x in tree_leaves(params)]
+    n_bwd = kflash.bwd_launches.count
+    r = RA.analyze(lambda: torch.autograd.grad(model.train_loss(
+        params, {"tokens": toks, "labels": toks})[0], leaves),
+        dtype=torch.float32)
+    assert kflash.bwd_launches.count == n_bwd + cfg.n_layers
+    assert r.kernels["flash_attention_bwd"]["calls"] == cfg.n_layers

@@ -520,3 +520,32 @@ def test_moe_engine_matches_direct_decode():
     kernel.stop()
     assert all(r.ok for r in reqs)
     assert reqs[0].tokens == direct
+
+
+@pytest.mark.parametrize("t,e,k,n_valid,scale", [
+    (8, 64, 4, 60, 1.0), (300, 64, 4, 60, 1.0), (64, 256, 8, 256, 2.5),
+    (37, 16, 1, 12, 1.0)])
+@pytest.mark.parametrize("sums", [True, False])
+def test_router_backward_plain_matches_reference_gradient(t, e, k, n_valid,
+                                                          scale, sums):
+    """K4's backward plain version (the kernel's yardstick on the card)
+    against the reference's gradient: ``jax.vjp`` of its plain router's
+    weights (times the router's scale) and of the softmax probabilities
+    summed over the tokens, float32, 2e-5."""
+    x = rand((t, e), 7)
+    dw = rand((t, k), 8)
+    g = rand((e,), 9) if sums else np.zeros(e, np.float32)
+
+    def f(lg):
+        w, _ = jref.moe_topk_ref(lg, k, n_valid=n_valid)
+        masked = jnp.where(jnp.arange(e)[None, :] < n_valid, lg, -1e30)
+        return w * scale, jax.nn.softmax(masked, axis=-1).sum(0)
+    (w, _), vjp = jax.vjp(f, jnp.asarray(x))
+    want, = vjp((jnp.asarray(dw), jnp.asarray(g)))
+    _, idx = jref.moe_topk_ref(jnp.asarray(x), k, n_valid=n_valid)
+    got = tref.moe_route_bwd_ref(
+        torch.from_numpy(x), torch.from_numpy(np.array(idx)),
+        torch.from_numpy(np.array(w)), torch.from_numpy(dw),
+        torch.from_numpy(g) if sums else None, n_valid=n_valid,
+        router_scale=scale)
+    close(got, want, 2e-5)
