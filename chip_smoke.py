@@ -2296,6 +2296,214 @@ def distributed_phase(Model, get_arch, kflash) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- dry-run
+# The cells the dry-run traces on the card, (arch, shape, multi-pod,
+# variant): between them K1 and its backward, K2, K3 and K4 and its
+# backward.
+DRYRUN_CELLS = [("llama3.2-1b", "train_4k", False, {}),
+                ("llama3.2-1b", "prefill_32k", False, {}),
+                ("llama3.2-1b", "decode_32k", False, {}),
+                ("llama3.2-1b", "decode_32k", True, {}),
+                ("qwen2-moe-a2.7b", "train_4k", False, {"ep": True}),
+                ("xlstm-350m", "prefill_32k", False, {})]
+DRYRUN_PEAK_TOL = 0.15        # traced peak against max_memory_allocated
+
+
+class SpecMesh:
+    """A mesh's axis names and sizes, all the sharding rules read."""
+
+    def __init__(self, shape, axes):
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(axes, shape))
+
+
+def spec_argument_bytes(arch: str, shape_name: str, multi_pod: bool,
+                        variant: dict) -> int:
+    """Rank 0's bytes of a cell's step inputs from the sharding specs
+    alone, without DTensor: each leaf's bytes over the product of the axes
+    its spec shards it on (parameters with ``ep`` as the variant says,
+    the optimizer state (bf16 m, v and the step) and the batch; or the
+    caches and the token)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.weights import tree_leaves
+    from repro_torch.training import optimizer
+    mesh = SpecMesh(*dryrun.MESHES[multi_pod])
+    cfg, shape = get_arch(arch), SHAPES[shape_name]
+
+    def nbytes(leaf, spec) -> int:
+        parts = 1
+        for ax in spec:
+            for a in (ax if isinstance(ax, tuple) else (ax,)) if ax else ():
+                parts *= mesh.shape[a]
+        return leaf.numel() * leaf.element_size() // parts
+
+    def tree(t, spec_fn) -> int:
+        got = []
+        SH.tree_map_with_path(lambda p, x: got.append(nbytes(x, spec_fn(
+            p, x))), t)
+        return sum(got)
+    model = Model(cfg, device="meta")
+    meta = model.init_params()
+    ep = variant.get("ep", False)
+    total = tree(meta, lambda p, x: SH.param_spec(p, x, mesh, ep=ep))
+    b, s = shape.global_batch, shape.seq_len
+    tok = torch.empty((b, s if shape.kind != "decode" else 1),
+                      dtype=torch.int32, device="meta")
+    total += (2 if shape.kind == "train" else 1) * nbytes(
+        tok, SH.batch_spec(tok, mesh))
+    if shape.kind == "train":
+        state = optimizer.init_state(optimizer.OptimizerConfig(
+            state_dtype="bfloat16"), meta)
+        total += tree(state, lambda p, x: SH.param_spec(p, x, mesh))
+    if shape.kind == "decode":
+        caches = model.init_cache(b, s, device="meta")
+        specs = model.cache_pspecs(mesh, b, s)
+        total += sum(nbytes(c, sp) for c, sp in zip(tree_leaves(caches),
+                                                    _spec_leaves(specs)))
+    return total
+
+
+def _spec_leaves(tree) -> list:
+    """The spec tuples of a cache spec tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _spec_leaves(v)]
+    return [tree]
+
+
+def dryrun_phase() -> dict:
+    """The dry-run on the card: (a) each of ``DRYRUN_CELLS`` traced at full
+    size as rank 0's program over DTensor on a fake group of 256 or 512
+    ranks, under ``FakeTensorMode``, on the kernel path
+    (``launch.dryrun.run_cell``, device "cuda"): every cell ok, its
+    argument bytes equal to the spec-derived sum, and nothing allocated on
+    the card (``memory_allocated`` the same after, the peak after
+    ``reset_peak_memory_stats`` not above it); (b) the one-rank check
+    (``one_rank_phase``).  Returns each kernel's calls over the cells."""
+    from repro_torch.launch import dryrun
+    counted = {}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for arch, shape, mp, variant in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, mp, variant=variant, device="cuda")
+        r, mem = rec["roofline"], rec["memory"]
+        want = spec_argument_bytes(arch, shape, mp, variant)
+        for name, k in r["kernels"].items():
+            counted[name] = counted.get(name, 0) + k["calls"]
+        log("dryrun.cell", arch=arch, shape=shape, mesh=rec["mesh"],
+            variant=variant, status=rec["status"], trace_s=rec["trace_s"],
+            argument_gb=mem["argument_bytes"] / 2**30,
+            argument_bytes=mem["argument_bytes"], spec_argument_bytes=want,
+            peak_gb=mem["peak_bytes"] / 2**30, temp_gb=mem["temp_bytes"] / 2**30,
+            output_gb=mem["output_bytes"] / 2**30,
+            flops_by_type=r["flops_by_type"], coll_bytes=r["coll_bytes"],
+            coll_detail=r["coll_detail"], coll_counts=r["coll_counts"],
+            bottleneck=r["bottleneck"], t_compute_ms=r["t_compute"] * 1e3,
+            t_memory_ms=r["t_memory"] * 1e3,
+            t_collective_ms=r["t_collective"] * 1e3,
+            kernels={n: k["calls"] for n, k in r["kernels"].items()},
+            card=card_line())
+        if rec["status"] != "ok" or mem["argument_bytes"] != want:
+            raise AssertionError(f"dry-run {arch} {shape}: {rec['status']}, "
+                                 f"arguments {mem['argument_bytes']} != {want}")
+    torch.cuda.synchronize()
+    after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    log("dryrun.memory", allocated_before=before, allocated_after=after,
+        peak_after_reset=peak)
+    if after != before or peak > before:
+        raise AssertionError(f"the dry-run allocated on the card: {before} "
+                             f"-> {after}, peak {peak}")
+    reached = {"flash_attention", "flash_attention_bwd", "decode_attention",
+               "mlstm_scan", "moe_topk", "moe_route_bwd"}
+    if not reached <= set(counted):
+        raise AssertionError(f"dry-run kernels {counted}, want {reached}")
+    log("dryrun.kernels", calls=counted)
+    one_rank_phase()
+    return counted
+
+
+def one_rank_phase() -> None:
+    """The dry-run against a real run on the card, one rank: llama3.2-1b's
+    train step at ``train.steps``' shape (B 4, S 4096, 2 micro-batches,
+    remat, AdamW's float32 state) and its decode step (B 8, S_max 1024,
+    701 positions live), each run for real (``analyze``'s flops; the peak
+    of ``max_memory_allocated`` over one step, reset just before it) and
+    traced on a one-rank fake mesh.  The traced flops by type must equal
+    the real run's exactly, the traced peak be within
+    ``DRYRUN_PEAK_TOL`` of the real one."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import optimizer, trainer
+    cfg = get_arch("llama3.2-1b")
+    b, s = 4, 4096
+    tcfg = trainer.TrainConfig(grad_accum=2, opt=optimizer.OptimizerConfig(
+        lr=1e-4, warmup_steps=0, total_steps=4))
+    model = Model(cfg, device="cuda")
+    box = {"state": trainer.init_state(
+        model, tcfg, torch.Generator(device="cuda").manual_seed(0))}
+    model._buffers.clear()          # the state alone holds the weights
+    model.params = None
+    raw = SyntheticTokens(cfg.vocab_size, seed=0).batch(0, 0, b, s)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in raw.items()}
+    step = trainer.make_train_step(model, tcfg)
+    box["state"], _ = step(box["state"], batch)           # warm
+    real = {}
+
+    def measured(fn, *args) -> tuple:
+        """One call under ``analyze`` (which holds no memory of the card):
+        its ``max_memory_allocated``, reset just before, and its counts."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        roof = RA.analyze(fn, *args, dtype=cfg.dtype)
+        return torch.cuda.max_memory_allocated(), roof
+    real["train_step"] = measured(step, box["state"], batch)
+    del box, batch, step
+    free_device_memory()
+    model = Model(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    caches = model.init_cache(8, 1024)
+    tok = torch.zeros((8, 1), dtype=torch.int32, device="cuda")
+    model.decode_step(params, caches, tok, 700)            # warm
+    real["decode_step"] = measured(model.decode_step, params, caches, tok, 700)
+    del model, params, caches, tok
+    free_device_memory()
+    traced = {
+        "train_step": dryrun.trace(cfg, ShapeConfig("train.steps", s, b,
+                                                    "train"),
+                                   (1, 1), ("data", "model"), device="cuda",
+                                   train_cfg=tcfg),
+        "decode_step": dryrun.trace(cfg, ShapeConfig("decode_step", 1024, 8,
+                                                     "decode"),
+                                    (1, 1), ("data", "model"), device="cuda",
+                                    pos=700)}
+    for name, (peak, roof) in real.items():
+        rec = traced[name]
+        want = roof.to_dict()["flops_by_type"]
+        got = rec["roofline"]["flops_by_type"]
+        traced_peak = rec["memory"]["peak_bytes"]
+        log("dryrun.one_rank", step=name, real_flops_by_type=want,
+            traced_flops_by_type=got, real_kernels=roof.kernels,
+            traced_kernels=rec["roofline"]["kernels"],
+            real_max_memory_allocated=peak, traced_peak_bytes=traced_peak,
+            traced_argument_bytes=rec["memory"]["argument_bytes"],
+            peak_ratio=traced_peak / peak, tol=DRYRUN_PEAK_TOL,
+            trace_s=rec["trace_s"], card=card_line())
+        if got != want:
+            raise AssertionError(f"dry-run {name} flops {got} != real {want}")
+        if abs(traced_peak / peak - 1) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"dry-run {name} peak {traced_peak} against "
+                                 f"max_memory_allocated {peak}")
+
+
 # --------------------------------------------------------------- examples
 def run_example(name: str, *args) -> str:
     """Run ``examples/<name>`` in this process as ``python <name> <args>``
@@ -2514,6 +2722,11 @@ def main() -> int:
     free_device_memory()
     train_check_families_phase(ops, ref, Model, trainer, get_arch)
     done("train.check", t0)
+
+    t0 = time.monotonic()
+    dryrun_calls = dryrun_phase()
+    free_device_memory()
+    done("dryrun", t0, kernel_calls=dryrun_calls)
 
     t0 = time.monotonic()
     shardmap = distributed_phase(Model, get_arch, kflash)

@@ -22,6 +22,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from ..launch.mesh import axis_sizes, dp_axes
 
 
@@ -136,7 +139,6 @@ def placements(spec: tuple, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: for each mesh dimension,
     ``Shard(d)`` where the spec puts that axis on tensor dim d, else
     ``Replicate()``."""
-    from torch.distributed.tensor import Replicate, Shard
     names = list(axis_sizes(mesh))
     out = [Replicate()] * len(names)
     for d, ax in enumerate(spec):
@@ -210,6 +212,36 @@ def cache_spec(leaf, mesh) -> tuple:
     return _canon(spec_list)
 
 
+def cache_leaf_spec(shape: tuple, mesh, scanned: bool) -> tuple:
+    """The spec of one cache leaf of ``Model.cache_pspecs``, the
+    reference's ``_cache_leaf_pspec``: the batch dim (after a scanned
+    segment's layer dim) over the data axes when it divides and is above
+    1, else the sequence dim when it is at least 4096 and divides; then
+    the last heads-like dim (from the next-to-last down, past the batch)
+    over model where it divides."""
+    sizes = axis_sizes(mesh)
+    dp = dp_axes(mesh)
+    dp_size = 1
+    for a in dp:
+        dp_size *= sizes[a]
+    tp = sizes.get("model", 1)
+    off = 1 if scanned else 0
+    spec = [None] * len(shape)
+    dp_spec = dp if len(dp) > 1 else dp[0]
+    b = shape[off]
+    if b >= dp_size and b % dp_size == 0 and b > 1:
+        spec[off] = dp_spec
+    elif len(shape) > off + 1:
+        s_dim = off + 1
+        if shape[s_dim] >= 4096 and shape[s_dim] % dp_size == 0:
+            spec[s_dim] = dp_spec
+    for d in range(len(shape) - 2, off, -1):
+        if spec[d] is None and tp > 1 and shape[d] % tp == 0 and shape[d] >= tp:
+            spec[d] = "model"
+            break
+    return tuple(spec)
+
+
 def cache_shardings(caches, mesh):
     return tree_map_with_path(
         lambda _, leaf: placements(cache_spec(leaf, mesh), mesh), caches)
@@ -217,3 +249,113 @@ def cache_shardings(caches, mesh):
 
 def replicated(mesh) -> tuple:
     return placements((), mesh)
+
+
+# ------------------------------------------------------- DTensor programs
+def constrain(x, spec):
+    """``x`` redistributed to the placements of ``spec`` on its mesh when
+    it is a DTensor -- an axis kept only where its dim divides, as the
+    rules keep one -- the counterpart of the reference's
+    ``with_sharding_constraint``; a plain tensor, or no spec, passes as it
+    is."""
+    if spec is None or not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    fitted = _canon(tuple(_pick(x.shape[d], mesh, a) for d, a in enumerate(spec)))
+    return x.redistribute(mesh, placements(fitted, mesh))
+
+
+def whole(x, dim: int, parts: int | None = None):
+    """A DTensor ``x`` with ``dim`` on every rank whole (its shards
+    gathered, partial sums reduced), the other dims placed as they were;
+    a plain tensor as it is.  For an operation whose result on a shard of
+    ``dim`` is not a shard of its result (a softmax over a sharded
+    vocabulary, a linear map over a sequence split two ways).  With
+    ``parts``, only when ``dim``'s shards do not split it into a multiple
+    of ``parts`` pieces (heads that a reshape makes of it)."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    if parts is not None:
+        n = 1
+        for md, p in enumerate(x.placements):
+            if getattr(p, "dim", None) == dim:
+                n *= x.device_mesh.size(md)
+        if parts % n == 0:
+            return x
+    keep = tuple(p if getattr(p, "dim", dim) != dim else Replicate()
+                 for p in x.placements)
+    return x.redistribute(x.device_mesh, keep)
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity, whose gradient is made whole on ``dim``."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return whole(grad, ctx.dim), None
+
+
+def whole_grad(x, dim: int):
+    """``x`` itself, whose gradient, when it is a DTensor, arrives whole on
+    ``dim`` (``whole``): what ``whole`` does for a value, for the gradient
+    that flows back into it (a product's output, whose gradient the
+    product's backward flattens as its input)."""
+    if not isinstance(x, DTensor):
+        return x
+    return _WholeGrad.apply(x, dim)
+
+
+def shardwise(fn, x, dims: tuple = ()):
+    """``fn`` of one tensor on each rank's shard of a DTensor ``x`` under
+    ``local_map``, for an ``fn`` that maps a shard to the same shard of its
+    result once ``x``'s ``dims`` are whole (made so first): an elementwise
+    operation DTensor has no rule for (``logsigmoid``), a pad or roll of
+    the sequence into a cache (DTensor's rule for padding cannot place
+    some layouts).  Other shards stay where they are; a partial sum is
+    reduced first.  On a plain tensor, ``fn(x)``."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    from ..kernels.ops import on_shards
+    dims = {d % x.ndim for d in dims}
+    keep = [Replicate() if p.is_partial() or getattr(p, "dim", None) in dims
+            else p for p in x.placements]
+    return on_shards(fn, (keep,), keep, x)
+
+
+def settle(y, like):
+    """A DTensor ``y`` that is a partial sum, reduced to the layout of the
+    tensor it is about to be added to (``like``, broadcast from the right:
+    a bias, a residual stream): scattered over ``like``'s shards where
+    ``like`` is sharded on that mesh dim, else reduced whole.  DTensor's
+    rule for the sum would otherwise move ``like`` to a partial sum, which
+    torch 2.11 cannot do.  Anything else as it is."""
+    if not isinstance(y, DTensor) or not any(p.is_partial()
+                                             for p in y.placements):
+        return y
+    lp = like.placements if isinstance(like, DTensor) else \
+        (Replicate(),) * len(y.placements)
+    off = y.ndim - like.ndim
+    out = [(Shard(lp[i].dim + off) if isinstance(lp[i], Shard) else Replicate())
+           if p.is_partial() else p for i, p in enumerate(y.placements)]
+    return y.redistribute(y.device_mesh, out)
+
+
+def head_layout(x):
+    """A DTensor (B, S, heads, d) placed as the attention kernels take it:
+    batch rows over the data axes and heads over the model axis, each where
+    it divides, the sequence and head dim whole (``constrain``).  DTensor
+    leaves the layout of the projected heads to its rules, and some of
+    those layouts it cannot pad or roll into a cache; a plain tensor
+    passes as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    names = x.device_mesh.mesh_dim_names
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    return constrain(x, (dp if len(dp) > 1 else (dp[0] if dp else None),
+                         None, "model" if "model" in names else None, None))

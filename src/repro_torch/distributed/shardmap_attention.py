@@ -22,6 +22,13 @@ the mixer gives every rank the input's full gradient and its own heads'
 rows and columns of the weights' gradients.  The ``all_reduce`` runs at
 any group size, one rank included.
 
+On DTensors (a sharded program, the dry-run's) the mixer runs on each
+rank's shards under ``local_map``, as the reference's ``shard_map`` does:
+the input's batch rows over the data axes, q's columns and wo's rows over
+the model axis (the reference's in_specs), the K/V weights whole (each rank
+expands them and takes its heads' columns, as on plain tensors); the
+output, summed over the model group, is placed on the batch rows alone.
+
 Restrictions (checked): n_heads divisible by the model-axis size, no QKV
 bias.  ``Model.shardmap_attn`` applies it in place of the GQA mixer.
 """
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels import ops
 from ..launch.mesh import axis_sizes
@@ -90,10 +98,32 @@ def make_shardmap_gqa(mesh, cfg):
 
     def fwd(p, x, positions, window: int = 0):
         dt = x.dtype
-        wq = p["wq"]["w"].to(dt)[:, cols]
-        wk = expand_kv_weight(p["wk"]["w"].to(dt), kh, g)[:, cols]
-        wv = expand_kv_weight(p["wv"]["w"].to(dt), kh, g)[:, cols]
-        wo = p["wo"]["w"].to(dt)[cols]
+        if isinstance(x, DTensor):
+            return _on_shards(p, x, positions, window)
+        return local(p["wq"]["w"].to(dt)[:, cols], p["wk"]["w"].to(dt),
+                     p["wv"]["w"].to(dt), p["wo"]["w"].to(dt)[cols], x,
+                     positions, window)
+
+    def _on_shards(p, x, positions, window):
+        names = mesh.mesh_dim_names
+        rows = [Shard(0) if a in ("pod", "data") else Replicate()
+                for a in names]
+        whole = [Replicate()] * len(names)
+        q_cols = [Shard(1) if a == "model" else Replicate() for a in names]
+        o_rows = [Shard(0) if a == "model" else Replicate() for a in names]
+        dt = x.dtype
+        return ops.on_shards(
+            lambda wq, wk, wv, wo, x: local(wq, wk, wv, wo, x, positions,
+                                            window),
+            (q_cols, whole, whole, o_rows, rows), rows,
+            p["wq"]["w"].to(dt), p["wk"]["w"].to(dt), p["wv"]["w"].to(dt),
+            p["wo"]["w"].to(dt), x)
+
+    def local(wq, wk, wv, wo, x, positions, window):
+        """The mixer on this rank's q columns ``wq`` and wo rows ``wo``
+        and the whole K/V weights."""
+        wk = expand_kv_weight(wk, kh, g)[:, cols]
+        wv = expand_kv_weight(wv, kh, g)[:, cols]
         positions = torch.broadcast_to(positions, x.shape[:2])
         x = _EnterGroup.apply(x, group)
         b, s, _ = x.shape

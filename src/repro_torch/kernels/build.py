@@ -27,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 
+from torch._subclasses.fake_tensor import FakeTensor
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -135,8 +137,11 @@ def function(lib: str, symbol: str, argtypes: list, flags: tuple = ()):
 
 def aligned16(t) -> bool:
     """Whether every (.., row) of ``t`` starts on 16 bytes: the kernels
-    copy rows in 16-byte chunks."""
+    copy rows in 16-byte chunks.  A fake tensor has no address; its
+    strides are checked alone."""
     es = t.element_size()
+    if isinstance(t, FakeTensor):
+        return all((st * es) % 16 == 0 for st in t.stride()[:-1])
     return (t.data_ptr() % 16 == 0
             and all((st * es) % 16 == 0 for st in t.stride()[:-1]))
 

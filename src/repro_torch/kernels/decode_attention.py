@@ -21,6 +21,7 @@ import ctypes
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build
 
@@ -78,6 +79,8 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None):
     out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
     part = torch.empty(b * kh * n_split * (h // kh) * (hd + 2),
                        dtype=torch.float32, device=q.device)
+    if isinstance(q, FakeTensor):               # shapes alone: no launch
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = _counter_buffer(q.device, stream, b * kh)
     fn = build.function("decode_attention", "decode_attention_fwd", _ARGTYPES)
@@ -96,7 +99,7 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None):
 
 def _check(q, k, v, lengths) -> None:
     for name, t in (("q", q), ("k", k), ("v", v), ("lengths", lengths)):
-        if not t.is_cuda:
+        if not t.is_cuda and not isinstance(t, FakeTensor):
             raise ValueError(f"decode_attention: {name} is on {t.device}, "
                              "the kernel takes CUDA tensors")
         if t.device != q.device:

@@ -42,6 +42,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build
 
@@ -75,6 +76,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty((b, sq, h, hdv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if isinstance(q, FakeTensor):               # shapes alone: no launch
+        return (out, lse) if return_lse else out
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(), b, sq, sk, h, kh,
@@ -118,6 +121,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     # D, and for bfloat16 lse log2(e) beside it, rows padded to BWD_ROW_PAD
     scratch = torch.empty((2, b, h, -(-sq // BWD_ROW_PAD) * BWD_ROW_PAD),
                           dtype=torch.float32, device=q.device)
+    if isinstance(q, FakeTensor):               # shapes alone: no launch
+        return dq, dk, dv
     fn = build.function("flash_attention_bwd", "flash_attention_bwd",
                         _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -132,7 +137,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
+        if not t.is_cuda and not isinstance(t, FakeTensor):
             raise ValueError(f"flash_attention: {name} is on {t.device}, "
                              "the kernel takes CUDA tensors")
         if t.device != q.device:

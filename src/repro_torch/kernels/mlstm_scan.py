@@ -40,6 +40,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build
 
@@ -133,7 +134,8 @@ def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None,
     ``scan_plan`` of the shapes, with ``design`` forced if given; float32
     has the single pass only."""
     out = run(q, k, v, logf, i, scale=scale, design=design)
-    launches.add()
+    if not isinstance(q, FakeTensor):
+        launches.add()
     return out
 
 
@@ -149,11 +151,12 @@ def run(q, k, v, logf, i, *, scale: float | None = None,
     i = i.float().contiguous()
     out = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
     scratch = [None, None, None]
+    fake = isinstance(q, FakeTensor)
     if q.dtype == torch.float32:
         if design not in (None, "single"):
             raise ValueError("mlstm_scan: float32 runs the single-pass "
                              "CUDA-core kernel only")
-        if chunk_len(dk) == 0:
+        if not fake and chunk_len(dk) == 0:
             raise ValueError(f"mlstm_scan: head dim {dk} leaves no room for "
                              "a chunk beside the state slice in shared memory")
         design, chunk = 0, 0
@@ -164,6 +167,8 @@ def run(q, k, v, logf, i, *, scale: float | None = None,
             slots = (plan.n_chunks - 1) * bh
             scratch = [torch.empty(n, dtype=torch.float32, device=q.device)
                        for n in (slots * dk * dv, slots * dk, slots)]
+    if fake:                                    # shapes alone: no launch
+        return out
     fn = build.function("mlstm_scan", "mlstm_scan_fwd", _ARGTYPES, flags)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), logf.data_ptr(),
              i.data_ptr(), out.data_ptr(),
@@ -223,6 +228,8 @@ def mlstm_scan_bwd(q, k, v, logf, i, dh, *, scale: float | None = None):
                # row each), each 64 x 64 state tile's share of <C, dC>
                buf(bh * nc * nd * (2 * chunk + ne)) if bf16 else None,
                *copies]
+    if isinstance(q, FakeTensor):               # shapes alone: no launch
+        return (*grads, dlogf, di)
     fn = build.function("mlstm_scan_bwd", "mlstm_scan_bwd", _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dh.data_ptr(),
              logf.data_ptr(), i.data_ptr(),
@@ -237,7 +244,7 @@ def mlstm_scan_bwd(q, k, v, logf, i, dh, *, scale: float | None = None):
 
 def _check(q, k, v, logf, i) -> None:
     for name, t in (("q", q), ("k", k), ("v", v), ("logf", logf), ("i", i)):
-        if not t.is_cuda:
+        if not t.is_cuda and not isinstance(t, FakeTensor):
             raise ValueError(f"mlstm_scan: {name} is on {t.device}, the "
                              "kernel takes CUDA tensors")
         if t.device != q.device:

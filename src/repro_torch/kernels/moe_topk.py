@@ -29,6 +29,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from . import build
 from .ref import Route
@@ -103,8 +104,9 @@ def moe_route(logits, top_k: int, *, capacity: int, n_valid: int | None = None,
         slot_tok=torch.empty((e, capacity), dtype=torch.int32, device=dev),
         prob_sum=torch.empty((e,), dtype=torch.float32, device=dev),
         counts=torch.empty((e,), dtype=torch.int32, device=dev))
-    _launch(logits, top_k, n_valid, capacity, router_scale,
-            [o.data_ptr() for o in out])
+    if not isinstance(logits, FakeTensor):      # fake: shapes alone
+        _launch(logits, top_k, n_valid, capacity, router_scale,
+                [o.data_ptr() for o in out])
     return out
 
 
@@ -115,8 +117,9 @@ def moe_topk(logits, top_k: int, n_valid: int | None = None):
     t = logits.shape[0]
     w = torch.empty((t, top_k), dtype=torch.float32, device=logits.device)
     idx = torch.empty((t, top_k), dtype=torch.int32, device=logits.device)
-    _launch(logits, top_k, n_valid, 0, 1.0,
-            [w.data_ptr(), idx.data_ptr(), None, None, None, None])
+    if not isinstance(logits, FakeTensor):      # fake: shapes alone
+        _launch(logits, top_k, n_valid, 0, 1.0,
+                [w.data_ptr(), idx.data_ptr(), None, None, None, None])
     return w, idx
 
 
@@ -150,6 +153,8 @@ def moe_route_bwd(logits, idx, weights, dweights, dprob_sum=None, *,
                              f" is not ({e},) on {logits.device}")
         dprob_sum = dprob_sum.float().contiguous()
     out = torch.empty((t, e), dtype=logits.dtype, device=logits.device)
+    if isinstance(logits, FakeTensor):          # shapes alone: no launch
+        return out
     fn = build.function("moe_topk", "moe_route_bwd", _BWD_ARGTYPES)
     err = fn(logits.data_ptr(), idx.data_ptr(), weights.data_ptr(),
              dweights.data_ptr(),
@@ -177,7 +182,7 @@ def _launch(logits, top_k, n_valid, capacity, scale, ptrs) -> None:
 
 
 def _check(logits, top_k: int) -> None:
-    if not logits.is_cuda:
+    if not logits.is_cuda and not isinstance(logits, FakeTensor):
         raise ValueError(f"moe_topk: logits are on {logits.device}, the "
                          "kernel takes CUDA tensors")
     if logits.dtype not in DTYPES:

@@ -28,10 +28,31 @@ Counting.  Each entry point that reaches a kernel reports its call's
 operations and bytes (and its backward's) to ``work.recording()``, which
 ``roofline.analysis.analyze`` opens; outside it the decorator only calls
 the entry point.
+
+DTensors.  An entry point given DTensors (a program sharded over a
+``DeviceMesh``, as the dry-run traces it) runs the kernel on each rank's
+shard under ``torch.distributed.tensor.experimental.local_map``, the
+counterpart of the reference's kernel inside ``shard_map``: K1 and K2 on
+batch rows over the data axes and heads over the model axis (``_heads``
+says when the heads shard), K3 on its BH rows and K4 on its tokens, each as
+the rows arrive.  ``local_map`` moves each input to those placements
+first, so a shard of another layout is redistributed there, as GSPMD
+would.  The autograd functions work through it unchanged, and the count is
+of the rank's shapes.  K4's plan is then each rank's own, over its tokens,
+with the capacity the caller gives for them; its slot tokens are sharded on
+the slot dim and its sums are partial over the ranks of the tokens.
+
+Fake tensors.  A fake CUDA tensor (``FakeTensorMode``, which the dry-run
+traces under) reaches the kernel's wrapper, which checks it as it checks a
+real one, allocates the same outputs and buffers, and returns before the
+launch: shapes and dtypes alone, no launch counted, the work recorded as
+the real call's.  A fake CPU tensor runs the plain version, as a CPU
+tensor does.  A meta tensor still raises.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from . import ref, work
 from .decode_attention import decode_attention as _decode_cuda
@@ -137,11 +158,19 @@ class MoeTopk(torch.autograd.Function):
                                     n_valid=ctx.n_valid), None, None)
 
 
-@work.counted(work.flash, work.flash_bwd)
 def grouped_flash(q, k, v, *, causal: bool = True, window: int = 0,
                   scale: float | None = None):
     """q: (B, Sq, H, hd); k: (B, Sk, KH, hd); v: (B, Sk, KH, hdv) ->
     (B, Sq, H, hdv); hdv differs from hd only for MLA (192, 128)."""
+    if isinstance(q, DTensor):
+        return _by_heads(_grouped_flash, q, k, v,
+                         causal=causal, window=window, scale=scale)
+    return _grouped_flash(q, k, v, causal=causal, window=window, scale=scale)
+
+
+@work.counted(work.flash, work.flash_bwd)
+def _grouped_flash(q, k, v, *, causal: bool = True, window: int = 0,
+                   scale: float | None = None):
     if _on_cuda(q, "grouped_flash"):
         if _wants_grad(q, k, v):
             return FlashAttention.apply(q, k, v, causal, window, scale)
@@ -150,9 +179,19 @@ def grouped_flash(q, k, v, *, causal: bool = True, window: int = 0,
                                  scale=scale)
 
 
-@work.counted(work.decode)
 def grouped_decode(q, k, v, lengths, *, scale: float | None = None):
-    """q: (B, 1, H, hd); k, v: (B, S, KH, hd); lengths: (B,) int32."""
+    """q: (B, 1, H, hd); k, v: (B, S, KH, hd); lengths: (B,) int32, or one
+    int, every row's live length."""
+    if isinstance(q, DTensor):
+        return _by_heads(_grouped_decode, q, k, v, lengths, scale=scale)
+    return _grouped_decode(q, k, v, lengths, scale=scale)
+
+
+@work.counted(work.decode)
+def _grouped_decode(q, k, v, lengths, *, scale: float | None = None):
+    if isinstance(lengths, int):
+        lengths = torch.full((q.shape[0],), lengths, dtype=torch.int32,
+                             device=q.device)
     if _on_cuda(q, "grouped_decode"):
         return _decode_cuda(q, k, v, lengths, scale=scale)
     return ref.grouped_decode_ref(q, k, v, lengths, scale=scale)
@@ -171,10 +210,18 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None):
                           lengths, scale=scale)[:, :, 0]
 
 
-@work.counted(work.scan, work.scan_bwd)
 def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
     """q, k: (BH, S, dk); v: (BH, S, dv); logf, i: (BH, S) -> h (BH, S, dv).
     ``scale`` defaults to dk ** -0.5."""
+    if isinstance(q, DTensor):
+        rows = row_placements(q)
+        return on_shards(_mlstm_scan, (rows,) * 5, rows, q, k, v, logf, i,
+                      scale=scale)
+    return _mlstm_scan(q, k, v, logf, i, scale=scale)
+
+
+@work.counted(work.scan, work.scan_bwd)
+def _mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
     if _on_cuda(q, "mlstm_scan"):
         if _wants_grad(q, k, v, logf, i):
             return MlstmScan.apply(q, k, v, logf, i, scale)
@@ -182,9 +229,17 @@ def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None):
     return ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale)
 
 
-@work.counted(work.topk, work.route_bwd)
 def moe_topk(logits, top_k: int, n_valid: int | None = None):
     """logits: (T, E) -> (weights (T, k) float32, indices (T, k) int32)."""
+    if isinstance(logits, DTensor):
+        rows = row_placements(logits)
+        return on_shards(_moe_topk, (rows, None, None), (rows, rows), logits,
+                      top_k, n_valid)
+    return _moe_topk(logits, top_k, n_valid)
+
+
+@work.counted(work.topk, work.route_bwd)
+def _moe_topk(logits, top_k: int, n_valid: int | None = None):
     if _on_cuda(logits, "moe_topk"):
         if _wants_grad(logits):
             return MoeTopk.apply(logits, top_k, n_valid)
@@ -192,11 +247,27 @@ def moe_topk(logits, top_k: int, n_valid: int | None = None):
     return ref.moe_topk_ref(logits, top_k, n_valid=n_valid)
 
 
-@work.counted(work.route, work.route_bwd)
 def moe_route(logits, top_k: int, *, capacity: int, n_valid: int | None = None,
               router_scale: float = 1.0):
     """logits: (T, E) -> ``ref.Route``: weights, idx, slot (T, k), slot_tok
-    (E, capacity), prob_sum and counts (E,)."""
+    (E, capacity), prob_sum and counts (E,).  On DTensors each rank plans
+    its own tokens with ``capacity`` slots an expert (the module docstring
+    says how the outputs are placed)."""
+    if isinstance(logits, DTensor):
+        rows = row_placements(logits)
+        slots = [_moved(p, 1) for p in rows]
+        sums = [Partial() if p != Replicate() else p for p in rows]
+        return ref.Route(*on_shards(
+            _moe_route, (rows, None), (rows, rows, rows, slots, sums, sums),
+            logits, top_k, capacity=capacity, n_valid=n_valid,
+            router_scale=router_scale))
+    return _moe_route(logits, top_k, capacity=capacity, n_valid=n_valid,
+                      router_scale=router_scale)
+
+
+@work.counted(work.route, work.route_bwd)
+def _moe_route(logits, top_k: int, *, capacity: int, n_valid: int | None = None,
+               router_scale: float = 1.0):
     if _on_cuda(logits, "moe_route"):
         if _wants_grad(logits):
             return ref.Route(*MoeRoute.apply(logits, top_k, capacity, n_valid,
@@ -205,3 +276,97 @@ def moe_route(logits, top_k: int, *, capacity: int, n_valid: int | None = None,
                                n_valid=n_valid, router_scale=router_scale)
     return ref.moe_route_ref(logits, top_k, capacity=capacity, n_valid=n_valid,
                              router_scale=router_scale)
+
+
+# ------------------------------------------------------------- DTensors
+def on_shards(fn, in_placements, out_placements, *args, **kwargs):
+    """``fn(*args, **kwargs)`` on each rank's shards of the DTensors in
+    ``args`` under ``local_map``: each input moved to its placements (a
+    list a tensor, None for another argument) first, the output placed by
+    ``out_placements`` (a list, or a tuple of lists for a tuple of
+    outputs)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+
+    def run(*a):
+        return fn(*(_ContiguousGrad.apply(t) if isinstance(t, torch.Tensor)
+                    and t.requires_grad else t for t in a), **kwargs)
+    return local_map(run, out_placements=out_placements,
+                     in_placements=in_placements, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous.  DTensor takes a
+    shard's layout to be its global tensor's, and the autograd of a plain
+    version returns some gradients permuted (an einsum's), which a later
+    view of the DTensor could not take."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def row_placements(x) -> list:
+    """``x``'s placements on the rows of its dim 0 alone, as plain shards
+    (a strided one, of rows flattened from two sharded dims, included):
+    a shard of any other dim, and a partial sum, replicated."""
+    return [Shard(0) if getattr(p, "dim", None) == 0 else Replicate()
+            for p in x.placements]
+
+
+def _moved(p, dim: int):
+    """A placement that shards dim 0 as the same shard of ``dim``."""
+    return Shard(dim) if getattr(p, "dim", None) == 0 else p
+
+
+def _heads(mesh, b: int, h: int, kh: int) -> tuple:
+    """The layout of K1 and K2 on ``mesh``: placements of q (B, S, H, d)
+    and of k, v (B, S, KH, d), and whether a rank takes its query heads'
+    one KV head from the whole set.  Batch rows shard over the data axes
+    (pod and data) when B divides by their product; query heads over the
+    model axis when H divides by its size, KV heads too when KH does; else
+    each rank's H / tp query heads must share one KV head (tp > KH), which
+    it reads from k, v replicated on the model axis."""
+    names = mesh.mesh_dim_names
+    sizes = dict(zip(names, mesh.shape))
+    dp = 1
+    for a in ("pod", "data"):
+        dp *= sizes.get(a, 1)
+    tp = sizes.get("model", 1)
+    g = h // kh
+    q_heads = tp > 1 and h % tp == 0
+    kv_heads = q_heads and kh % tp == 0
+    if q_heads and not kv_heads and g % (h // tp):
+        q_heads = False
+    batch = dp > 1 and b % dp == 0
+
+    def placements(heads: bool) -> list:
+        return [Shard(0) if a in ("pod", "data") and batch
+                else Shard(2) if a == "model" and heads
+                else Replicate() for a in names]
+    return (placements(q_heads), placements(kv_heads),
+            q_heads and not kv_heads)
+
+
+def _by_heads(fn, q, k, v, *rest, **kwargs):
+    """K1 or K2 (``fn``) on each rank's batch rows and heads (``_heads``);
+    ``rest`` is K2's lengths, a tensor of the batch rows or an int."""
+    mesh = q.device_mesh
+    h, kh = q.shape[2], k.shape[2]
+    qp, kvp, pick = _heads(mesh, q.shape[0], h, kh)
+    rows = [p if p.is_shard(0) else Replicate() for p in qp]
+    g = h // kh
+    h_local = h // dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+
+    def local(q, k, v, *rest):
+        if pick:
+            j = mesh.get_local_rank("model") * h_local // g
+            k, v = k[:, :, j:j + 1], v[:, :, j:j + 1]
+        return fn(q, k, v, *rest, **kwargs)
+    extra = tuple(rows if isinstance(r, torch.Tensor) else None for r in rest)
+    return on_shards(local, (qp, kvp, kvp) + extra, qp, q, k, v, *rest)

@@ -99,8 +99,11 @@ def grouped_flash_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def grouped_decode_ref(q, k, v, lengths, *, scale: float | None = None):
-    """q: (B, 1, H, hd); k, v: (B, S, KH, hd); lengths: (B,) live lengths."""
+    """q: (B, 1, H, hd); k, v: (B, S, KH, hd); lengths: (B,) live lengths,
+    or one int for every row (as ``ops.grouped_decode`` takes them)."""
     b, _, h, hd = q.shape
+    if isinstance(lengths, int):
+        lengths = torch.full((b,), lengths, dtype=torch.int32, device=q.device)
     s, kh = k.shape[1], k.shape[2]
     scale = scale if scale is not None else hd ** -0.5
     qg = q.float().reshape(b, kh, h // kh, hd)
@@ -200,7 +203,7 @@ def moe_route_ref(logits, top_k: int, *, capacity: int,
     """The router and its dispatch plan as the reference computes them:
     ``moe_topk_ref`` times ``router_scale``; a stable argsort of the (token,
     choice) pairs by expert, each pair's position in its expert's run by
-    ``searchsorted``, kept iff below ``capacity``; a bincount of the pairs
+    ``searchsorted``, kept iff below ``capacity``; a count of the pairs
     and the softmax summed over tokens.  Returns a ``Route``."""
     t, e = logits.shape
     n_valid = e if n_valid is None else n_valid
@@ -219,7 +222,8 @@ def moe_route_ref(logits, top_k: int, *, capacity: int,
     return Route(w * router_scale, idx, slot.reshape(t, top_k).int(),
                  slot_tok.reshape(e, capacity).int(),
                  _router_probs(logits, n_valid).sum(dim=0),
-                 torch.bincount(flat, minlength=e).int())
+                 torch.zeros(e, dtype=torch.long, device=dev)
+                 .scatter_add_(0, flat, torch.ones_like(flat)).int())
 
 
 def moe_route_bwd_ref(logits, idx, weights, dweights, dprob_sum=None, *,

@@ -20,11 +20,12 @@ the counts behind each kernel's bound in ``chip_smoke.py``
 
 ``counted(fwd, bwd)`` wraps an entry point of ``ops``.  Outside
 ``recording()`` it calls the entry point and does nothing else.  Inside,
-it records the call's ``Work`` and runs the call with the dispatch modes
-switched off, so that no operation inside a kernel's wrapper or plain
-version is counted a second time; where a gradient is wanted, the
-backward's ``Work`` is recorded when the backward runs, again with its own
-operations hidden.  Counting changes no result and picks no path: the
+it records the call's ``Work`` and runs the call ``hidden()``, so that the
+roofline's counter counts no operation inside a kernel's wrapper or plain
+version a second time; where a gradient is wanted, the backward's ``Work``
+is recorded when the backward runs, again with its own operations hidden.
+Hidden operations still run under every dispatch mode (a ``FakeTensorMode``
+keeps them fake), and the counter still sees what they allocate.  Counting changes no result and picks no path: the
 entry point runs as it would, on the device of its tensors.
 """
 from __future__ import annotations
@@ -36,7 +37,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import _disable_current_modes
 
 
 class Work(NamedTuple):
@@ -84,13 +84,17 @@ def flash_bwd(q, k, v, *, causal: bool = True, window: int = 0, scale=None):
 def decode(q, k, v, lengths, *, scale=None):
     """K2, q (B, 1, H, hd), k, v (B, S, KH, hd): q read and the output
     written once, the live positions' K and V read once; 4 hd operations a
-    (head, live position).  Reads ``lengths`` (a device sync on the
-    card)."""
+    (head, live position).  ``lengths`` is one int for every row (the
+    model's decode step), or a (B,) tensor, which is read (a device sync on
+    the card; a fake tensor cannot be read)."""
     b, _, h, hd = q.shape
     kh = k.shape[2]
     es = q.element_size()
-    live = int(lengths.clamp(max=k.shape[1]).sum())
-    nbytes = 2 * q.numel() * es + 2 * live * kh * hd * es + lengths.numel() * 4
+    if isinstance(lengths, int):
+        live = b * min(lengths, k.shape[1])
+    else:
+        live = int(lengths.clamp(max=k.shape[1]).sum())
+    nbytes = 2 * q.numel() * es + 2 * live * kh * hd * es + b * 4
     return Work("decode_attention", 4 * h * hd * live, nbytes, q.dtype)
 
 
@@ -158,15 +162,20 @@ def recording():
         _local.sink = prev
 
 
+def hidden() -> bool:
+    """Whether this thread runs inside a counted call: its operations are
+    the kernel's, whose ``Work`` stands for them."""
+    return getattr(_local, "depth", 0) > 0
+
+
 @contextlib.contextmanager
 def _hidden():
-    """No dispatch mode sees the block's operations, and no counted call
+    """No counter counts the block's operations, and no counted call
     inside it records."""
     depth = getattr(_local, "depth", 0)
     _local.depth = depth + 1
     try:
-        with _disable_current_modes():
-            yield
+        yield
     finally:
         _local.depth = depth
 
@@ -199,7 +208,7 @@ def counted(fwd, bwd=None):
                 return out
             out = _Counted.apply(call, (sink, bwd(*args, **kw)),
                                  *(args[n] for n in spots))
-            if kind[0] is torch.Tensor:
+            if issubclass(kind[0], torch.Tensor):
                 return out[0]
             return kind[0](*out) if hasattr(kind[0], "_fields") else out
         return run

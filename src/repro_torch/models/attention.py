@@ -31,6 +31,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (constrain, head_layout, shardwise,
+                                    whole)
 from ..kernels import ops
 from . import layers as L
 
@@ -54,15 +56,19 @@ def gqa_init(gen, cfg, lead: tuple = ()):
 
 
 def _split_heads(x, n_heads, hd):
+    """(B, S, heads hd) -> (B, S, heads, hd); a DTensor whose last dim is
+    split into shards that cut heads is made whole on it first."""
     b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, hd)
+    return whole(x, -1, n_heads).reshape(b, s, n_heads, hd)
 
 
 def gqa_forward(cfg, p, x, positions, *, window: int = 0, causal: bool = True,
-                return_cache: bool = False, kv_override=None):
+                return_cache: bool = False, kv_override=None,
+                attn_constraint=None):
     """Full-sequence attention (prefill / encoder).
 
     ``kv_override``: (k, v) head tensors for cross-attention (RoPE-free).
+    ``attn_constraint``: see ``_grouped_flash``.
     """
     b, s, _ = x.shape
     hd = cfg.hd
@@ -72,19 +78,29 @@ def gqa_forward(cfg, p, x, positions, *, window: int = 0, causal: bool = True,
         k = _split_heads(L.linear(p["wk"], x), cfg.n_kv_heads, hd)
         v = _split_heads(L.linear(p["wv"], x), cfg.n_kv_heads, hd)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+        q, k, v = head_layout(q), head_layout(k), head_layout(v)
     else:
         k, v = kv_override
-    out = _grouped_flash(q, k, v, causal=causal, window=window)
+    out = _grouped_flash(q, k, v, causal=causal, window=window,
+                         attn_constraint=attn_constraint)
     y = L.linear(p["wo"], out.reshape(b, s, cfg.n_heads * hd))
     if return_cache:
         return y, {"k": k, "v": v}
     return y
 
 
-def _grouped_flash(q, k, v, *, causal, window):
+def _grouped_flash(q, k, v, *, causal, window, attn_constraint=None):
     """q: (B,S,H,hd); k,v: (B,Sk,KH,hd) with H = KH * G, passed to the
-    kernel as they are."""
-    return ops.grouped_flash(q, k, v, causal=causal, window=window)
+    kernel as they are.
+
+    ``attn_constraint``: a sharding spec of this (B, S, heads, hd) layout
+    that q, k, v and the output are placed by on a DTensor program (batch
+    over data and heads over model keeps the whole kernel shard-local: the
+    reference's head-sharded flash layout, on its flattened (B*H, S, hd)
+    form); a no-op on plain tensors."""
+    q, k, v = (constrain(t, attn_constraint) for t in (q, k, v))
+    out = ops.grouped_flash(q, k, v, causal=causal, window=window)
+    return constrain(out, attn_constraint)
 
 
 def gqa_prefill_cache(cfg, smax: int, k, v, window: int, quant: bool = False):
@@ -93,17 +109,14 @@ def gqa_prefill_cache(cfg, smax: int, k, v, window: int, quant: bool = False):
     Ring convention: position p lives at slot ``p % window`` (matches
     ``gqa_decode``); softmax attention is permutation-invariant so ring
     order never needs unwinding."""
-    s = k.shape[1]
-    if window > 0:
-        if s >= window:
-            kk = torch.roll(k[:, -window:], s % window, dims=1)
-            vv = torch.roll(v[:, -window:], s % window, dims=1)
-        else:
-            kk = F.pad(k, (0, 0, 0, 0, 0, window - s))
-            vv = F.pad(v, (0, 0, 0, 0, 0, window - s))
-    else:
-        kk = F.pad(k, (0, 0, 0, 0, 0, smax - s))
-        vv = F.pad(v, (0, 0, 0, 0, 0, smax - s))
+    def place(t):
+        s = t.shape[1]
+        if window > 0:
+            if s >= window:
+                return torch.roll(t[:, -window:], s % window, dims=1)
+            return F.pad(t, (0, 0, 0, 0, 0, window - s))
+        return F.pad(t, (0, 0, 0, 0, 0, smax - s))
+    kk, vv = shardwise(place, k, (1,)), shardwise(place, v, (1,))
     if quant:
         kq, ks = _kv_quantize(kk)
         vq, vs = _kv_quantize(vv)
@@ -123,7 +136,8 @@ def _kv_dequant(q, scale, dtype):
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def gqa_decode(cfg, p, x, cache, pos: int, *, window: int = 0, out=None):
+def gqa_decode(cfg, p, x, cache, pos: int, *, window: int = 0, out=None,
+               kv_constraint=None):
     """Single-token decode. x: (B, 1, d); cache per conventions above;
     ``pos`` = number of tokens already in the cache.
 
@@ -133,6 +147,10 @@ def gqa_decode(cfg, p, x, cache, pos: int, *, window: int = 0, out=None):
     writes the last slot, as the reference's dynamic-update-slice clamps
     its start index.  Quantized caches are dequantized whole and then
     go through the same decode kernel, as in the reference.
+    ``kv_constraint``: a sharding spec of the new (B, 1, KH, hd) K/V that
+    they are placed by before the cache write on a DTensor program (the
+    cache's own placement keeps the write shard-local); a no-op on plain
+    tensors.
     """
     b = x.shape[0]
     hd = cfg.hd
@@ -142,6 +160,7 @@ def gqa_decode(cfg, p, x, cache, pos: int, *, window: int = 0, out=None):
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = L.apply_rope(q, posv, cfg.rope_theta)
     k = L.apply_rope(k, posv, cfg.rope_theta)
+    k, v = constrain(k, kv_constraint), constrain(v, kv_constraint)
 
     slot = pos % window if window > 0 else pos
     slot = min(slot, cache["k"].shape[1] - 1)
@@ -174,9 +193,7 @@ def _grouped_decode(q, ck, cv, length: int):
     """Grouped-query decode attention through the decode kernel.
     q: (B,1,H,hd); ck/cv: (B,S,KH,hd); every row's live length is
     ``length``."""
-    lengths = torch.full((q.shape[0],), length, dtype=torch.int32,
-                         device=q.device)
-    return ops.grouped_decode(q, ck.to(q.dtype), cv.to(q.dtype), lengths)
+    return ops.grouped_decode(q, ck.to(q.dtype), cv.to(q.dtype), length)
 
 
 # ---------------------------------------------------------------------------
@@ -254,8 +271,8 @@ def mla_forward(cfg, p, x, positions, *, return_cache: bool = False):
 
 def mla_prefill_cache(cfg, smax: int, cache):
     pad = smax - cache["c"].shape[1]
-    return {"c": F.pad(cache["c"], (0, 0, 0, pad)),
-            "kr": F.pad(cache["kr"], (0, 0, 0, pad))}
+    return {n: shardwise(lambda t: F.pad(t, (0, 0, 0, pad)), cache[n], (1,))
+            for n in ("c", "kr")}
 
 
 def mla_decode(cfg, p, x, cache, pos: int, *, out=None):

@@ -13,6 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import settle, whole, whole_grad
 
 
 def dtype_of(name) -> torch.dtype:
@@ -58,9 +61,19 @@ def linear_init(gen, d_in: int, d_out: int, dtype="float32", bias: bool = False,
 
 
 def linear(p, x):
-    y = x @ p["w"].to(x.dtype)
+    """x @ w (+ b).  A DTensor (B, S, d) input sharded on its sequence is
+    made whole on it first: the product flattens (B, S), and a flattening
+    of two sharded dims is a strided shard, which DTensor's rules for the
+    product cannot take; so is the gradient that flows back into the
+    product (``sharding.whole_grad``).  A DTensor product that is a partial
+    sum is settled before its bias is added (``sharding.settle``)."""
+    if isinstance(x, DTensor) and x.ndim == 3:
+        y = whole_grad(whole(x, 1) @ p["w"].to(x.dtype), 1)
+    else:
+        y = x @ p["w"].to(x.dtype)
     if "b" in p:
-        y = y + p["b"].to(x.dtype)
+        b = p["b"].to(x.dtype)
+        y = settle(y, b) + b
     return y
 
 
@@ -123,8 +136,10 @@ def apply_rope(x, positions, theta: float = 10_000.0):
 
 
 def cross_entropy(logits, labels, ignore_id: int = -1):
-    """Mean token cross-entropy with ignore mask; logits float32."""
-    logits = logits.float()
+    """Mean token cross-entropy with ignore mask; logits float32.  Sharded
+    logits (a DTensor) are made whole over the vocabulary first: the
+    log-sum-exp and the label's gather need every logit of a row."""
+    logits = whole(logits.float(), -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
     nll = logz - gold

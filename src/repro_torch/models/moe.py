@@ -44,7 +44,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import whole_grad
 from ..kernels import ops
 from . import layers as L
 
@@ -107,6 +109,9 @@ def moe_forward(cfg, p, x, *, capacity_factor: float = 1.25):
     xf = x.reshape(t, d)
 
     logits = xf @ p["router"]["w"].to(xf.dtype)                     # (T, E)
+    sharded = isinstance(xf, DTensor)
+    if sharded:
+        return _moe_sharded(cfg, p, x, xf, logits, capacity_factor)
     cap = capacity(t, m.top_k, capacity_factor, e)
     r = ops.moe_route(logits, m.top_k, capacity=cap, n_valid=m.n_routed,
                       router_scale=m.router_scale)
@@ -144,3 +149,52 @@ def moe_forward(cfg, p, x, *, capacity_factor: float = 1.25):
     if "shared" in p:
         y = y + L.swiglu(p["shared"], xf)
     return y.reshape(b, s, d), aux
+
+
+def _combine(yexp, slot, weights):
+    """Each token's k expert-output rows (E, C, d) through ``slot`` (a
+    dropped pair's, E C, the zero row after them), weighted and summed
+    over k, as ``moe_forward`` combines them."""
+    e, cap, d = yexp.shape
+    t, k = slot.shape
+    yz = torch.cat([yexp.reshape(e * cap, d), yexp.new_zeros((1, d))])
+    rows = yz.index_select(0, slot.reshape(-1)).reshape(t, k, d)
+    return torch.bmm(weights.to(yexp.dtype)[:, None, :], rows)[:, 0]
+
+
+def _moe_sharded(cfg, p, x, xf, logits, capacity_factor):
+    """``moe_forward`` on DTensors (a sharded program, the dry-run's): each
+    rank routes its own tokens (K4's plan over them, with the capacity of
+    their count) and gathers them into its slots, and scatters the expert
+    outputs back to them, under ``local_map`` -- the reference's gathers
+    and scatter-adds over the plan have no DTensor rule, and a plan over
+    every rank's tokens would gather them all.  The (E, C, d) slot buffer
+    is sharded on C over the ranks of the tokens, and the expert products
+    run on DTensors, whose placements move the expert weights (an
+    all-gather of their FSDP shards, or of the experts of the other model
+    ranks under expert parallelism) as their rules say."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t, e = logits.shape
+    rows = ops.row_placements(xf)
+    slots = [ops._moved(pl, 1) for pl in rows]
+    shards = 1
+    for n, pl in enumerate(rows):
+        if getattr(pl, "dim", None) == 0:
+            shards *= xf.device_mesh.size(n)
+    cap = capacity(t // shards, m.top_k, capacity_factor, e)
+    r = ops.moe_route(logits, m.top_k, capacity=cap, n_valid=m.n_routed,
+                      router_scale=m.router_scale)
+    aux = (r.prob_sum * r.counts).sum() * (m.n_routed / (t * t))
+    buf = ops.on_shards(
+        lambda x, st, sl: DispatchGather.apply(x, st, sl).reshape(e, cap, d),
+        (rows, slots, rows), slots, xf, r.slot_tok, r.slot)
+    w_exp = p["experts"]
+    h = F.silu(torch.bmm(buf, w_exp["gate"].to(buf.dtype)))
+    h = h * torch.bmm(buf, w_exp["up"].to(buf.dtype))
+    yexp = torch.bmm(h, w_exp["down"].to(buf.dtype))
+    y = whole_grad(ops.on_shards(_combine, (slots, rows, rows), rows, yexp,
+                                 r.slot, r.weights).reshape(b, s, d), 1)
+    if "shared" in p:       # on (B, S, d): DTensor cannot view every layout
+        y = y + L.swiglu(p["shared"], x)           # of its output back
+    return y, aux

@@ -26,7 +26,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
+from ..distributed.sharding import shardwise, whole
 from ..kernels import ops
 from . import layers as L
 
@@ -59,23 +61,45 @@ def _mlstm_qkv(cfg, p, x):
     di = cfg.ssm.expand * d
     hd = di // h
 
-    def heads(y):
-        return y.reshape(b, s, h, hd).transpose(1, 2)           # (B,H,S,hd)
+    def heads(y):                                            # (B,H,S,hd)
+        return whole(y, -1, h).reshape(b, s, h, hd).transpose(1, 2)
 
     q = heads(L.linear(p["wq"], x))
     k = heads(L.linear(p["wk"], x))
     v = heads(L.linear(p["wv"], x))
-    logf = F.logsigmoid(L.linear(p["wf"], x).float() + 2.0).transpose(1, 2)
+    logf = shardwise(F.logsigmoid,
+                     L.linear(p["wf"], x).float() + 2.0).transpose(1, 2)
     ig = torch.sigmoid(L.linear(p["wi"], x).float()).transpose(1, 2)  # (B,H,S)
     return q, k, v, logf, ig, (b, s, h, hd, di)
 
 
+def _bh(x) -> list:
+    """A DTensor's placements on its (batch, head) dims 0 and 1 alone."""
+    return [pl if getattr(pl, "dim", None) in (0, 1) else Replicate()
+            for pl in x.placements]
+
+
+def _scan_heads(q, k, v, logf, ig, scale=None):
+    """K3 over (B, H, S, d) heads and (B, H, S) gates: the rows flattened
+    to B H for ``ops.mlstm_scan`` and back, (B, H, S, dv).  On DTensors each
+    rank scans its own batch rows and heads under ``local_map`` (a (B, H)
+    flattened over two sharded dims is a strided shard, which DTensor can
+    redistribute only by reading indices)."""
+    if isinstance(q, DTensor):
+        bh = _bh(q)
+        return ops.on_shards(_scan_heads, (bh,) * 5 + (None,), bh,
+                             q, k, v, logf, ig, scale)
+    b, h, s, dk = q.shape
+    out = ops.mlstm_scan(q.reshape(b * h, s, dk), k.reshape(b * h, s, dk),
+                         v.reshape(b * h, s, v.shape[-1]),
+                         logf.reshape(b * h, s), ig.reshape(b * h, s),
+                         scale=scale)
+    return out.reshape(b, h, s, v.shape[-1])
+
+
 def mlstm_forward(cfg, p, x, *, return_state=False):
     q, k, v, logf, ig, (b, s, h, hd, di) = _mlstm_qkv(cfg, p, x)
-    hseq = ops.mlstm_scan(q.reshape(b * h, s, hd), k.reshape(b * h, s, hd),
-                          v.reshape(b * h, s, hd), logf.reshape(b * h, s),
-                          ig.reshape(b * h, s))
-    hseq = hseq.reshape(b, h, s, hd)
+    hseq = _scan_heads(q, k, v, logf, ig)
     hseq = L.rmsnorm(p["norm"], hseq).transpose(1, 2).reshape(b, s, di)
     y = L.linear(p["wo"], hseq * F.silu(L.linear(p["gate"], x)))
     if return_state:
@@ -85,13 +109,55 @@ def mlstm_forward(cfg, p, x, *, return_state=False):
 
 def _mlstm_final_state(q, k, v, logf, ig):
     """The final (C, n) carry for decode continuation (no initial state):
-    C = sum_s w_s k_s v_s^T and n = sum_s w_s k_s, w = i * exp(total - la)."""
+    C = sum_s w_s k_s v_s^T and n = sum_s w_s k_s, w = i * exp(total - la).
+    On DTensors each rank sums its own batch rows and heads (``local_map``,
+    as ``_scan_heads``)."""
+    if isinstance(q, DTensor):
+        bh = _bh(q)
+        c, n = ops.on_shards(
+            lambda *a: tuple(_mlstm_final_state(*a).values()), (bh,) * 5,
+            (bh, bh), q, k, v, logf, ig)
+        return {"c": c, "n": n}
     la = torch.cumsum(logf, dim=-1)                       # (B,H,S)
     w = ig * torch.exp(la[..., -1:] - la)
     kw = k.float() * w[..., None]
     c = kw.transpose(-1, -2) @ v.float()                  # (B,H,hd,hd)
     n = kw.sum(dim=-2)
     return {"c": c, "n": n}
+
+
+def _step(state, f, it, qt, kt, vt, out=None):
+    """One recurrent step of the matrix memory, for each (batch row,
+    head): C' = f C + i k v^T, n' = f n + i k, and the readout
+    (q C') / max(|q . n'|, 1), float32 (B, H, dv).  Returns the readout and
+    the new state, written into ``out`` when given.  On DTensors each rank
+    steps its own rows and heads under ``local_map`` (the step flattens
+    (B, H)), and the new state is then copied into ``out``'s placement."""
+    if isinstance(qt, DTensor):
+        bh = _bh(qt)
+        hvec, c, n = ops.on_shards(_step_local, (bh,) * 7, (bh,) * 3,
+                                   state["c"], state["n"], f, it, qt, kt, vt)
+        new = out if out is not None else {k: torch.empty_like(t)
+                                           for k, t in state.items()}
+        new["c"].copy_(c)
+        new["n"].copy_(n)
+        return hvec, new
+    b, h = f.shape
+    dk, dv = kt.shape[-1], vt.shape[-1]
+    new = out if out is not None else {k: torch.empty_like(t)
+                                       for k, t in state.items()}
+    c = torch.mul(state["c"], f[..., None, None], out=new["c"])
+    c.view(b * h, dk, dv).baddbmm_((it[..., None] * kt).reshape(b * h, dk, 1),
+                                   vt.reshape(b * h, 1, dv))
+    n = torch.add(f[..., None] * state["n"], it[..., None] * kt, out=new["n"])
+    num = (qt[..., None, :] @ c)[..., 0, :]               # (B,H,dv)
+    den = (qt * n).sum(-1).abs().clamp(min=1.0)
+    return num / den[..., None], new
+
+
+def _step_local(c0, n0, f, it, qt, kt, vt):
+    hvec, new = _step({"c": c0, "n": n0}, f, it, qt, kt, vt)
+    return hvec, new["c"], new["n"]
 
 
 def mlstm_decode(cfg, p, x, state, out=None):
@@ -102,16 +168,8 @@ def mlstm_decode(cfg, p, x, state, out=None):
     vt = v[:, :, 0].float()
     f = torch.exp(logf[..., 0])                           # (B,H)
     it = ig[..., 0]
-    new = out if out is not None else {n: torch.empty_like(t)
-                                       for n, t in state.items()}
-    c = torch.mul(state["c"], f[..., None, None], out=new["c"])
-    c.view(b * h, hd, hd).baddbmm_((it[..., None] * kt).reshape(b * h, hd, 1),
-                                   vt.reshape(b * h, 1, hd))
-    n = torch.add(f[..., None] * state["n"], it[..., None] * kt, out=new["n"])
-    num = (qt[..., None, :] @ c)[..., 0, :]               # (B,H,hd)
-    den = (qt * n).sum(-1).abs().clamp(min=1.0)
-    hvec = (num / den[..., None]).to(x.dtype)
-    hvec = L.rmsnorm(p["norm"], hvec).reshape(b, 1, di)
+    hvec, new = _step(state, f, it, qt, kt, vt, out)
+    hvec = L.rmsnorm(p["norm"], hvec.to(x.dtype)).reshape(b, 1, di)
     y = L.linear(p["wo"], hvec * F.silu(L.linear(p["gate"], x)))
     return y, new
 
@@ -144,8 +202,8 @@ def _ssd_proj(cfg, p, x):
     n = cfg.ssm.state_dim
     hd = cfg.hd
 
-    def heads(y, w):
-        return y.reshape(b, s, h, w).transpose(1, 2)             # (B,H,S,w)
+    def heads(y, w):                                         # (B,H,S,w)
+        return whole(y, -1, h).reshape(b, s, h, w).transpose(1, 2)
 
     v = heads(L.linear(p["wv"], x), hd)
     kb = heads(L.linear(p["wb"], x), n)
@@ -158,10 +216,8 @@ def _ssd_proj(cfg, p, x):
 
 def ssd_forward(cfg, p, x, *, return_state=False):
     qc, kb, v, logf, ig, (b, s, h, n, hd) = _ssd_proj(cfg, p, x)
-    hseq = ops.mlstm_scan(qc.reshape(b * h, s, n), kb.reshape(b * h, s, n),
-                          v.reshape(b * h, s, hd), logf.reshape(b * h, s),
-                          ig.reshape(b * h, s), scale=1.0)
-    hseq = hseq.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
+    hseq = _scan_heads(qc, kb, v, logf, ig, 1.0)
+    hseq = hseq.transpose(1, 2).reshape(b, s, h * hd)
     y = L.linear(p["wo"], hseq * F.silu(L.linear(p["gate"], x)))
     if return_state:
         return y, _mlstm_final_state(qc, kb, v, logf, ig)
@@ -177,15 +233,8 @@ def ssd_decode(cfg, p, x, state, out=None):
     vt = v[:, :, 0].float()                               # (B,H,hd)
     f = torch.exp(logf[..., 0])                           # (B,H)
     it = ig[..., 0]
-    new = out if out is not None else {k: torch.empty_like(t)
-                                       for k, t in state.items()}
-    c = torch.mul(state["c"], f[..., None, None], out=new["c"])
-    c.view(b * h, n, hd).baddbmm_((it[..., None] * kt).reshape(b * h, n, 1),
-                                  vt.reshape(b * h, 1, hd))
-    nrm = torch.add(f[..., None] * state["n"], it[..., None] * kt, out=new["n"])
-    num = (qt[..., None, :] @ c)[..., 0, :]               # (B,H,hd)
-    den = (qt * nrm).sum(-1).abs().clamp(min=1.0)
-    hvec = (num / den[..., None]).to(x.dtype).reshape(b, 1, h * hd)
+    hvec, new = _step(state, f, it, qt, kt, vt, out)
+    hvec = hvec.to(x.dtype).reshape(b, 1, h * hd)
     y = L.linear(p["wo"], hvec * F.silu(L.linear(p["gate"], x)))
     return y, new
 

@@ -30,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import cache_leaf_spec, constrain, settle
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -127,10 +128,11 @@ def _layer_init(gen, cfg: ArchConfig, seg: Segment, lead: tuple = ()):
 
 
 def _apply_mixer_seq(cfg, seg, lp, xn, positions, *, want_cache, smax,
-                     kv_quant, shardmap_attn=None):
+                     kv_quant, shardmap_attn=None, attn_constraint=None):
     """Full-sequence mixer; returns (y, cache_leaf or None).
     ``shardmap_attn`` (a ``distributed.shardmap_attention`` mixer) takes
-    the GQA mixer's place, as in the reference."""
+    the GQA mixer's place, as in the reference; ``attn_constraint`` places
+    the GQA mixer's flash layout (``attention._grouped_flash``)."""
     if seg.mixer == "attn" and shardmap_attn is not None:
         y = shardmap_attn(lp["attn"], xn, positions, seg.window)
         if want_cache:
@@ -146,11 +148,13 @@ def _apply_mixer_seq(cfg, seg, lp, xn, positions, *, want_cache, smax,
     if seg.mixer == "attn":
         if want_cache:
             y, kv = A.gqa_forward(cfg, lp["attn"], xn, positions,
-                                  window=seg.window, return_cache=True)
+                                  window=seg.window, return_cache=True,
+                                  attn_constraint=attn_constraint)
             return y, A.gqa_prefill_cache(cfg, smax, kv["k"], kv["v"],
                                           seg.window, quant=kv_quant)
         return A.gqa_forward(cfg, lp["attn"], xn, positions,
-                             window=seg.window), None
+                             window=seg.window,
+                             attn_constraint=attn_constraint), None
     if seg.mixer == "mla":
         if want_cache:
             y, c = A.mla_forward(cfg, lp["attn"], xn, positions,
@@ -195,16 +199,20 @@ def _apply_ffn(cfg, seg, lp, x, capacity_factor):
 
 def _apply_layer_seq(cfg, seg, lp, x, positions, *, want_cache=False,
                      smax=0, kv_quant=False, capacity_factor=1.25,
-                     enc_out=None, shardmap_attn=None):
+                     enc_out=None, shardmap_attn=None, act_constraint=None,
+                     attn_constraint=None):
     """x -> x', aux (the MoE loss, or None), cache_leaf (or None).  A cross
     segment given the encoder's output attends to it, unmasked and without
     RoPE, after its mixer; its cache leaf then holds the encoder K/V beside
-    the mixer's own."""
+    the mixer's own.  ``act_constraint`` places the layer's input (a
+    sharding spec of (B, S, d); a no-op on plain tensors)."""
+    x = constrain(x, act_constraint)
     xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     y, cache = _apply_mixer_seq(cfg, seg, lp, xn, positions,
                                 want_cache=want_cache, smax=smax,
                                 kv_quant=kv_quant,
-                                shardmap_attn=shardmap_attn)
+                                shardmap_attn=shardmap_attn,
+                                attn_constraint=attn_constraint)
     x = x + y
     if seg.cross and enc_out is not None:
         xc = L.rmsnorm(lp["normc"], x, cfg.norm_eps)
@@ -221,14 +229,15 @@ def _apply_layer_seq(cfg, seg, lp, x, positions, *, want_cache=False,
 
 
 def _apply_layer_decode(cfg, seg, lp, x, cache, pos, *, out=None,
-                        capacity_factor=2.0):
+                        capacity_factor=2.0, kv_constraint=None):
     self_cache = cache["self"] if seg.cross else cache
     if seg.cross and out is not None:
         out = out["self"]
     xn = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     if seg.mixer == "attn":
         y, new_cache = A.gqa_decode(cfg, lp["attn"], xn, self_cache, pos,
-                                    window=seg.window, out=out)
+                                    window=seg.window, out=out,
+                                    kv_constraint=kv_constraint)
     elif seg.mixer == "mla":
         y, new_cache = A.mla_decode(cfg, lp["attn"], xn, self_cache, pos,
                                     out=out)
@@ -247,7 +256,7 @@ def _apply_layer_decode(cfg, seg, lp, x, cache, pos, *, out=None,
                                       out=out)
     else:
         raise ValueError(seg.mixer)
-    x = x + y
+    x = x + settle(y, x)
     if seg.cross:
         # Cross-attend to the encoder K/V cached at prefill, at positions
         # of zeros (no RoPE reaches it), as the reference does.
@@ -312,6 +321,15 @@ class Model(nn.Module):
         # (``distributed.shardmap_attention.make_shardmap_gqa``): when set,
         # every "attn" layer's full-sequence mixer runs through it.
         self.shardmap_attn = None
+        # The reference's sharding hooks, as specs (``distributed.sharding``
+        # tuples) that a DTensor program is redistributed to, and no-ops on
+        # plain tensors: each layer's input (B, S, d); the GQA flash layout
+        # (B, S, heads, hd); the decode step's new K/V (B, 1, KH, hd)
+        # before the cache write.  Layers run one by one here, so the
+        # reference's ``unroll`` has no counterpart.
+        self.act_constraint = None
+        self.attn_layout_constraint = None
+        self.kv_update_constraint = None
 
     def _cf(self, default: float) -> float:
         return self.capacity_factor if self.capacity_factor is not None else default
@@ -423,12 +441,13 @@ class Model(nn.Module):
         caches = []
         for seg, sp in zip(self.plan, params["segments"]):
             def body(x, aux, lp, seg=seg):
-                x, a, c = _apply_layer_seq(cfg, seg, lp, x, positions,
-                                           want_cache=want_cache, smax=smax,
-                                           kv_quant=self.kv_quant,
-                                           capacity_factor=self._cf(1.25),
-                                           enc_out=enc_out,
-                                           shardmap_attn=self.shardmap_attn)
+                x, a, c = _apply_layer_seq(
+                    cfg, seg, lp, x, positions, want_cache=want_cache,
+                    smax=smax, kv_quant=self.kv_quant,
+                    capacity_factor=self._cf(1.25), enc_out=enc_out,
+                    shardmap_attn=self.shardmap_attn,
+                    act_constraint=self.act_constraint,
+                    attn_constraint=self.attn_layout_constraint)
                 return x, aux if a is None else aux + a, c
             layer_caches = []
             for lp in _layers(seg, sp):
@@ -511,8 +530,10 @@ class Model(nn.Module):
             out = _decode_out(seg, sc)              # every layer writes here
             for lp, lc, lo in zip(_layers(seg, sp), _layers(seg, sc),
                                   _layers(seg, out)):
-                x, _ = _apply_layer_decode(cfg, seg, lp, x, lc, pos, out=lo,
-                                           capacity_factor=self._cf(2.0))
+                x, _ = _apply_layer_decode(
+                    cfg, seg, lp, x, lc, pos, out=lo,
+                    capacity_factor=self._cf(2.0),
+                    kv_constraint=self.kv_update_constraint)
             new_caches.append(out)
         return self._logits(params, x), new_caches
 
@@ -523,6 +544,17 @@ class Model(nn.Module):
         dt = L.dtype_of(dtype or self.cfg.dtype)
         return [self._seg_cache_leaf(seg, batch_size, smax, dt, dev, _lead(seg))
                 for seg in self.plan]
+
+    def cache_pspecs(self, mesh, batch_size: int, smax: int):
+        """The sharding spec tree of ``init_cache(batch_size, smax)``, the
+        reference's entry for entry: batch over the data axes (the
+        sequence for batch-1 long context), a heads-like dim over model;
+        the stacked layer dim of a scanned segment never sharded
+        (``distributed.sharding.cache_leaf_spec``)."""
+        shapes = self.init_cache(batch_size, smax, device="meta")
+        return [tree_map(lambda leaf, sc=seg.kind == "scan":
+                         cache_leaf_spec(tuple(leaf.shape), mesh, sc), sp)
+                for seg, sp in zip(self.plan, shapes)]
 
     def _seg_cache_leaf(self, seg: Segment, b: int, smax: int, dt, dev,
                         lead: tuple = ()):

@@ -6,9 +6,10 @@
 
 The reference package reads its flops and bytes from the compiled step's
 cost analysis and its collectives from the optimized HLO text.  PyTorch
-runs eagerly, so ``analyze`` runs the call once and counts as it goes:
+runs eagerly, so ``analyze`` runs the call once and counts as it goes, in
+one dispatch mode (``_Counter``):
 
-* flops: ``torch.utils.flop_counter.FlopCounterMode`` over the dispatched
+* flops: the formulas of ``torch.utils.flop_counter`` over the dispatched
   operations (matrix products and convolutions), plus each hand-written
   kernel's own operations (``kernels.work``: the kernels are bound with
   ``ctypes`` and no dispatcher sees them), each at its own type: a float32
@@ -17,7 +18,21 @@ runs eagerly, so ``analyze`` runs the call once and counts as it goes:
   is not a view -- the unfused count, which is what the reference's "bytes
   accessed" is on its CPU backend -- plus each kernel's bytes;
 * collectives: the ``torch.distributed`` operations the call issues
-  (``collective_bytes``), by kind, at their result's bytes.
+  (``collective_bytes``), by kind, at their result's bytes: the in-place
+  ``c10d`` operations of a process group and the functional collectives
+  that DTensor issues;
+* the peak of the bytes that the call's operations allocate and hold at
+  once (``Roofline.peak_bytes``): each fresh output storage counts from the
+  operation that makes it until it is freed.  Under ``FakeTensorMode``
+  this is the memory a step would hold, with nothing allocated.
+
+Per rank.  On DTensors every count is rank 0's: an operation on DTensors
+is handed on to DTensor, which runs it on the local shards, and the mode
+counts those local operations and the collectives that redistribute them.
+The global shapes that DTensor's sharding propagation runs for their
+metadata are hidden from the count (``_propagation_hidden``).  So a
+(256, 4096, 2048) x (2048, 8192) product placed on a 16 x 16 mesh counts
+rank 0's 1/256 of its flops, not the global product's.
 
 Hardware model, one H100 SXM (NVIDIA's data sheet, dense rates; the same
 figures as the ``hopper-kernels`` table of this repository's kernels):
@@ -33,12 +48,15 @@ which a model on the ``meta`` device builds at full size without memory.
 """
 from __future__ import annotations
 
+import contextlib
+import weakref
 from dataclasses import dataclass, field
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as _pytree_leaves
-from torch.utils.flop_counter import FlopCounterMode, flop_registry
+from torch.utils.flop_counter import flop_registry
 
 from ..kernels import work as W
 from ..models.layers import dtype_of
@@ -53,9 +71,10 @@ _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
 
 # torch.distributed's operations as the dispatcher sees them, by the
-# reference's collective kinds; the first argument holds each one's result.
-# A point-to-point receive stands in for collective-permute (a send has no
-# result, and each permuted tensor is received once).
+# reference's collective kinds.  A process group's in-place operations
+# hold their result in the first argument; a point-to-point receive stands
+# in for collective-permute (a send has no result, and each permuted tensor
+# is received once).  The functional collectives (DTensor's) return theirs.
 _C10D = {
     "allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
     "_allgather_base_": "all-gather", "allgather_": "all-gather",
@@ -66,6 +85,23 @@ _C10D = {
     "alltoall_base_": "all-to-all", "alltoall_": "all-to-all",
     "recv_": "collective-permute", "recv_any_source_": "collective-permute",
 }
+_FUNCTIONAL = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+# The queries of a tensor's layout, which ``FlopCounterMode`` also passes
+# on uncounted.
+_QUERIES = {getattr(torch.ops.aten, n).default for n in (
+    "sym_is_contiguous", "is_contiguous", "is_strides_like_format",
+    "is_non_overlapping_and_dense", "size", "sym_size", "stride",
+    "sym_stride", "storage_offset", "sym_storage_offset", "numel",
+    "sym_numel", "dim") if hasattr(torch.ops.aten, n)} | {
+    torch.ops.aten.is_contiguous.memory_format, torch.ops.prim.layout.default}
 
 
 def bound_ms(w: W.Work) -> tuple:
@@ -78,39 +114,114 @@ def bound_ms(w: W.Work) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+
+
 def _tensor_bytes(x) -> int:
     return sum(t.numel() * t.element_size() for t in _pytree_leaves(x)
                if isinstance(t, torch.Tensor))
 
 
+def _is_dtensor(types) -> bool:
+    return any(issubclass(t, DTensor) for t in types)
+
+
 class _Counter(TorchDispatchMode):
-    """Operand and output bytes of every dispatched operation that is not a
-    view or an allocation, and the collectives by kind."""
+    """Per rank (the module docstring says how): flops by the type each
+    operation ran in, operand and output bytes of every operation that is
+    not a view or an allocation, the collectives by kind, and the peak of
+    the bytes the operations allocated and still hold.  Operations inside
+    a counted kernel's entry point (``kernels.work``) add only to the
+    peak: the kernel's own ``Work`` stands for them."""
 
     def __init__(self):
         super().__init__()
+        self.by_type = {}
         self.bytes = 0
         self.coll = {k: 0 for k in _COLLECTIVES}
         self.counts = {k: 0 for k in _COLLECTIVES}
+        self.live = 0
+        self.peak = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func in _QUERIES or _is_dtensor(types):
+            return NotImplemented
         out = func(*args, **kwargs)
+        self._hold(func, out)
+        if W.hidden():
+            return out
         if func.namespace == "c10d":
             kind = _C10D.get(func._schema.name.split("::")[-1])
             if kind is not None:
                 self.coll[kind] += _tensor_bytes(args[0])
                 self.counts[kind] += 1
+        elif func.namespace == "_c10d_functional":
+            kind = _FUNCTIONAL.get(func._schema.name.split("::")[-1])
+            if kind is not None:
+                self.coll[kind] += _tensor_bytes(out)
+                self.counts[kind] += 1
         elif not func.is_view and not func._schema.name.startswith(
                 "aten::empty"):
             self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            n = formula(*args, **kwargs, out_val=out)
+            dt = next((t.dtype for t in _pytree_leaves((args, kwargs))
+                       if isinstance(t, torch.Tensor)
+                       and t.is_floating_point()), None)
+            self.by_type[dt] = self.by_type.get(dt, 0) + n
         return out
+
+    def _hold(self, func, out) -> None:
+        """Count each storage that ``func`` returns fresh (a result with no
+        alias to an input) until it is freed."""
+        rets = func._schema.returns
+        outs = (out,) if len(rets) == 1 else out
+        for ret, o in zip(rets, outs):
+            if ret.alias_info is not None:
+                continue
+            for t in _pytree_leaves(o):
+                if isinstance(t, torch.Tensor):
+                    st = t.untyped_storage()
+                    n = st.nbytes()
+                    self.live += n
+                    self.peak = max(self.peak, self.live)
+                    weakref.finalize(st, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live -= n
 
     def collectives(self) -> dict:
         out = dict(self.coll)
         out["total"] = sum(self.coll.values())
         out["counts"] = dict(self.counts)
         return out
+
+
+@contextlib.contextmanager
+def _propagation_hidden():
+    """DTensor runs each new operation once on tensors of the global
+    shapes (fake ones) to learn its output's metadata; no mode sees those
+    runs inside the block, so the counts stay rank 0's.  A no-op where
+    DTensor has not been imported."""
+    import sys
+    prop = sys.modules.get("torch.distributed.tensor._sharding_prop")
+    if prop is None:
+        yield
+        return
+    cls = prop.ShardingPropagator
+    name = "_propagate_tensor_meta_non_cached"
+    orig = cls.__dict__[name]
+
+    def hidden(self, *args, **kwargs):
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            return orig(self, *args, **kwargs)
+    setattr(cls, name, hidden)
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
 
 
 def collective_bytes(fn, *args, **kwargs) -> dict:
@@ -134,6 +245,8 @@ class Roofline:
     kernels: dict = field(default_factory=dict)   # name -> calls, ops, bytes
     # flops by the type each operation ran in; empty: all of type ``dtype``
     flops_by_type: dict = field(default_factory=dict)
+    # the peak of the bytes the call's operations allocated and held
+    peak_bytes: int = 0
 
     @property
     def t_compute(self) -> float:
@@ -183,43 +296,24 @@ class Roofline:
             "dtype": str(self.dtype).replace("torch.", ""),
             "flops_by_type": {str(dt).replace("torch.", ""): f
                               for dt, f in self.flops_by_type.items()},
-            "kernels": self.kernels,
+            "kernels": self.kernels, "peak_bytes": self.peak_bytes,
         }
 
-
-def _flops_by_type(by_type: dict) -> dict:
-    """``FlopCounterMode``'s formulas, each adding its count to
-    ``by_type`` under the type of the operation's first floating-point
-    operand.  Marked raw, so the counter hands them tensors, which they
-    pass on to the formula (it takes their shapes itself)."""
-    def wrap(formula):
-        def count(*args, out_val=None, **kwargs):
-            n = formula(*args, out_val=out_val, **kwargs)
-            dt = next((t.dtype for t in _pytree_leaves((args, kwargs))
-                       if isinstance(t, torch.Tensor)
-                       and t.is_floating_point()), None)
-            by_type[dt] = by_type.get(dt, 0) + n
-            return n
-        count._get_raw = True
-        return count
-    return {op: wrap(f) for op, f in flop_registry.items()}
 
 
 def analyze(fn, *args, model_flops: float = 0.0, dtype=torch.bfloat16,
             **kwargs) -> Roofline:
-    """Run ``fn(*args, **kwargs)`` once and count its flops by type, bytes
-    and collectives (the module docstring says how); ``dtype`` is the
-    step's type, whose peak prices the model flops.  On the card the call
-    is synchronised before anything is read.  Count in one run and time in
-    another: the counting run is slower."""
-    by_type = {}
-    flop = FlopCounterMode(display=False,
-                           custom_mapping=_flops_by_type(by_type))
+    """Run ``fn(*args, **kwargs)`` once and count its flops by type, bytes,
+    collectives and peak (the module docstring says how), rank 0's on
+    DTensors; ``dtype`` is the step's type, whose peak prices the model
+    flops.  On the card the call is synchronised before anything is read.
+    Count in one run and time in another: the counting run is slower."""
     counter = _Counter()
-    with W.recording() as calls, flop, counter:
+    with W.recording() as calls, _propagation_hidden(), counter:
         fn(*args, **kwargs)
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+    by_type = dict(counter.by_type)
     kernels = {}
     for w in calls:
         by_type[w.dtype] = by_type.get(w.dtype, 0) + w.ops
@@ -231,14 +325,13 @@ def analyze(fn, *args, model_flops: float = 0.0, dtype=torch.bfloat16,
     if None in by_type:
         raise RuntimeError(f"flops without a type: {by_type}")
     return Roofline(
-        flops=float(flop.get_total_flops()
-                    + sum(k["ops"] for k in kernels.values())),
+        flops=float(sum(by_type.values())),
         hbm_bytes=float(counter.bytes
                         + sum(k["bytes"] for k in kernels.values())),
         coll_bytes=float(coll["total"]), model_flops=model_flops,
         coll_detail=coll, dtype=dtype_of(dtype), kernels=kernels,
-        flops_by_type={dt: float(f) for dt, f in by_type.items()})
-
+        flops_by_type={dt: float(f) for dt, f in by_type.items()},
+        peak_bytes=counter.peak)
 
 def analytic_memory_bytes(cfg, shape, arg_bytes: float, out_bytes: float,
                           n_devices: int) -> float:

@@ -3,8 +3,10 @@
 Recomputes the analytic model flops uniformly (``analysis.model_flops``)
 so the useful-flops ratio stays comparable across cells, and prices each
 cell on one H100 (``analysis``'s constants: bf16 peak, HBM, NVLink).  The
-results dict has the reference package's layout; the port's dry-run that
-writes it is still to come.
+results dict has the reference package's layout, as the port's dry-run
+(``launch.dryrun``) writes it; its ``compile_s`` column reads the trace's
+``trace_s`` there (the reference's compile seconds where a record has
+them).
 
   PYTHONPATH=src python -m repro_torch.roofline.report [results/dryrun.json]
 """
@@ -73,7 +75,7 @@ def roofline_rows(results: dict, mesh: str = "16x16") -> list:
             "mfu_bound": (mflops / peak) / roof_t if roof_t else 0.0,
             "peak_gb": res["memory"]["peak_bytes"] / 2**30,
             "arg_gb": res["memory"]["argument_bytes"] / 2**30,
-            "compile_s": res.get("compile_s", 0),
+            "compile_s": res.get("trace_s", res.get("compile_s", 0)),
             "coll_detail": r.get("coll_detail", {}),
             "coll_counts": r.get("coll_counts", {}),
             "model_flops": mflops, "flops_adj": flops_adj,

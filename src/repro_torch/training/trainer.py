@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from ..distributed.sharding import shardwise
 from ..models.weights import tree_leaves, tree_unflatten
 from . import grad_compress, optimizer as opt
 
@@ -61,14 +62,19 @@ def make_train_step(model, train_cfg: TrainConfig):
         params = state["params"]
         if accum > 1:
             # Micro-batch gradients summed in float32, then divided, as the
-            # reference's scan over micro-batches does.
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                    for p in tree_leaves(params)]
+            # reference's scan over micro-batches does.  The sum starts from
+            # zeros laid out as the first gradients (a DTensor gradient's
+            # placements included).
+            gsum = None
             lsum = 0.0
             for i in range(accum):
                 mb = {k: _micro(v, i, accum) for k, v in batch.items()}
                 loss, grads = value_and_grad(model, params, mb)
-                gsum = [s + g for s, g in zip(gsum, tree_leaves(grads))]
+                leaves = tree_leaves(grads)
+                if gsum is None:
+                    gsum = [torch.zeros_like(g, dtype=torch.float32)
+                            for g in leaves]
+                gsum = [s + g for s, g in zip(gsum, leaves)]
                 lsum = lsum + loss
             grads = tree_unflatten(params, [g / accum for g in gsum])
             loss = lsum / accum
@@ -86,6 +92,11 @@ def make_train_step(model, train_cfg: TrainConfig):
 
 
 def _micro(x, i: int, accum: int):
-    """Micro-batch ``i`` of ``accum`` along the leading axis."""
-    n = x.shape[0] // accum
-    return x[i * n:(i + 1) * n]
+    """Micro-batch ``i`` of ``accum`` along the leading axis; of a DTensor
+    batch (a sharded program), the ``i``-th slice of each rank's own rows,
+    as data parallelism accumulates (the micro-batches still cover the
+    batch once, so the summed gradient is the same)."""
+    def part(t):
+        n = t.shape[0] // accum
+        return t[i * n:(i + 1) * n]
+    return shardwise(part, x)

@@ -1151,3 +1151,62 @@ def test_analyze_on_the_card_counts_each_kernel_by_its_formula(cuda):
         dtype=torch.float32)
     assert kflash.bwd_launches.count == n_bwd + cfg.n_layers
     assert r.kernels["flash_attention_bwd"]["calls"] == cfg.n_layers
+
+
+# ------------------------------------------------ the dry-run's branches
+def test_real_cuda_calls_launch_and_take_no_dry_run_branch(cuda, monkeypatch):
+    """A real CUDA tensor reaches each kernel as before: its launch counter
+    moves, the output is a real tensor, and neither the DTensor branch
+    (``ops.on_shards``) nor a wrapper's shape-only return is taken."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    def refuse(*a, **k):
+        raise AssertionError("DTensor branch on a CUDA tensor")
+    monkeypatch.setattr(ops, "on_shards", refuse)
+    bf = torch.bfloat16
+    q = _randn((2, 128, 8, 64), bf, cuda, 1).requires_grad_(True)
+    kv = _randn((2, 128, 2, 64), bf, cuda, 2)
+    sq = _randn((4, 128, 64), bf, cuda, 3).requires_grad_(True)
+    gates = _randn((4, 128), torch.float32, cuda, 4)
+    logits = _randn((256, 64), torch.float32, cuda, 5).requires_grad_(True)
+    calls = [
+        (kflash.launches, lambda: ops.grouped_flash(q, kv, kv)),
+        (kflash.bwd_launches,
+         lambda: ops.grouped_flash(q, kv, kv).float().sum().backward()),
+        (kdecode.launches,
+         lambda: ops.grouped_decode(q[:, :1].detach(), kv, kv, 100)),
+        (kscan.launches, lambda: ops.mlstm_scan(sq, sq, sq, gates, gates)),
+        (kscan.bwd_launches, lambda: ops.mlstm_scan(
+            sq, sq, sq, gates, gates).float().sum().backward()),
+        (kmoe.launches, lambda: ops.moe_route(logits, 4, capacity=16)),
+        (kmoe.bwd_launches, lambda: ops.moe_route(
+            logits, 4, capacity=16).weights.sum().backward())]
+    for counter, call in calls:
+        before = counter.count
+        out = call()
+        torch.cuda.synchronize()
+        assert counter.count == before + 1
+        for t in (out if isinstance(out, tuple) else (out,)):
+            assert t is None or not isinstance(t, FakeTensor)
+
+
+def test_dry_run_on_the_card_allocates_nothing(cuda):
+    """A traced cell on ``device="cuda"`` (fake tensors over DTensor) holds
+    no memory of the card, before, after or at its peak, and counts the
+    kernels of its path."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts = [c.count for c in (kflash.launches, kflash.bwd_launches)]
+    rec = dryrun.trace(get_arch("llama3.2-1b"),
+                       ShapeConfig("train", 4096, 64, "train"), (4, 2),
+                       ("data", "model"), device="cuda")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert torch.cuda.max_memory_allocated() == before
+    assert rec["status"] == "ok"
+    assert {"flash_attention", "flash_attention_bwd"} <= set(
+        rec["roofline"]["kernels"])
+    assert [c.count for c in (kflash.launches, kflash.bwd_launches)] == counts
