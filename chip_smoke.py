@@ -101,6 +101,22 @@ Phases, each printed on its own line and each fatal:
                against the plain mixer (float32 to 1e-3, bf16 printed),
                K1's launches and the all-reduces counted on that path;
                ``compressed_psum`` equal to the local int8 round trip
+5c. sharded -- the sharded program run for real on a one-rank NCCL
+               group ((1, 1) mesh; (1, 1, 1) for the pod axis): states,
+               batches and caches placed by ``sharding.device_put``, K1-K4
+               and their backward kernels under ``local_map``;
+               llama3.2-1b bf16 at full size (4 x 4096, 2 micro-batches,
+               remat), xlstm-350m (full) and qwen2-moe-a2.7b (3 of 24
+               layers, experts over the model axis): 2 steps against 2
+               plain steps from the same state, losses within the bf16
+               gate, launches equal, placements kept, wall and busy ms of
+               both; llama at 2 layers in float32 (losses and parameters
+               to 1e-4) with the elastic drill (the state after step 1
+               saved sharded, files byte-identical to an unsharded save,
+               restored onto the mesh: step 2's loss bit for bit; as a
+               plain state: 1e-6 relative); llama's float32 prefill and
+               8 decode steps against the plain path (1e-3, tokens
+               identical, K2 launched)
 6. serving  -- per model, at full width and depth in bfloat16 (deepseek-v3:
                3 dense and 2 MoE layers) (the models with recurrent heads
                or a stub frontend first print their prefill_batch logits,
@@ -2296,6 +2312,318 @@ def distributed_phase(Model, get_arch, kflash) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- sharded
+@contextlib.contextmanager
+def counting_local_map(ops):
+    """Count ``ops.on_shards`` calls (each a kernel or a MoE gather under
+    ``local_map``) for the block: {"calls": n}."""
+    box = {"calls": 0}
+    inner = ops.on_shards
+
+    def counted(*a, **kw):
+        box["calls"] += 1
+        return inner(*a, **kw)
+    ops.on_shards = counted
+    try:
+        yield box
+    finally:
+        ops.on_shards = inner
+
+
+def placement_list(tree) -> list:
+    from repro_torch.models.weights import tree_leaves
+    return [t.placements for t in tree_leaves(tree)]
+
+
+def timed_steps(step, box: dict, batch, n: int, counters: dict) -> dict:
+    """``n`` steps of ``step`` from ``box["state"]`` (replaced step by
+    step), each timed on the host; the launch counts (set to 0 just
+    before) read just after; then one more step in a profiler window
+    for the busy ms."""
+    for c in counters.values():
+        c.reset()
+    losses, walls = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        box["state"], metrics = step(box["state"], batch)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        walls.append((time.monotonic() - t0) * 1e3)
+    launches = {k: c.count for k, c in counters.items()}
+
+    def one():
+        box["state"], _ = step(box["state"], batch)
+    busy, top, _ = busy_ms(one, top=5)
+    return {"losses": losses, "walls": walls, "launches": launches,
+            "busy": busy, "top": top}
+
+
+def sharded_train(SH, mesh, ops, Model, trainer, optimizer, cfg, b, s,
+                  accum, ep, seed, counters, need) -> dict:
+    """Train ``cfg`` twice from one state: placed by
+    ``sharding.device_put`` on ``mesh`` (every leaf a DTensor), then as
+    plain tensors; 2 timed steps each (and a profiled third).  The kernels
+    in ``need`` must launch as often in the DTensor steps as in the plain
+    ones, through ``local_map``; the parameters' placements must stay.
+    Returns both runs' readings."""
+    model = Model(cfg, device="cuda")
+    tcfg = trainer.TrainConfig(grad_accum=accum, opt=optimizer.OptimizerConfig(
+        lr=1e-4, warmup_steps=0, total_steps=4))
+
+    def state():
+        # the same bits each time (a seeded generator): the card holds one
+        # state beside a step's (qwen2-moe's 3 layers fill it), not two
+        return trainer.init_state(
+            model, tcfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = family_batch(cfg, b, s, seed, getattr(torch, cfg.dtype))
+    step = trainer.make_train_step(model, tcfg)
+    box = {"state": state()}
+    box["state"] = SH.device_put(box["state"], SH.state_shardings(
+        box["state"], mesh, ep=ep), mesh)
+    before = placement_list(box["state"])
+    with counting_local_map(ops) as lm:
+        d = timed_steps(step, box, SH.device_put(batch, SH.batch_shardings(
+            batch, mesh), mesh), 2, counters)
+    kept = placement_list(box["state"]) == before
+    del box["state"]
+    free_device_memory()
+    box["state"] = state()
+    p = timed_steps(step, box, batch, 2, counters)
+    del box, step, model, batch
+    free_device_memory()
+    out = {"dtensor": d, "plain": p, "placements_kept": kept,
+           "local_map_calls": lm["calls"]}
+    if not kept:
+        raise AssertionError(f"{cfg.name}: the step moved the placements")
+    if not all(d["launches"][n] == p["launches"][n] > 0 for n in need):
+        raise AssertionError(f"{cfg.name}: launches {d['launches']} under "
+                             f"local_map, {p['launches']} plain")
+    return out
+
+
+def sharded_elastic(SH, mesh, Model, trainer, optimizer, cfg, b, s, seed):
+    """llama at full width with 2 layers, float32: 2 steps on the (1, 1)
+    mesh against 2 plain steps (losses to 1e-4, every parameter leaf to
+    1e-4 x max(1, max |plain|)); the state after step 1 saved sharded and,
+    gathered, unsharded (files byte-identical), then restored onto the
+    mesh (step 2's loss bit for bit the uninterrupted one's) and as a
+    plain CUDA state (1e-6 relative)."""
+    import filecmp
+    import inspect
+    import shutil
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.weights import tree_leaves, tree_map
+    from repro_torch.training.checkpoint import CheckpointManager
+    model = Model(cfg, device="cuda")
+    tcfg = trainer.TrainConfig(opt=optimizer.OptimizerConfig(
+        lr=1e-4, warmup_steps=0, total_steps=4))
+    s0 = trainer.init_state(model, tcfg,
+                            torch.Generator(device="cuda").manual_seed(0))
+    batch = family_batch(cfg, b, s, seed, torch.float32)
+    dbatch = SH.device_put(batch, SH.batch_shardings(batch, mesh), mesh)
+    step = trainer.make_train_step(model, tcfg)
+    d0 = SH.device_put(s0, SH.state_shardings(s0, mesh), mesh)
+    d1, m1 = step(d0, dbatch)
+    ck = ROOT / "build" / "sharded_ck"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.monotonic()
+    CheckpointManager(str(ck / "sharded")).save(1, d1)
+    save_s = time.monotonic() - t0
+    CheckpointManager(str(ck / "unsharded")).save(
+        1, tree_map(lambda t: t.full_tensor(), d1))
+    step_dir = Path("step_00000001")
+    names = sorted(p.name for p in (ck / "unsharded" / step_dir).iterdir())
+    same = names == sorted(p.name for p in (ck / "sharded" / step_dir).iterdir()) \
+        and all(filecmp.cmp(ck / "sharded" / step_dir / n,
+                            ck / "unsharded" / step_dir / n, shallow=False)
+                for n in names)
+    files_gb = sum((ck / "sharded" / step_dir / n).stat().st_size
+                   for n in names) / 1e9
+    d2, m2 = step(d1, dbatch)
+    dparams = [t.full_tensor() for t in tree_leaves(d2["params"])]
+    dlosses = [m1["loss"].item(), m2["loss"].item()]
+    del d1, d2
+    mgr = CheckpointManager(str(ck / "sharded"))
+    r = mgr.restore(1, d0)
+    restored_placements = placement_list(r) == placement_list(d0)
+    _, mr = step(r, dbatch)
+    del r, d0
+    p = mgr.restore(1, s0)
+    _, mp = step(p, batch)
+    del p
+    p1, pm1 = step(s0, batch)
+    p2, pm2 = step(p1, batch)
+    plosses = [pm1["loss"].item(), pm2["loss"].item()]
+    loss_err = max(abs(x - y) for x, y in zip(dlosses, plosses))
+    param_err = max(((x - y).abs().max() / max(1.0, y.abs().max().item())).item()
+                    for x, y in zip(dparams, tree_leaves(p2["params"])))
+    resumed, plain_resumed = mr["loss"].item(), mp["loss"].item()
+    plain_rel = abs(plain_resumed - dlosses[1]) / abs(dlosses[1])
+    shutil.rmtree(ck, ignore_errors=True)
+    result = {"arch": cfg.name, "dtype": "float32", "layers": cfg.n_layers,
+              "batch": [b, s], "dtensor_losses": dlosses,
+              "plain_losses": plosses,
+              "loss_max_abs_err": loss_err, "param_max_rel_err": param_err,
+              "checkpoint_gb": files_gb, "sharded_save_s": save_s,
+              "distribute_tensor_takes_src_data_rank": "src_data_rank" in
+              inspect.signature(distribute_tensor).parameters,
+              "files_byte_identical": same,
+              "restored_placements_kept": restored_placements,
+              "step2_loss": dlosses[1], "step2_loss_resumed_same_mesh": resumed,
+              "step2_loss_resumed_plain": plain_resumed,
+              "plain_resume_rel_err": plain_rel,
+              "tolerance": {"loss": 1e-4, "params": "1e-4 x max(1, max|plain|)",
+                            "same_mesh_resume": "bit for bit",
+                            "plain_resume": "1e-6 relative"}}
+    log("sharded.elastic", **result)
+    del model, s0, p1, p2, dparams, step
+    free_device_memory()
+    if not (loss_err < 1e-4 and param_err < 1e-4):
+        raise AssertionError(f"sharded float32 steps: loss {loss_err}, "
+                             f"params {param_err}")
+    if not (same and restored_placements and resumed == dlosses[1]
+            and plain_rel < 1e-6):
+        raise AssertionError(f"elastic drill: {result}")
+    return result
+
+
+def sharded_decode(SH, ops, Model, get_arch, counters) -> dict:
+    """llama3.2-1b, float32, full size, on a (1, 1, 1) (pod, data, model)
+    mesh: parameters by ``params_shardings``, caches by
+    ``Model.cache_pspecs`` (placed again after every step, the reference's
+    ``out_shardings``); a prefill of 4 x 128 tokens and 8 greedy decode
+    steps against the plain path: logits to ``MODEL_TOL``, tokens
+    identical, K1 and K2 launched as often."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.weights import tree_map
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), dtype="float32")
+    model = Model(cfg, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    b, s, smax, steps = 4, 128, 256, 8
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32), device="cuda")
+    spec = model.cache_pspecs(mesh, b, smax)
+
+    def run(p, put):
+        for c in counters.values():
+            c.reset()
+        logits, out = [], []
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        lg, caches = model.prefill(p, {"tokens": put(toks)}, smax)
+        caches = put(caches, spec)
+        for i in range(steps):
+            full = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+            logits.append(full.float())
+            tok = full[:, -1].argmax(-1).to(torch.int32)[:, None]
+            out.append(tok)
+            lg, caches = model.decode_step(p, caches, put(tok), s + i)
+            caches = put(caches, spec)
+        full = lg.full_tensor() if hasattr(lg, "full_tensor") else lg
+        logits.append(full.float())
+        torch.cuda.synchronize()
+        return (logits, torch.cat(out, 1), (time.monotonic() - t0) * 1e3,
+                {k: c.count for k, c in counters.items()})
+
+    def put_d(t, sp=None):
+        if sp is None:
+            return SH.device_put(t, SH.batch_shardings(t, mesh), mesh)
+        return SH.device_put(t, tree_map(lambda c, x: SH.placements(x, mesh),
+                                         t, sp), mesh)
+    dparams = SH.device_put(params, SH.params_shardings(params, mesh), mesh)
+    with implicit_replication(), counting_local_map(ops) as lm:
+        dl, dtok, dwall, dlaunch = run(dparams, put_d)
+    pl, ptok, pwall, plaunch = run(params, lambda t, sp=None: t)
+    err = max((x - y).abs().max().item() for x, y in zip(dl, pl))
+    result = {"arch": cfg.name, "dtype": "float32", "mesh": [1, 1, 1],
+              "batch": b, "prompt": s, "smax": smax, "decode_steps": steps,
+              "max_abs_err": err, "tol": MODEL_TOL,
+              "tokens_identical": torch.equal(dtok, ptok),
+              "wall_ms": {"dtensor": dwall, "plain": pwall},
+              "launches": {"dtensor": dlaunch, "plain": plaunch},
+              "local_map_calls": lm["calls"]}
+    log("sharded.decode", **result)
+    del model, params, dparams, dl, pl
+    free_device_memory()
+    if not (err < MODEL_TOL and result["tokens_identical"]):
+        raise AssertionError(f"sharded decode: {result}")
+    if not all(dlaunch[n] == plaunch[n] > 0 for n in
+               ("flash_attention", "decode_attention")):
+        raise AssertionError(f"sharded decode launches: {result}")
+    return dlaunch
+
+
+def sharded_phase(ops, Model, trainer, optimizer, get_arch) -> dict:
+    """The sharded program run for real on one NCCL rank: one card, and
+    two ranks cannot share it in one communicator, so the mesh is (1, 1)
+    (and (1, 1, 1) for the pod axis); the CPU tests hold 4 and 8 gloo
+    ranks (tests/test_torch_sharded.py).  Every state, batch and cache is
+    placed by ``sharding.device_put``, every tensor of a step is a DTensor,
+    and K1-K4 and their backward kernels launch under ``local_map``
+    (``kernels.ops``): llama3.2-1b bf16 at full size (B 4, S 4096, 2
+    micro-batches, remat) against the same steps on plain tensors (wall
+    and busy ms of both, launches equal, placements kept); at 2 layers in
+    float32 with the elastic drill (``sharded_elastic``); xlstm-350m
+    (full) and qwen2-moe-a2.7b (3 of 24 layers, experts over the model
+    axis) in bf16; llama3.2-1b's float32 decode (``sharded_decode``).
+    bf16 losses within 3e-2 x max(1, |plain|) of the plain steps'.
+    Returns each path's launches under ``local_map``."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_mesh
+    store = ROOT / "build" / "chip_smoke_pg_sharded"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            rank=0, world_size=1)
+    counters = bwd_counters()
+    from repro_torch.kernels import decode_attention as kdecode
+    counters["decode_attention"] = kdecode.launches
+    by = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        runs = [("llama3.2-1b", get_arch("llama3.2-1b"), 4, 4096, 2, False,
+                 ("flash_attention", "flash_attention_bwd")),
+                ("xlstm-350m", get_arch("xlstm-350m"), 4, 2048, 1, False,
+                 ("mlstm_scan", "mlstm_scan_bwd")),
+                ("qwen2-moe-a2.7b", dataclasses.replace(
+                    get_arch("qwen2-moe-a2.7b"), n_layers=3), 2, 1024, 1,
+                 True, ("moe_topk", "moe_route_bwd", "flash_attention",
+                        "flash_attention_bwd"))]
+        for j, (name, cfg, b, s, accum, ep, need) in enumerate(runs):
+            t0 = time.monotonic()
+            r = sharded_train(SH, mesh, ops, Model, trainer, optimizer, cfg,
+                              b, s, accum, ep, 90 + j, counters, need)
+            errs = [abs(x - y) / max(1.0, abs(y)) for x, y in
+                    zip(r["dtensor"]["losses"], r["plain"]["losses"])]
+            log("sharded.train", arch=name, layers=cfg.n_layers,
+                dtype=cfg.dtype, batch=b, seq=s, grad_accum=accum,
+                experts_over_model=ep, mesh={"data": 1, "model": 1},
+                backend="nccl", losses={k: r[k]["losses"] for k in
+                                        ("dtensor", "plain")},
+                loss_max_rel_err=max(errs), tol=TOL[torch.bfloat16],
+                step_wall_ms={k: r[k]["walls"] for k in ("dtensor", "plain")},
+                step_busy_ms={k: r[k]["busy"] for k in ("dtensor", "plain")},
+                top_kernels={k: r[k]["top"] for k in ("dtensor", "plain")},
+                launches={k: r[k]["launches"] for k in ("dtensor", "plain")},
+                local_map_calls=r["local_map_calls"],
+                placements_kept=r["placements_kept"],
+                seconds=time.monotonic() - t0)
+            if not max(errs) < TOL[torch.bfloat16]:
+                raise AssertionError(f"{name} sharded losses {errs}")
+            by[f"{name} training (sharded)"] = r["dtensor"]["launches"]
+        sharded_elastic(SH, mesh, Model, trainer, optimizer, dataclasses.replace(
+            get_arch("llama3.2-1b"), dtype="float32", n_layers=2), 2, 1024, 97)
+        by["llama3.2-1b decode (sharded)"] = sharded_decode(
+            SH, ops, Model, get_arch, counters)
+    finally:
+        dist.destroy_process_group()
+    return by
+
+
 # ---------------------------------------------------------------- dry-run
 # The cells the dry-run traces on the card, (arch, shape, multi-pod,
 # variant): between them K1 and its backward, K2, K3 and K4 and its
@@ -2732,6 +3060,11 @@ def main() -> int:
     shardmap = distributed_phase(Model, get_arch, kflash)
     done("distributed", t0)
 
+    t0 = time.monotonic()
+    sharded = sharded_phase(ops, Model, trainer, optimizer, get_arch)
+    free_device_memory()
+    done("sharded", t0, total_seconds=time.monotonic() - t_start)
+
     # Serving, bfloat16, full width and depth (deepseek-v3-671b: its 3
     # dense layers and 2 of its 58 MoE layers, 53.2 GB, as the card's 80 GB
     # allow); each path's own kernels must run on it.  seamless-m4t-medium's
@@ -2787,6 +3120,7 @@ def main() -> int:
              total_seconds=time.monotonic() - t_start)
 
     by_path["llama3.2-1b shardmap_attn (distributed)"] = shardmap
+    by_path.update(sharded)
     t0 = time.monotonic()
     by_path.update(examples_phase(counters))
     done("examples", t0, total_seconds=time.monotonic() - t_start)
@@ -2859,6 +3193,16 @@ def main() -> int:
                    "no Pallas kernel: the reference differentiates "
                    "`ref.moe_topk_ref` through src/repro/kernels/ops.py:189 "
                    "(router_bwd_kernel)")}
+    # each kernel's launches on the sharded phase's DTensor path, under
+    # ``local_map`` (none ran K1 at 192 / 128 sharded)
+    local_map_path = {
+        "flash_attention": "llama3.2-1b training (sharded)",
+        "flash_attention_bwd": "llama3.2-1b training (sharded)",
+        "decode_attention": "llama3.2-1b decode (sharded)",
+        "mlstm_scan": "xlstm-350m training (sharded)",
+        "mlstm_scan_bwd": "xlstm-350m training (sharded)",
+        "moe_topk": "qwen2-moe-a2.7b training (sharded)",
+        "moe_route_bwd": "qwen2-moe-a2.7b training (sharded)"}
     tolerance = {
         "flash_attention": (f"bf16 {TOL[torch.bfloat16]:g}, "
                             f"f32 {TOL[torch.float32]:g} max abs"),
@@ -2888,6 +3232,9 @@ def main() -> int:
             "launches_path": own[name],
             "launches_by_path": {p: c[name] for p, c in by_path.items()
                                  if name in c},
+            "launches_under_local_map": by_path[local_map_path[name]][name]
+            if name in local_map_path else None,
+            "launches_under_local_map_path": local_map_path.get(name),
             **extra, "card": card})
     log("phase_seconds", total=time.monotonic() - t_start,
         build=seconds["build"], by_phase=seconds)

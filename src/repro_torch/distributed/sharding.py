@@ -20,6 +20,7 @@ count dims from the end, so a stacked layer axis is transparent.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import torch
@@ -249,6 +250,62 @@ def cache_shardings(caches, mesh):
 
 def replicated(mesh) -> tuple:
     return placements((), mesh)
+
+
+def state_shardings(state, mesh, ep: bool = False):
+    """Placements of a train state ``{"params", "opt"[, "ef"]}``: every
+    part by ``params_shardings`` (the optimizer's ``m`` and ``v`` as their
+    parameters, the 0-d ``step`` replicated), as the reference's test
+    places it."""
+    return {k: params_shardings(v, mesh, ep=ep) for k, v in state.items()}
+
+
+def device_put(tree, placements_tree, mesh):
+    """The counterpart of the reference's ``device_put(tree, shardings)``:
+    each leaf of ``tree`` as a DTensor on ``mesh``, placed by the leaf at
+    its path in ``placements_tree`` (``params_shardings``,
+    ``batch_shardings``, ``cache_shardings``, ``state_shardings``).
+
+    A leaf with data is cut by ``distribute_tensor`` from the whole tensor
+    that every rank holds (made from one seed, or read from one file), each
+    rank keeping its own shard without a collective (``src_data_rank=None``
+    where torch has it).  A leaf without data (meta or fake: the dry-run's
+    trace) becomes a new empty shard of its local shape on the mesh's
+    device, made under the fake mode that is active.  Both place a leaf
+    alike, so a trace and a real run share one layout.  A leaf that is a
+    DTensor already (a step's output, as the reference's ``out_shardings``
+    places it) is redistributed to its placements."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import distribute_tensor
+    from ..models.weights import tree_map
+    kw = ({"src_data_rank": None} if "src_data_rank" in
+          inspect.signature(distribute_tensor).parameters else {})
+
+    def put(t, plc):
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, tuple(plc))
+        if t.is_meta or isinstance(t, FakeTensor):
+            return _empty_shard(t, tuple(plc), mesh)
+        return distribute_tensor(t.to(mesh.device_type), mesh, tuple(plc),
+                                 **kw)
+    return tree_map(put, tree, placements_tree)
+
+
+def _empty_shard(t, plc: tuple, mesh):
+    """A DTensor of ``t``'s global shape and dtype placed by ``plc``,
+    whose local shard is a new tensor on the mesh's device (the rules
+    shard only dims that divide evenly)."""
+    local = list(t.shape)
+    for md, p in enumerate(plc):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(md)
+    loc = torch.empty(local, dtype=t.dtype, device=mesh.device_type)
+    stride, n = [], 1
+    for d in reversed(t.shape):
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(loc, mesh, plc, run_check=False,
+                              shape=t.shape, stride=tuple(stride))
 
 
 # ------------------------------------------------------- DTensor programs

@@ -37,10 +37,14 @@ batch rows over the data axes and heads over the model axis (``_heads``
 says when the heads shard), K3 on its BH rows and K4 on its tokens, each as
 the rows arrive.  ``local_map`` moves each input to those placements
 first, so a shard of another layout is redistributed there, as GSPMD
-would.  The autograd functions work through it unchanged, and the count is
-of the rank's shapes.  K4's plan is then each rank's own, over its tokens,
-with the capacity the caller gives for them; its slot tokens are sharded on
-the slot dim and its sums are partial over the ranks of the tokens.
+would; each shard is made contiguous there (``_local``), so a shard that
+arrives as a view reaches the kernel, never the plain version.  The
+autograd functions work through it unchanged (each input's gradient the
+whole of it: every rank's computation covers what its placements say),
+and the count is of the rank's shapes.  K4's plan is then each rank's own,
+over its tokens, with the capacity the caller gives for them; its slot
+tokens are sharded on the slot dim and its sums are partial over the ranks
+of the tokens (the MoE layer gives it every token, ``models/moe.py``).
 
 Fake tensors.  A fake CUDA tensor (``FakeTensorMode``, which the dry-run
 traces under) reaches the kernel's wrapper, which checks it as it checks a
@@ -289,11 +293,22 @@ def on_shards(fn, in_placements, out_placements, *args, **kwargs):
     mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
 
     def run(*a):
-        return fn(*(_ContiguousGrad.apply(t) if isinstance(t, torch.Tensor)
-                    and t.requires_grad else t for t in a), **kwargs)
+        return fn(*(_local(t) for t in a), **kwargs)
     return local_map(run, out_placements=out_placements,
                      in_placements=in_placements, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
+
+
+def _local(t):
+    """A rank's shard as a kernel takes it: contiguous (a strided shard,
+    or a ``redistribute``'s output, can arrive as a view), its gradient
+    made contiguous too (``_ContiguousGrad``); another argument as it
+    is."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    if t.requires_grad:
+        t = _ContiguousGrad.apply(t)
+    return t.contiguous()
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -355,13 +370,28 @@ def _heads(mesh, b: int, h: int, kh: int) -> tuple:
 
 def _by_heads(fn, q, k, v, *rest, **kwargs):
     """K1 or K2 (``fn``) on each rank's batch rows and heads (``_heads``);
-    ``rest`` is K2's lengths, a tensor of the batch rows or an int."""
+    ``rest`` is K2's lengths, a tensor of the batch rows or an int.
+
+    Where each rank's query heads share one KV head (``pick``) and a
+    gradient is wanted, the KV heads are repeated to one a model rank
+    (tp / KH copies each) and sharded as the query heads are, so each
+    rank's K1 gets its own KV head and the copies' gradients sum back
+    over the ranks.  A rank's pick of its head from k, v replicated on the
+    model axis would leave it a part of their gradient, which ``local_map``
+    would take for the whole.  Without a gradient (prefill, K2's decode)
+    the rank picks its head from the replicated k, v: no copy of a
+    cache."""
     mesh = q.device_mesh
     h, kh = q.shape[2], k.shape[2]
     qp, kvp, pick = _heads(mesh, q.shape[0], h, kh)
     rows = [p if p.is_shard(0) else Replicate() for p in qp]
     g = h // kh
-    h_local = h // dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    h_local = h // tp
+    if pick and _wants_grad(q, k, v):
+        k, v = (_repeat_heads(t.redistribute(mesh, kvp), tp // kh)
+                for t in (k, v))
+        kvp, pick = qp, False
 
     def local(q, k, v, *rest):
         if pick:
@@ -370,3 +400,9 @@ def _by_heads(fn, q, k, v, *rest, **kwargs):
         return fn(q, k, v, *rest, **kwargs)
     extra = tuple(rows if isinstance(r, torch.Tensor) else None for r in rest)
     return on_shards(local, (qp, kvp, kvp) + extra, qp, q, k, v, *rest)
+
+
+def _repeat_heads(x, r: int):
+    """(B, S, KH, d) -> (B, S, KH r, d): each head ``r`` times in a row."""
+    b, s, kh, d = x.shape
+    return x.unsqueeze(3).expand(b, s, kh, r, d).reshape(b, s, kh * r, d)

@@ -113,28 +113,13 @@ def _no_context_probe(device):
         fake_tensor.init_gpu_context = probe
 
 
-def _dtensor(t, spec, mesh):
-    """A DTensor of ``t``'s global shape and dtype placed by ``spec``,
-    whose local shard is a new tensor on the mesh's device (fake under the
-    dry-run's mode)."""
-    from torch.distributed.tensor import DTensor, Shard
-    plc = SH.placements(spec, mesh)
-    local = list(t.shape)
-    for md, p in enumerate(plc):
-        if isinstance(p, Shard):
-            local[p.dim] //= mesh.size(md)
-    loc = torch.empty(local, dtype=t.dtype, device=mesh.device_type)
-    stride, n = [], 1
-    for d in reversed(t.shape):
-        stride.insert(0, n)
-        n *= d
-    return DTensor.from_local(loc, mesh, plc, run_check=False,
-                              shape=t.shape, stride=tuple(stride))
-
-
 def _place(tree, mesh, spec_fn):
-    return SH.tree_map_with_path(
-        lambda path, leaf: _dtensor(leaf, spec_fn(path, leaf), mesh), tree)
+    """``tree`` placed on ``mesh`` by ``sharding.device_put`` (the real
+    run's placement), each leaf by the spec ``spec_fn(path, leaf)``: a
+    new empty shard of each leaf, fake under the dry-run's mode."""
+    return SH.device_put(tree, SH.tree_map_with_path(
+        lambda path, leaf: SH.placements(spec_fn(path, leaf), mesh), tree),
+        mesh)
 
 
 def local_bytes(tree) -> int:
@@ -226,8 +211,9 @@ def trace(cfg, shape, mesh_shape, axes, *, device: str = "cuda",
                 caches, token = inputs
                 spec_tree = model.cache_pspecs(mesh, shape.global_batch,
                                                shape.seq_len)
-                caches = tree_map(lambda c, sp: _dtensor(c, sp, mesh),
-                                  caches, spec_tree)
+                caches = SH.device_put(caches, tree_map(
+                    lambda c, sp: SH.placements(sp, mesh), caches, spec_tree),
+                    mesh)
                 token = _place(token, mesh, batch_spec)
                 step_pos = shape.seq_len - 1 if pos is None else pos
                 args = (params, caches, token)

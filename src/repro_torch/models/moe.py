@@ -44,9 +44,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..distributed.sharding import whole_grad
+from ..distributed.sharding import whole, whole_grad
 from ..kernels import ops
 from . import layers as L
 
@@ -163,38 +163,56 @@ def _combine(yexp, slot, weights):
 
 
 def _moe_sharded(cfg, p, x, xf, logits, capacity_factor):
-    """``moe_forward`` on DTensors (a sharded program, the dry-run's): each
-    rank routes its own tokens (K4's plan over them, with the capacity of
-    their count) and gathers them into its slots, and scatters the expert
-    outputs back to them, under ``local_map`` -- the reference's gathers
-    and scatter-adds over the plan have no DTensor rule, and a plan over
-    every rank's tokens would gather them all.  The (E, C, d) slot buffer
-    is sharded on C over the ranks of the tokens, and the expert products
-    run on DTensors, whose placements move the expert weights (an
-    all-gather of their FSDP shards, or of the experts of the other model
-    ranks under expert parallelism) as their rules say."""
+    """``moe_forward`` on DTensors (a sharded program): the plan of the
+    unsharded layer, over every token of the step, since which token a
+    full expert drops depends on all of them (the reference's plan is one
+    sort over the global batch).  The logits and token rows are gathered
+    whole over the ranks of the tokens and every rank runs K4 on all of
+    them (its plan, capacity and aux-loss sums are the unsharded ones);
+    each rank gathers the tokens into the whole (E, C, d) slot buffer
+    under ``local_map`` and keeps its share of the slots (C cut over the
+    ranks of the tokens, a local slice) for the expert products, which
+    run on DTensors whose rules move the expert weights (an all-gather of
+    their FSDP shards, or of the other model ranks' experts under expert
+    parallelism).  The expert outputs are gathered whole again and every
+    rank combines every token, then keeps its own rows.  Each computation
+    under ``local_map`` is thus the same on every rank, so the gradients
+    of its replicated inputs are replicated too (a combine of one rank's
+    tokens alone would leave each rank a part of the expert outputs'
+    gradient, a partial sum that ``local_map`` would read as whole).  The
+    cost beside the unsharded layer: an all-gather of the logits, the rows
+    and the expert outputs; K4 and the combine on every token on every
+    rank."""
     m = cfg.moe
     b, s, d = x.shape
     t, e = logits.shape
     rows = ops.row_placements(xf)
-    slots = [ops._moved(pl, 1) for pl in rows]
-    shards = 1
-    for n, pl in enumerate(rows):
-        if getattr(pl, "dim", None) == 0:
-            shards *= xf.device_mesh.size(n)
-    cap = capacity(t // shards, m.top_k, capacity_factor, e)
-    r = ops.moe_route(logits, m.top_k, capacity=cap, n_valid=m.n_routed,
-                      router_scale=m.router_scale)
+    row_dims = [n for n, pl in enumerate(rows) if pl.is_shard(0)]
+    cap = capacity(t, m.top_k, capacity_factor, e)
+    r = ops.moe_route(whole(logits, 0), m.top_k, capacity=cap,
+                      n_valid=m.n_routed, router_scale=m.router_scale)
     aux = (r.prob_sum * r.counts).sum() * (m.n_routed / (t * t))
+    xw = [Replicate() if pl.is_partial() or pl.is_shard(0) else pl
+          for pl in xf.placements]
+    slots_w = [Shard(2) if pl.is_shard(1) else pl for pl in xw]
+    repl = [Replicate()] * len(xw)
     buf = ops.on_shards(
-        lambda x, st, sl: DispatchGather.apply(x, st, sl).reshape(e, cap, d),
-        (rows, slots, rows), slots, xf, r.slot_tok, r.slot)
+        lambda x, st, sl: DispatchGather.apply(x, st, sl).reshape(e, cap, -1),
+        (xw, repl, repl), slots_w, xf, r.slot_tok, r.slot)
+    buf = buf.redistribute(buf.device_mesh, [
+        Shard(1) if n in row_dims else pl for n, pl in enumerate(slots_w)])
     w_exp = p["experts"]
     h = F.silu(torch.bmm(buf, w_exp["gate"].to(buf.dtype)))
     h = h * torch.bmm(buf, w_exp["up"].to(buf.dtype))
     yexp = torch.bmm(h, w_exp["down"].to(buf.dtype))
-    y = whole_grad(ops.on_shards(_combine, (slots, rows, rows), rows, yexp,
-                                 r.slot, r.weights).reshape(b, s, d), 1)
+    yw = [Shard(2) if pl.is_shard(2) else Replicate()
+          for pl in yexp.placements]
+    tw = [Shard(1) if pl.is_shard(2) else Replicate() for pl in yw]
+    y = ops.on_shards(_combine, (yw, repl, repl), tw, yexp, r.slot,
+                      r.weights)
+    y = y.redistribute(y.device_mesh, [rows[n] if n in row_dims else pl
+                                       for n, pl in enumerate(tw)])
+    y = whole_grad(y.reshape(b, s, d), 1)
     if "shared" in p:       # on (B, S, d): DTensor cannot view every layout
         y = y + L.swiglu(p["shared"], x)           # of its output back
     return y, aux

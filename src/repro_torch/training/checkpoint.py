@@ -22,6 +22,12 @@ directory is renamed only after the manifest is written, so a
 half-written checkpoint is never taken for a valid one.  ``async_save``
 hands the host copy of the tree to a writer thread; ``keep_n`` keeps the
 newest checkpoints and removes the rest.
+
+Elastic: a state of DTensors (a sharded program) is saved as whole leaves,
+gathered on every rank and written by one, into the files an unsharded
+save of the same state writes; ``restore`` places each leaf as the tree it
+is given places it, on any mesh, or as plain tensors.  So a run saved on
+one mesh resumes on another, as the reference's checkpoints promise.
 """
 from __future__ import annotations
 
@@ -35,7 +41,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import device_put
 from ..models.weights import tree_leaves, tree_unflatten
 
 BF16_DESCR = "<V2"
@@ -63,11 +72,32 @@ def treedef_str(tree) -> str:
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A tensor's host copy: a numpy array, or for bfloat16 its raw bits as
-    ``int16`` (written out under the ``<V2`` descr)."""
+    ``int16`` (written out under the ``<V2`` descr).  A DTensor's is the
+    host copy of its ``full_tensor()``: a collective, which every rank of
+    its mesh calls, leaf by leaf in the same order."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.contiguous().view(torch.int16).numpy()
     return t.numpy()
+
+
+def _mesh_of(leaves):
+    """The mesh of a tree's DTensor leaves (one mesh over the whole default
+    group), or None for a tree of plain tensors."""
+    meshes = {t.device_mesh for t in leaves if isinstance(t, DTensor)}
+    if not meshes:
+        return None
+    if len(meshes) > 1:
+        raise ValueError("checkpoint: a tree's DTensors lie on more than "
+                         "one mesh")
+    mesh = meshes.pop()
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"checkpoint: the mesh holds {mesh.size()} of "
+                         f"{dist.get_world_size()} ranks; a sharded save "
+                         "spans the default group")
+    return mesh
 
 
 def write_leaf(f, arr: np.ndarray, bf16: bool) -> None:
@@ -90,6 +120,7 @@ class CheckpointManager:
         self._q: Optional[queue.Queue] = None
         self._thread = None
         self._errors: list = []
+        self._sharded = False    # after a sharded save, wait ends at a barrier
         if async_save:
             self._q = queue.Queue(maxsize=2)
             self._thread = threading.Thread(target=self._writer, daemon=True)
@@ -97,18 +128,41 @@ class CheckpointManager:
 
     # ----------------------------------------------------------------- save
     def save(self, step: int, tree) -> None:
+        """Save ``tree`` as step ``step``.  A sharded tree (DTensor leaves
+        on one mesh, which spans the default process group) is a
+        collective save: every rank calls it with its shards of the same
+        state; each leaf is gathered whole (``to_host``) here, on the
+        caller's thread, before anything reaches the writer thread, which
+        runs no collective; the rank at the mesh's origin alone writes,
+        collects and renames; every rank waits at a barrier before this
+        returns (sync) or before ``wait`` returns (async).  The files are
+        those of the same state saved unsharded, byte for byte."""
         leaves = tree_leaves(tree)
+        mesh = _mesh_of(leaves)
         host = ([(to_host(t), t.dtype == torch.bfloat16) for t in leaves],
                 treedef_str(tree))
+        if mesh is not None:
+            self._sharded = True
+            if not all(c == 0 for c in mesh.get_coordinate()):
+                if self._q is None:
+                    dist.barrier()
+                return
         if self._q is not None:
             self._q.put((step, host))
-        else:
+            return
+        try:
             self._write(step, host)
+        finally:
+            if mesh is not None:
+                dist.barrier()
 
     def wait(self) -> None:
-        """Block until pending async saves are durable."""
+        """Block until pending async saves are durable (on every rank,
+        after a sharded save)."""
         if self._q is not None:
             self._q.join()
+            if self._sharded:
+                dist.barrier()
         if self._errors:
             raise RuntimeError(f"async checkpoint failed: {self._errors[0]}")
 
@@ -175,7 +229,11 @@ class CheckpointManager:
 
     def restore(self, step: int, like):
         """Restore into the structure of ``like`` (shape checked), each leaf
-        in the type and on the device of ``like``'s."""
+        in the type and on the device of ``like``'s; a DTensor leaf of
+        ``like`` gives a DTensor of its mesh and placements, cut from the
+        whole leaf that every rank reads (``sharding.device_put``).
+        ``like``'s mesh may differ from the one that saved (the files hold
+        whole leaves): the elastic rescale."""
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -197,7 +255,11 @@ class CheckpointManager:
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            out.append(t.to(device=ref.device, dtype=ref.dtype))
+            if isinstance(ref, DTensor):
+                out.append(device_put(t.to(dtype=ref.dtype), ref.placements,
+                                      ref.device_mesh))
+            else:
+                out.append(t.to(device=ref.device, dtype=ref.dtype))
         return tree_unflatten(like, out)
 
     def restore_latest(self, like):

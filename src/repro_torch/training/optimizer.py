@@ -10,6 +10,13 @@ reference, while the final norm ``(d,)`` is not.
 Updates are out of place: ``apply_updates`` returns new tensors and never
 writes the ones it was given, so a state handed to a background checkpoint
 save stays the state of its step while training goes on.
+
+A sharded state (DTensor leaves, ``sharding.device_put``): the global norm
+and the clip scale are replicated scalars over every rank's shard; each
+gradient is placed as its parameter before the update (a partial sum over
+the data axes reduced, or reduce-scattered onto FSDP shards), and the new
+parameters, ``m``, ``v`` and ``step`` keep the placements they came in
+with, as the reference's ``out_shardings`` keeps them.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..models.layers import dtype_of
 from ..models.weights import tree_leaves, tree_map, tree_unflatten
@@ -62,8 +70,29 @@ def init_state(cfg: OptimizerConfig, params):
 
 
 def global_norm(tree):
-    return torch.stack([x.float().square().sum()
+    """The norm over every leaf; of DTensor leaves, over every rank's
+    shard: each leaf's sum of squares made a replicated scalar (partial
+    sums reduced) before the leaves are summed."""
+    return torch.stack([_replicated(x.float().square().sum())
                         for x in tree_leaves(tree)]).sum().sqrt()
+
+
+def _replicated(x):
+    """A DTensor replicated on every mesh dim (shards gathered, partial
+    sums reduced); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def _placed_as(x, like):
+    """A DTensor ``x`` redistributed to ``like``'s placements (a gradient
+    that arrives as a partial sum over the data axes is reduced, or
+    reduce-scattered onto its parameter's shards); anything else as it
+    is."""
+    if not isinstance(x, DTensor) or x.placements == like.placements:
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
 
 
 def apply_updates(cfg: OptimizerConfig, params, grads, state):
@@ -77,18 +106,19 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state):
     b2c = 1 - cfg.b2 ** step.float()
 
     def upd(p, g, m, v):
-        g = g.float() * scale
+        g = _placed_as(g, p).float() * scale
         m32 = m.float() * cfg.b1 + g * (1 - cfg.b1)
         v32 = v.float() * cfg.b2 + g.square() * (1 - cfg.b2)
         delta = (m32 / b1c) / ((v32 / b2c).sqrt() + cfg.eps)
         if p.dim() >= 2:
             delta = delta + cfg.weight_decay * p.float()
         newp = p.float() - lr * delta
-        return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+        return (_placed_as(newp.to(p.dtype), p),
+                _placed_as(m32.to(m.dtype), m), _placed_as(v32.to(v.dtype), v))
 
     out = [upd(*t) for t in zip(*(tree_leaves(x) for x in (
         params, grads, state["m"], state["v"])))]
     new_p, new_m, new_v = (tree_unflatten(params, [o[j] for o in out])
                            for j in range(3))
-    return new_p, {"step": step, "m": new_m, "v": new_v}, \
-        {"grad_norm": gnorm, "lr": lr}
+    return new_p, {"step": _placed_as(step, state["step"]), "m": new_m,
+                   "v": new_v}, {"grad_norm": gnorm, "lr": lr}

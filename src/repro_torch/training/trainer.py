@@ -10,12 +10,20 @@ port; on the card attention's gradient is K1's backward kernel.  A step
 never writes the state it was given (every update is out of place), so a
 snapshot of step N -- a checkpoint saved later in the slack -- stays step
 N's state.
+
+A state of DTensors (``sharding.device_put``) runs the same step as a
+sharded program: the parameters and optimizer state keep their placements
+(``optimizer.apply_updates``), micro-batches are each rank's own rows
+(``_micro``), and the metrics are plain 0-d tensors, the same on every
+rank, so every caller reads them as it reads an unsharded step's.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..distributed.sharding import shardwise
 from ..models.weights import tree_leaves, tree_unflatten
@@ -59,6 +67,17 @@ def make_train_step(model, train_cfg: TrainConfig):
     accum = train_cfg.grad_accum
 
     def train_step(state, batch):
+        if not isinstance(tree_leaves(state["params"])[0], DTensor):
+            return step(state, batch)
+        # A sharded state: the model's plain tensors (positions, masks)
+        # join its DTensors as replicated, and the metrics come back as
+        # plain 0-d tensors, the same on every rank.
+        with implicit_replication():
+            new_state, metrics = step(state, batch)
+        return new_state, {k: v.full_tensor() if isinstance(v, DTensor)
+                           else v for k, v in metrics.items()}
+
+    def step(state, batch):
         params = state["params"]
         if accum > 1:
             # Micro-batch gradients summed in float32, then divided, as the

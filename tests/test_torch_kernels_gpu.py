@@ -1210,3 +1210,140 @@ def test_dry_run_on_the_card_allocates_nothing(cuda):
     assert {"flash_attention", "flash_attention_bwd"} <= set(
         rec["roofline"]["kernels"])
     assert [c.count for c in (kflash.launches, kflash.bwd_launches)] == counts
+
+
+# ------------------------------------------------ DTensors under local_map
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL group and its (1, 1) (data, model) mesh for the
+    test (one card: two ranks cannot share it in one communicator)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dt(mesh, t, grad=False):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    d = distribute_tensor(t, mesh, [Replicate(), Replicate()])
+    return d.detach().requires_grad_(True) if grad else d
+
+
+def _counts():
+    return (kflash.launches.count, kflash.bwd_launches.count,
+            kdecode.launches.count, kscan.launches.count,
+            kscan.bwd_launches.count, kmoe.launches.count,
+            kmoe.bwd_launches.count)
+
+
+def _grads_of(fn, inputs, douts):
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o * d).sum() for o, d in zip(outs, douts) if d is not None)
+    return [o.detach() for o in outs], torch.autograd.grad(loss, inputs)
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_under_local_map_equal_the_plain_tensor_calls(
+        nccl_mesh, dtype):
+    """K1, K3 and K4 forward and backward, and K2, called with CUDA
+    DTensors on the one-rank mesh: each launches its kernels once a call
+    (forward and backward) as the plain call does, and gives the same
+    outputs and gradients, bit for bit (the same kernels on the same
+    shard)."""
+    cuda = torch.device("cuda")
+    q = _randn((2, 256, 8, 64), dtype, cuda, 200)
+    k = _randn((2, 256, 2, 64), dtype, cuda, 201)
+    v = _randn((2, 256, 2, 64), dtype, cuda, 202)
+    do = _randn((2, 256, 8, 64), dtype, cuda, 203)
+    sq = _randn((4, 256, 512), dtype, cuda, 204)
+    lf = torch.nn.functional.logsigmoid(_randn((4, 256), torch.float32,
+                                               cuda, 205) + 2)
+    ig = _randn((4, 256), torch.float32, cuda, 206)
+    dh = _randn((4, 256, 512), dtype, cuda, 207)
+    logits = _randn((512, 64), torch.float32, cuda, 208)
+    dw = _randn((512, 4), torch.float32, cuda, 209)
+    dps = _randn((64,), torch.float32, cuda, 210)
+    lengths = torch.tensor([256, 100], dtype=torch.int32, device=cuda)
+    cases = [
+        (ops.grouped_flash, (q, k, v), (do,), (1, 1, 0, 0, 0, 0, 0)),
+        (lambda a, b, c, f, i: ops.mlstm_scan(a, b, c, f, i),
+         (sq, sq, sq, lf, ig), (dh,), (0, 0, 0, 1, 1, 0, 0)),
+        (lambda lg: tuple(ops.moe_route(lg, 4, capacity=40, n_valid=60)),
+         (logits,), (dw, None, None, None, dps, None),
+         (0, 0, 0, 0, 0, 1, 1))]
+    for fn, ins, douts, want in cases:
+        before = _counts()
+        d_out, d_grads = _grads_of(
+            fn, [_dt(nccl_mesh, t, grad=True) for t in ins],
+            [None if t is None else _dt(nccl_mesh, t) for t in douts])
+        torch.cuda.synchronize()
+        mid = _counts()
+        p_out, p_grads = _grads_of(
+            fn, [t.clone().requires_grad_(True) for t in ins], douts)
+        torch.cuda.synchronize()
+        after = _counts()
+        assert tuple(m - b for m, b in zip(mid, before)) == want
+        assert tuple(a - m for a, m in zip(after, mid)) == want
+        for a, b in zip(list(d_out) + list(d_grads), list(p_out) + list(p_grads)):
+            assert torch.equal(_whole(a), b)
+    before = _counts()
+    got = ops.grouped_decode(_dt(nccl_mesh, q[:, :1]), _dt(nccl_mesh, k),
+                             _dt(nccl_mesh, v), _dt(nccl_mesh, lengths))
+    want = ops.grouped_decode(q[:, :1], k, v, lengths)
+    torch.cuda.synchronize()
+    assert _counts()[2] - before[2] == 2
+    assert torch.equal(_whole(got), want)
+
+
+def test_a_non_contiguous_shard_reaches_the_kernel(nccl_mesh, monkeypatch):
+    """A rank's shard that is a view with a strided head dim (what a
+    ``redistribute`` can hand over): the DTensor branch makes it contiguous
+    and the kernel takes it, forward and backward, as it takes the
+    contiguous tensor; the plain version is never called."""
+    from torch.distributed.tensor import DTensor, Replicate
+    cuda = torch.device("cuda")
+    for name in ("grouped_flash_ref", "grouped_flash_bwd_ref",
+                 "mlstm_chunkwise_ref"):
+        monkeypatch.setattr(ref, name, lambda *a, **kw: (_ for _ in ()).throw(
+            AssertionError("the plain version was called")))
+    qt = _randn((2, 256, 64, 8), torch.bfloat16, cuda, 220).transpose(2, 3)
+    assert qt.stride(-1) != 1
+    k = _randn((2, 256, 2, 64), torch.bfloat16, cuda, 221)
+    v = _randn((2, 256, 2, 64), torch.bfloat16, cuda, 222)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.grouped_flash(qt, k, v)
+    dq = DTensor.from_local(qt, nccl_mesh, [Replicate(), Replicate()],
+                            run_check=False).detach().requires_grad_(True)
+    n = (kflash.launches.count, kflash.bwd_launches.count)
+    out = ops.grouped_flash(dq, _dt(nccl_mesh, k), _dt(nccl_mesh, v))
+    g, = torch.autograd.grad(out.sum(), dq)
+    torch.cuda.synchronize()
+    assert (kflash.launches.count, kflash.bwd_launches.count) == (
+        n[0] + 1, n[1] + 1)
+    pq = qt.contiguous().requires_grad_(True)
+    pout = ops.grouped_flash(pq, k, v)
+    pg, = torch.autograd.grad(pout.sum(), pq)
+    assert torch.equal(out.full_tensor(), pout)
+    assert torch.equal(g.full_tensor(), pg)
+    st = _randn((4, 512, 256), torch.bfloat16, cuda, 223).transpose(1, 2)
+    lf = torch.nn.functional.logsigmoid(_randn((4, 256), torch.float32,
+                                               cuda, 224) + 2)
+    ig = _randn((4, 256), torch.float32, cuda, 225)
+    ds = DTensor.from_local(st, nccl_mesh, [Replicate(), Replicate()],
+                            run_check=False)
+    n = kscan.launches.count
+    got = ops.mlstm_scan(ds, ds, ds, _dt(nccl_mesh, lf), _dt(nccl_mesh, ig))
+    torch.cuda.synchronize()
+    assert kscan.launches.count == n + 1
+    c = st.contiguous()
+    assert torch.equal(got.full_tensor(), ops.mlstm_scan(c, c, c, lf, ig))
