@@ -27,7 +27,10 @@ Phases, each printed on its own line and each fatal:
                tensor-core kernels' SASS must hold HGMMA (cuobjdump); K1's
                backward: registers and spill stores of each bf16 wgmma
                kernel at each head dim, and HGMMA in each one's SASS; no
-               spill in K3's backward (``csrc/mlstm_scan_bwd.cu``)
+               spill in K3's backward (``csrc/mlstm_scan_bwd.cu``); K1's
+               bf16 forward (``flash_fwd_tma_kernel``): registers, spill
+               stores and serialised wgmma by ptxas, HGMMA in the SASS of
+               each of its six instantiations
 3. kernels  -- each kernel against its plain version over the serving
                shapes and the reference test shapes: attention (K1, K2)
                float32 to 1e-4 and bfloat16 to 3e-2; the MoE router (K4)
@@ -40,7 +43,10 @@ Phases, each printed on its own line and each fatal:
                whose backend is named, and the kernel's own device time
                from the profiler (K1 and K2: each call is one launch, and
                no other kernel runs; K3: the sum over the one to three
-               launches of its plan), beside the kernel's bound;
+               launches of its plan), beside the kernel's bound; for K1
+               also its wrapper's host microseconds a call over 1000
+               unsynchronised calls (``host_us``), those of its tensor
+               maps' encoding alone, and its registers and spill stores;
                K1 and K2 at llama3.2-1b's, qwen2-moe-a2.7b's, stablelm-3b's
                (head dim 80) and hymba-1.5b's shapes, K1 at deepseek-v3's
                MLA admission (query-key dim 192, value dim 128) and
@@ -288,6 +294,49 @@ def check_bwd_build(build, built) -> None:
         built_here=bool(log_))
     if len(hgmma) != BWD_WGMMA_KERNELS or not all(hgmma.values()):
         raise AssertionError(f"flash_attention_bwd: HGMMA {hgmma}")
+
+
+# K1's bf16 forward: the TMA kernel at each (query-key dim, value dim)
+K1_FWD = "flash_fwd_tma_kernel"
+FWD_TMA = re.compile(r"(flash_fwd_tma_kernel)ILi(\d+)ELi(\d+)E")
+FWD_TMA_KERNELS = 6
+FWD_PTXAS = {}      # "flash_fwd_tma_kernel<DK, DV>": registers, spill stores
+
+
+def check_flash_build(build, built) -> None:
+    """K1's bf16 forward: ptxas's registers a thread and spill stores of
+    ``flash_fwd_tma_kernel`` at each pair of dims and the lines where
+    ptxas says it serialised wgmma (when this run built it), and HGMMA in
+    each one's SASS."""
+    path, _, log_ = built["flash_attention"]
+    FWD_PTXAS.update(ptxas_by_kernel(log_, FWD_TMA, bwd_name))
+    hgmma = {bwd_name(m): c
+             for n, c in hgmma_counts(build, path).items()
+             if (m := FWD_TMA.search(n))}
+    serialised = [ln.strip() for ln in log_.splitlines()
+                  if "serializ" in ln.lower()]
+    log("build.flash_attention", ptxas=FWD_PTXAS, hgmma_per_kernel=hgmma,
+        wgmma_serialised=serialised, built_here=bool(log_))
+    if (len(hgmma) != FWD_TMA_KERNELS or not all(hgmma.values())
+            or (log_ and len(FWD_PTXAS) != FWD_TMA_KERNELS)):
+        raise AssertionError(f"flash_attention: HGMMA {hgmma}, "
+                             f"ptxas {FWD_PTXAS}")
+
+
+def host_us(fn, n: int = 1000, batch: int = 100) -> float:
+    """Host microseconds a call of ``fn`` takes to return, over ``n``
+    unsynchronised calls in runs of ``batch`` (the device drained between
+    runs, outside the timing, so no run waits on a full launch queue)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(n // batch):
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / (n // batch * batch) * 1e6
 
 
 def log(phase: str, **fields) -> None:
@@ -605,8 +654,11 @@ def time_flash(ref, kflash, b, s, h, kh, hd, dv=None, causal=True,
     """K1 in bfloat16 at one shape (Sk = s, Sq = ``sq`` or s; ``dv``: a
     value dim of its own, V a strided view as MLA passes it; q, k and v
     drawn from ``seed`` and the two seeds after it): CUDA-event times of
-    the kernel, the plain version and SDPA (its backend named), and the
-    wgmma kernel's own device time and launches a call (one)."""
+    the kernel, the plain version and SDPA (its backend named), the TMA
+    kernel's own device time, launches a call (one) and grid, the
+    wrapper's host microseconds a call (``host_us``) and those of its
+    tensor maps' encoding alone, and the kernel's registers and spill
+    stores from ptxas."""
     F = torch.nn.functional
     dt = torch.bfloat16
     sq = sq or s
@@ -627,10 +679,14 @@ def time_flash(ref, kflash, b, s, h, kh, hd, dv=None, causal=True,
         "plain_ms": cuda_ms(lambda: ref.grouped_flash_ref(q, k, v,
                                                           causal=causal)),
         "library_ms": cuda_ms(library),
-        "device_ms": device_ms(call, "flash_fwd_wgmma", alone=True),
+        "device_ms": device_ms(call, K1_FWD, alone=True),
     }
-    _, d["launches_per_call"], _ = device_ms_per_call(
-        call, "flash_fwd_wgmma", max_per_call=1)
+    _, d["launches_per_call"], d["grid"] = device_ms_per_call(
+        call, K1_FWD, max_per_call=1)
+    d["host_us"] = host_us(call)
+    d["tma_encode_us"] = kflash.tma_encode_us(q, k, v)
+    d["instantiation"] = f"{K1_FWD}<{hd}, {dv or hd}>"
+    d.update(FWD_PTXAS.get(d["instantiation"], {}))
     d["library_backend"], d["library_kernels"] = sdpa_backend(library)
     d["bound_ms"], d["bound_by"] = RA.bound_ms(W.flash(q, k, v, causal=causal))
     d["shape"] = (f"B={b} Sq={sq} Sk={s} H={h} KH={kh} hd={hd}"
@@ -786,9 +842,13 @@ def backward_phase(ref, kflash) -> dict:
     d["kept_pairs"] = b * h * W.flash_pairs(s, s, True, 0)
     d["fwd_lse_device_ms"] = device_ms(
         lambda: kflash.flash_attention(q, k, v, return_lse=True),
-        "flash_fwd_wgmma", iters=5, alone=True)
+        K1_FWD, iters=5, alone=True)
     d["fwd_device_ms"] = device_ms(lambda: kflash.flash_attention(q, k, v),
-                                   "flash_fwd_wgmma", iters=5, alone=True)
+                                   K1_FWD, iters=5, alone=True)
+    d["fwd_lse_host_us"] = host_us(
+        lambda: kflash.flash_attention(q, k, v, return_lse=True))
+    d["fwd_kernel"] = f"{K1_FWD}<{hd}, {hd}>"
+    d["fwd_ptxas"] = FWD_PTXAS.get(d["fwd_kernel"])
     # The forward with its row logsumexp: its bound (2 dk + 2 dv
     # operations a kept pair; q, k, v read, o and lse written), and the
     # library's flash forward that returns the logsumexp, on K and V
@@ -1821,11 +1881,13 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in raw.items()}
     step = trainer.make_train_step(model, tcfg)
     kflash.launches.reset()
+    kflash.tma_launches.reset()
     kflash.bwd_launches.reset()
     r = run_steps(step, box, batch, 4,
                   lambda: {"flash_attention": kflash.launches.count,
+                           "flash_attention_tma": kflash.tma_launches.count,
                            "flash_attention_bwd": kflash.bwd_launches.count},
-                  ("flash_fwd", "bwd_d"))
+                  (K1_FWD, "bwd_d"))
     launches = r["launches"]
     losses, wall = r["losses"], r["wall"]
     flops = model_flops(cfg, box["state"]["params"], b, s)
@@ -1842,7 +1904,7 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
               "losses": losses, "step_wall_ms": r["walls"],
               "step_wall_ms_median_2_4": wall, "step_busy_ms": r["busy"],
               "step_top_kernels": r["top"],
-              "step_k1_ms_launches": {"forward": r["named"]["flash_fwd"],
+              "step_k1_ms_launches": {"forward": r["named"][K1_FWD],
                                       "backward": r["named"]["bwd_d"]},
               "tokens_per_s": b * s / wall * 1e3,
               "max_memory_allocated_bytes": r["peak"],
@@ -1852,8 +1914,11 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
     log("train.steps", **result)
     if not (all(np.isfinite(losses)) and losses[3] < losses[0]):
         raise AssertionError(f"training losses {losses}")
-    if not all(c > 0 for c in launches.values()):
-        raise AssertionError(f"K1 launches on the training path: {launches}")
+    if not (all(c > 0 for c in launches.values())
+            and r["named"][K1_FWD][1] > 0):
+        raise AssertionError(f"K1 launches on the training path: {launches}, "
+                             f"{K1_FWD} in the profiled step "
+                             f"{r['named'][K1_FWD]}")
     del model, box, r, step
     return launches
 
@@ -1902,6 +1967,7 @@ def bwd_counters() -> dict:
     from repro_torch.kernels import mlstm_scan as kscan
     from repro_torch.kernels import moe_topk as kmoe
     return {"flash_attention": kflash.launches,
+            "flash_attention_tma": kflash.tma_launches,
             "flash_attention_bwd": kflash.bwd_launches,
             "mlstm_scan": kscan.launches, "mlstm_scan_bwd": kscan.bwd_launches,
             "moe_topk": kmoe.launches, "moe_route_bwd": kmoe.bwd_launches}
@@ -2586,7 +2652,8 @@ def sharded_phase(ops, Model, trainer, optimizer, get_arch) -> dict:
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
         runs = [("llama3.2-1b", get_arch("llama3.2-1b"), 4, 4096, 2, False,
-                 ("flash_attention", "flash_attention_bwd")),
+                 ("flash_attention", "flash_attention_tma",
+                  "flash_attention_bwd")),
                 ("xlstm-350m", get_arch("xlstm-350m"), 4, 2048, 1, False,
                  ("mlstm_scan", "mlstm_scan_bwd")),
                 ("qwen2-moe-a2.7b", dataclasses.replace(
@@ -2981,6 +3048,7 @@ def main() -> int:
     seconds["build"] = time.monotonic() - t0
     check_scan_build(build, built)
     check_bwd_build(build, built)
+    check_flash_build(build, built)
 
     t0 = time.monotonic()
     timed = kernel_phase(ref, kflash, kdecode)
@@ -3073,10 +3141,12 @@ def main() -> int:
     # heads and the two with stub frontends first print their bf16
     # prefill_batch logits, kernel path against plain path.
     counters = {"flash_attention": kflash.launches,
+                "flash_attention_tma": kflash.tma_launches,
                 "flash_attention_bwd": kflash.bwd_launches,
                 "decode_attention": kdecode.launches,
                 "mlstm_scan": kscan.launches, "moe_topk": kmoe.launches}
-    attn = ("flash_attention", "decode_attention")
+    # K1's launches on a bf16 path are the TMA kernel's: both must count
+    attn = ("flash_attention", "flash_attention_tma", "decode_attention")
     vlm_lengths = (256, 272, 288, 304, 320, 352, 384, 400)
     # arch, path label, cut, kernels the path must launch, and whether
     # serve's background-train lane runs beside it
@@ -3092,7 +3162,7 @@ def main() -> int:
              ("qwen2-0.5b", "qwen2-0.5b", {}, attn, False),
              ("granite-8b", "granite-8b", {}, attn, False),
              ("deepseek-v3-671b", "deepseek-v3-671b", {"n_layers": 5},
-              ("flash_attention", "moe_topk"), False)]
+              ("flash_attention", "flash_attention_tma", "moe_topk"), False)]
     by_path = {}
     for arch, name, cut, required, train_lane in paths:
         cfg = dataclasses.replace(get_arch(arch), **cut)
@@ -3235,6 +3305,10 @@ def main() -> int:
             "launches_under_local_map": by_path[local_map_path[name]][name]
             if name in local_map_path else None,
             "launches_under_local_map_path": local_map_path.get(name),
+            **({"tma_launches_by_path": {
+                p: c["flash_attention_tma"] for p, c in by_path.items()
+                if "flash_attention_tma" in c}}
+               if name == "flash_attention" else {}),
             **extra, "card": card})
     log("phase_seconds", total=time.monotonic() - t_start,
         build=seconds["build"], by_phase=seconds)

@@ -5,11 +5,15 @@
 //
 // 16-byte `cp.async` copies, the `wgmma` fences, commits and waits,
 // `wgmma.mma_async` bf16 products (m64n64k16 with both operands in shared
-// memory, each read K- or MN-major, and m64n32k16 K-major; m64nNk16, N =
-// 16 / 32 / 64 / 128 / 192, with A from registers), the swizzled
-// shared-memory layout of a bf16 tile with the descriptors that read it,
-// and the copy of a tile into that layout.  A kernel that includes this
-// file is built with nvcc -std=c++17 for sm_90a.
+// memory, each read K- or MN-major, m64n32k16 and m64n128k16 K-major;
+// m64nNk16, N = 16 / 32 / 64 / 128 / 192, with A from registers), the
+// swizzled shared-memory layout of a bf16 tile with the descriptors that
+// read it, and the copy of a tile into that layout.  For warp-specialised
+// kernels (K1's bf16 forward): `mbarrier`s (init, arrive, expect_tx, a
+// parity wait), TMA tile loads (`cp.async.bulk.tensor`) that complete on
+// an `mbarrier` and TMA tile stores in bulk groups, `setmaxnreg` and named
+// barriers.  A kernel that includes this file is built with nvcc
+// -std=c++17 for sm_90a.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,6 +68,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// x, as a value the compiler cannot see through: a shared-memory address
+// passed through it inside a loop is not hoisted out of the loop with the
+// wgmma descriptors made from it, which would hold their registers for the
+// whole loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  uint32_t r;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(x));
+  return r;
 }
 
 // Two floats as bf16 in one register, lo in the low half.
@@ -126,12 +140,42 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// m64nNk16, N = 32 or 64, both operands K-major in shared memory.
+// m64n128k16, both operands K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// m64nNk16, N = 32, 64 or 128, both operands K-major in shared memory.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
   if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
   if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  if constexpr (N == 128) wgmma_ss_n128(d, da, db, scale_d);
 }
 
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
@@ -344,6 +388,119 @@ __device__ __forceinline__ void zero_pad_cols(unsigned char* smem,
                                                       HD / 8 + i % PAD8)) =
           make_uint4(0, 0, 0, 0);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Warp specialisation: mbarriers, TMA, register hand-over, named barriers
+// ---------------------------------------------------------------------------
+
+// An mbarrier (8 bytes of shared memory at `bar`) completes a phase when
+// `count` arrivals and every byte announced with `mbar_expect_tx` have
+// come.  One thread initialises it; `fence_mbar_init` and a block barrier
+// follow before any other thread uses it.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// One arrival that also announces `bytes` of asynchronous copies (TMA)
+// that will complete on this barrier in the current phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+// Waits until the phase of parity `parity` has completed.  A fresh
+// barrier counts its (never run) phase of parity 1 as completed, so a
+// producer's first wait on an empty slot, at parity 1, passes at once.
+// No timeout: a `__trap()` on this path (tried as a watchdog) makes ptxas
+// ignore `setmaxnreg` and hold every role to the launch's register count.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// A TMA load of one box of a 4-D tensor map (a `__grid_constant__`
+// CUtensorMap kernel parameter, by address) at coordinates (c0, ..., c3),
+// innermost first, into shared memory at `dst`, completing on the
+// mbarrier `bar`.  Elements outside the tensor arrive as zeros.  `dst`
+// must be aligned to the box's swizzle atom (1024 bytes for 128-byte).
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
+          "r"(dst), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+// A TMA store of one box from shared memory at `src` to a 4-D tensor map
+// at (c0, ..., c3): elements outside the tensor are not written.  It joins
+// the issuing thread's bulk group; `bulk_commit` closes the group and
+// `bulk_wait_read<N>` waits until at most N groups still read shared
+// memory.  Generic-proxy writes to `src` need `fence_async_smem` first.
+__device__ __forceinline__ void tma_store_4d(const void* tmap, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(tmap)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(tmap)) : "memory");
+}
+
+// Register hand-over between warpgroups: every warp of a warpgroup runs
+// the same one, once, and a kernel's roles split on a single if / else on
+// the warpgroup index that never joins again.  ptxas then allocates each
+// role's code by its count, unless the kernel can `__trap()`, which makes
+// it hold every role to the launch's count (H100, CUDA 12.9).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barriers (0 is `__syncthreads`'s): `n` threads, whole warps, take
+// part; `bar_sync` waits for them, `bar_arrive` counts without waiting.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 }  // namespace hopper

@@ -14,13 +14,18 @@ MLA's (192, 128), which the reference runs through its blocked ``xla``
 flash because the Pallas kernel takes one D.
 
 The source holds two hand-written kernels, and the C entry point picks one
-by the input type: bfloat16 (the serving path) runs on the tensor cores
-through ``wgmma``; float32 runs on the CUDA cores, because ``wgmma`` on
-float32 is TF32 (about three decimal digits) and the float32 model checks
-hold the kernel to 1e-4.  Both are this wrapper's launches, counted alike;
-neither is a fallback for the other.  What bounds them on the card and what
-the designs do about it is written at the top of the CUDA source.  The
-plain version is ``ref.grouped_flash_ref``.
+by the input type: bfloat16 (the serving and training path) runs
+``flash_fwd_tma_kernel`` on the tensor cores -- one producer warp filling
+a ring of K/V tiles with TMA, two consumer warpgroups on ``wgmma``, one
+persistent block an SM -- and is also counted in ``tma_launches``; float32
+runs on the CUDA cores, because ``wgmma`` on float32 is TF32 (about three
+decimal digits) and the float32 model checks hold the kernel to 1e-4.
+Both are this wrapper's launches, counted alike in ``launches``; neither
+is a fallback for the other.  The bf16 kernel reads q, k and v through
+tensor maps encoded on the host for each call (``tma_encode_us`` times
+that); a layout TMA refuses raises.  What bounds the kernels on the card
+and what the designs do about it is written at the top of the CUDA source.
+The plain version is ``ref.grouped_flash_ref``.
 
 With ``return_lse`` the forward also returns each query row's logsumexp,
 (B, H, Sq) float32 in the natural log: the float32 kernel keeps its
@@ -53,13 +58,17 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_ROW_PAD = 128    # ROW_PAD of csrc/flash_attention_bwd.cu
 
 launches = build.LaunchCounter()
+tma_launches = build.LaunchCounter()     # the bf16 kernel's, also in launches
 bwd_launches = build.LaunchCounter()
+TMA_REFUSED = 100000     # + the CUresult of a tensor map the driver refused
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_float]
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                  + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_ENCODE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -87,9 +96,42 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
              out.stride(0), out.stride(1), out.stride(2),
              float(scale), int(bool(causal)), int(window), DTYPES[q.dtype], hd,
              hdv, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_if_refused(err)
     build.check(err, "flash_attention")
     launches.add()
+    if q.dtype == torch.bfloat16:
+        tma_launches.add()
     return (out, lse) if return_lse else out
+
+
+def tma_encode_us(q, k, v, iters: int = 1000) -> float:
+    """Host microseconds a call spends encoding the bf16 kernel's four
+    tensor maps (q, k, v and the output) for these bfloat16 CUDA tensors
+    (as ``flash_attention`` would take them), the mean over ``iters``
+    encodings; nothing is launched."""
+    _check(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise TypeError("flash_attention: only the bfloat16 kernel reads "
+                        "through tensor maps")
+    b, sq, h, hd = q.shape
+    sk, kh, hdv = k.shape[1], k.shape[2], v.shape[3]
+    fn = build.function("flash_attention", "flash_attention_encode_us",
+                        _ENCODE_ARGTYPES)
+    fn.restype = ctypes.c_double
+    us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, sq, sk, h, kh,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), hd, hdv, iters)
+    if us < 0:
+        _raise_if_refused(int(-us))
+        build.check(int(-us), "flash_attention_encode_us")
+    return us
+
+
+def _raise_if_refused(err: int) -> None:
+    if err >= TMA_REFUSED:
+        raise ValueError(f"flash_attention: the driver refused a tensor map "
+                         f"of q, k or v (CUresult {err - TMA_REFUSED})")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -154,9 +196,13 @@ def _check(q, k, v) -> None:
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not build.aligned16(t):
-                raise ValueError(f"flash_attention: bfloat16 {name} is copied "
-                                 "in 16-byte chunks and must be 16-byte "
-                                 "aligned, with strides that keep every row so")
+                raise ValueError(f"flash_attention: bfloat16 {name} is read "
+                                 "by TMA and must be 16-byte aligned, with "
+                                 "strides that keep every row so")
+            if any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape)):
+                raise ValueError(f"flash_attention: bfloat16 {name} has a "
+                                 "stride of 0 (an expanded dim), which a "
+                                 "TMA tensor map cannot describe")
     b, _, h, hd = q.shape
     hdv = v.shape[3]
     if not ((hd == hdv and hd in HEAD_DIMS) or (hd, hdv) in DIM_PAIRS):

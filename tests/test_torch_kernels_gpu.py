@@ -82,6 +82,22 @@ def _randn(shape, dtype, device, seed):
     (8, 1, 1024, 16, 16, 64, False, 0),     # cross-attn decode, Sq = 1
     (8, 37, 1024, 16, 16, 64, False, 0),    # ragged Sq = 37 under one tile
     (3, 1, 300, 14, 2, 64, True, 0),        # Sq = 1, causal
+    # the TMA design's edges: 128-key and 128-query tiles, boxes at hd 16,
+    # 32 and 80 (zero-filled past Sq, Sk and column 80), G = 5 and 7
+    (2, 1, 1024, 16, 16, 64, False, 0),     # Sq = 1 over Sk = 1024
+    (2, 37, 1024, 16, 16, 64, True, 0),     # Sq = 37 over 1024, causal
+    (2, 129, 129, 4, 2, 64, True, 0),       # one row and one key past a tile
+    (2, 127, 255, 4, 1, 32, False, 0),      # one short of each tile
+    (3, 300, 300, 6, 2, 16, True, 0),       # hd 16 box (32 bytes)
+    (2, 333, 333, 6, 3, 32, True, 0),       # hd 32 box (64 bytes)
+    (2, 257, 257, 10, 2, 80, True, 0),      # hd 80: a 128- and a 32-byte box
+    (2, 700, 700, 10, 2, 80, True, 200),    # hd 80, window across tiles
+    (2, 300, 300, 25, 5, 64, True, 100),    # G = 5, window inside a tile
+    (1, 700, 700, 14, 2, 128, True, 0),     # G = 7 at hd 128
+    (1, 640, 640, 7, 1, 64, True, 130),     # window 130: crosses tile edges
+    (1, 1000, 1200, 8, 2, 64, True, 300),   # Sq < Sk, window, causal
+    (4, 2048, 2048, 16, 4, 64, True, 0),    # 1024 work tiles, 8 per SM
+    (2, 4096, 4096, 32, 8, 64, True, 0),    # llama's training shape
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kh, hd,
                                     causal, window):
@@ -104,6 +120,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kh, hd,
     (2, 100, 100, 4, 4, True),          # a small MLA, one ragged tile
     (2, 70, 300, 4, 2, False),          # unmasked, Sq != Sk, G = 2
     (3, 1, 200, 4, 4, True),            # Sq = 1
+    (1, 2048, 2048, 16, 16, True),      # deepseek's training length
+    (2, 129, 385, 6, 3, True),          # past a tile each way, G = 2
 ])
 def test_flash_kernel_at_mla_dims_matches_plain(cuda, dtype, b, sq, sk, h,
                                                 kh, causal):
@@ -119,6 +137,95 @@ def test_flash_kernel_at_mla_dims_matches_plain(cuda, dtype, b, sq, sk, h,
     assert out.shape == (b, sq, h, 128) and out.dtype == dtype
     want = ref.grouped_flash_ref(q, k, v, causal=causal, scale=192 ** -0.5)
     assert (out.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,causal", [(64, True), (128, True), (80, False),
+                                       (192, True)])
+def test_flash_kernel_reads_strided_views_of_one_projection(cuda, dtype, hd,
+                                                            causal):
+    """q, k and v as views of one fused (B, S, H + 2 KH, hd) projection,
+    every stride but the head dim's not packed; at 192 the value a
+    128-column view of the key's row, as MLA passes it."""
+    b, s, h, kh = 2, 300, 8, 2
+    fused = _randn((b, s, h + 2 * kh, hd), dtype, cuda, 41)
+    q, k = fused[:, :, :h], fused[:, :, h:h + kh]
+    v = fused[:, :, h + kh:, :128] if hd == 192 else fused[:, :, h + kh:]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    out = kflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.grouped_flash_ref(q, k, v, causal=causal)
+    assert (out.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,hd,dv,causal", [
+    (8, 1024, 1024, 16, 16, 64, 64, False),     # seamless encoder
+    (8, 256, 256, 128, 128, 192, 128, True),    # deepseek MLA admission
+    (2, 4096, 4096, 32, 8, 64, 64, True),       # llama training
+])
+def test_flash_kernel_bf16_is_bit_identical_and_keeps_lse(cuda, b, sq, sk, h,
+                                                         kh, hd, dv, causal):
+    """Two calls give the same bits (no atomics; the persistent walk's
+    order is fixed), and the row logsumexp on the live rows is within 1e-4
+    of the plain one (rows that see no key: -inf in both); the bf16 TMA
+    kernel is what ran."""
+    dt = torch.bfloat16
+    q = _randn((b, sq, h, hd), dt, cuda, 51)
+    k = _randn((b, sk, kh, hd), dt, cuda, 52)
+    v = (_randn((b, sk, kh, 128 + dv), dt, cuda, 53)[..., 128:] if dv != hd
+         else _randn((b, sk, kh, dv), dt, cuda, 53))
+    n = kflash.tma_launches.count
+    o1, lse1 = kflash.flash_attention(q, k, v, causal=causal, return_lse=True)
+    o2, lse2 = kflash.flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert kflash.tma_launches.count == n + 2
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    want, plse = ref.grouped_flash_ref(q, k, v, causal=causal,
+                                       return_lse=True)
+    assert (o1.float() - want.float()).abs().max().item() < TOL[dt]
+    live = torch.isfinite(plse)
+    assert torch.equal(live, torch.isfinite(lse1))
+    assert (lse1[live] - plse[live]).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("hd,dv", [(64, 64), (80, 80), (192, 128)])
+def test_flash_forward_launches_the_kernel_of_its_input_type(cuda, hd, dv):
+    """bfloat16 runs the TMA kernel (``flash_fwd_tma_kernel``), float32
+    the CUDA-core one (``flash_fwd_kernel``), one launch a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for dtype, name in ((torch.bfloat16, f"flash_fwd_tma_kernel<{hd}, {dv}>"),
+                        (torch.float32, f"flash_fwd_kernel<{hd}, {dv}>")):
+        q = _randn((2, 300, 4, hd), dtype, cuda, 71)
+        k = _randn((2, 300, 2, hd), dtype, cuda, 72)
+        v = _randn((2, 300, 2, dv), dtype, cuda, 73)
+        kflash.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        for _ in range(3):          # the profiler can drop device events
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                kflash.flash_attention(q, k, v)
+                torch.cuda.synchronize()
+            names = {e.key for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.count}
+            if names:
+                break
+        assert len(names) == 1 and name in next(iter(names)), names
+
+
+def test_flash_kernel_rows_that_see_no_key_get_zero(cuda):
+    """Causal with Sq > Sk: the first Sq - Sk query rows (whole 128-row
+    work tiles among them) see no key: output 0 and logsumexp -inf."""
+    dt = torch.bfloat16
+    q = _randn((2, 400, 4, 64), dt, cuda, 61)
+    k = _randn((2, 100, 2, 64), dt, cuda, 62)
+    v = _randn((2, 100, 2, 64), dt, cuda, 63)
+    out, lse = kflash.flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert (out[:, :300] == 0).all()
+    assert torch.isneginf(lse[:, :, :300]).all()
+    want = ref.grouped_flash_ref(q, k, v, causal=True)
+    assert (out[:, 300:].float() - want[:, 300:].float()).abs().max() < 3e-2
 
 
 @pytest.mark.parametrize("hd,hdv", [(128, 64), (64, 128), (192, 192),
