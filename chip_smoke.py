@@ -315,12 +315,29 @@ def check_flash_build(build, built) -> None:
              if (m := FWD_TMA.search(n))}
     serialised = [ln.strip() for ln in log_.splitlines()
                   if "serializ" in ln.lower()]
+    setmaxnreg = [ln.strip() for ln in log_.splitlines()
+                  if "setmaxnreg" in ln.lower()]
+    # the watchdog build (its own library): what the trap costs
+    w_log = next((lg for key, (_, _, lg) in built.items()
+                  if key.startswith("flash_attention -D")), "")
     log("build.flash_attention", ptxas=FWD_PTXAS, hgmma_per_kernel=hgmma,
-        wgmma_serialised=serialised, built_here=bool(log_))
+        wgmma_serialised=serialised, setmaxnreg_lines=setmaxnreg,
+        built_here=bool(log_),
+        watchdog_ptxas=ptxas_by_kernel(w_log, FWD_TMA, bwd_name),
+        watchdog_wgmma_serialised=sum("serializ" in ln.lower()
+                                      for ln in w_log.splitlines()),
+        watchdog_setmaxnreg_lines=[ln.strip() for ln in w_log.splitlines()
+                                   if "setmaxnreg" in ln.lower()][:4])
     if (len(hgmma) != FWD_TMA_KERNELS or not all(hgmma.values())
             or (log_ and len(FWD_PTXAS) != FWD_TMA_KERNELS)):
         raise AssertionError(f"flash_attention: HGMMA {hgmma}, "
                              f"ptxas {FWD_PTXAS}")
+    # the production build keeps its register split: nothing spilled,
+    # no wgmma serialised, no setmaxnreg dropped
+    if log_ and (serialised or setmaxnreg or any(
+            v.get("spill_store_bytes") for v in FWD_PTXAS.values())):
+        raise AssertionError(f"flash_attention: ptxas {FWD_PTXAS}, "
+                             f"{serialised}, {setmaxnreg}")
 
 
 def host_us(fn, n: int = 1000, batch: int = 100) -> float:
@@ -619,6 +636,62 @@ def kernel_phase(ref, kflash, kdecode) -> dict:
     flash["max_abs_err_f32"] = errs["flash"]["float32"]
     decode["max_abs_err_f32"] = errs["decode"]["float32"]
     return {"flash_attention": flash, "decode_attention": decode}
+
+
+def k1_layouts_phase(ref, kflash) -> dict:
+    """K1's bf16 forward on inputs no tensor map describes -- K and V
+    expanded over their heads (stride 0), q one element into its storage
+    (rows off 16 bytes) -- against the plain version (bf16 3e-2), each
+    such input copied once (``tma_copies``); then the watchdog build
+    (``flash_attention_watchdog``, built beside the others) at hd 64, 80
+    and 192 / 128 against the plain version, and whether it gives the
+    production build's bits.  Returns the copies and watchdog launches."""
+    dt, out = torch.bfloat16, {}
+    b, s, h, kh, hd = 8, 256, 32, 8, 64
+    q = randn((b * s * h * hd + 1,), dt, 71)[1:].view(b, s, h, hd)
+    k = randn((b, s, 1, hd), dt, 72).expand(b, s, kh, hd)
+    v = randn((b, s, 1, hd), dt, 73).expand(b, s, kh, hd)
+    copies, n = kflash.tma_copies.count, kflash.launches.count
+    got = kflash.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    copied = kflash.tma_copies.count - copies
+    err = (got.float() - ref.grouped_flash_ref(q, k, v).float()
+           ).abs().max().item()
+    out["copies"] = copied
+    log("kernels.parity.k1_layouts", shape=[b, s, h, kh, hd],
+        layouts={"q": "one element into its storage",
+                 "k, v": "expanded over KV heads (stride 0)"},
+        copies=copied, launches=kflash.launches.count - n, max_abs_err=err,
+        tol=TOL[dt])
+    if not (err < TOL[dt] and copied == 3
+            and kflash.launches.count == n + 1):
+        raise AssertionError(f"K1 copied layouts: err {err}, copies "
+                             f"{copied}")
+    watch = []
+    for b, s, h, kh, hd, dv in ((8, 256, 32, 8, 64, 64),
+                                (8, 256, 32, 32, 80, 80),
+                                (8, 256, 128, 128, 192, 128)):
+        q = randn((b, s, h, hd), dt, 74)
+        k = randn((b, s, kh, hd), dt, 75)
+        v = randn((b, s, kh, 128 + dv), dt, 76)[..., 128:] if hd == 192 \
+            else randn((b, s, kh, hd), dt, 76)
+        n, w = kflash.launches.count, kflash.watchdog_launches.count
+        got = kflash.flash_attention_watchdog(q, k, v)
+        torch.cuda.synchronize()
+        launched = (kflash.watchdog_launches.count - w,
+                    kflash.launches.count - n)
+        prod = kflash.flash_attention(q, k, v)
+        err = (got.float() - ref.grouped_flash_ref(q, k, v).float()
+               ).abs().max().item()
+        watch.append({"shape": [b, s, h, kh, hd, dv], "max_abs_err": err,
+                      "production_bits": torch.equal(got, prod),
+                      "launches_watchdog_production": list(launched)})
+        if not (err < TOL[dt] and launched == (1, 0)):
+            raise AssertionError(f"K1 watchdog build: {watch[-1]}")
+    log("kernels.parity.k1_watchdog", cases=watch, tol=TOL[dt],
+        flags=list(kflash.WATCHDOG_FLAGS))
+    out["watchdog"] = watch
+    return out
 
 
 def sdpa_backend(fn) -> tuple:
@@ -1883,6 +1956,7 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
     kflash.launches.reset()
     kflash.tma_launches.reset()
     kflash.bwd_launches.reset()
+    copies = kflash.tma_copies.count
     r = run_steps(step, box, batch, 4,
                   lambda: {"flash_attention": kflash.launches.count,
                            "flash_attention_tma": kflash.tma_launches.count,
@@ -1920,7 +1994,8 @@ def training_phase(Model, trainer, optimizer, get_arch, kflash) -> dict:
                              f"{K1_FWD} in the profiled step "
                              f"{r['named'][K1_FWD]}")
     del model, box, r, step
-    return launches
+    return {**launches,
+            "flash_attention_tma_copies": kflash.tma_copies.count - copies}
 
 
 # Each family's training cut: (arch, replace kwargs, batch B, S).  The
@@ -1968,6 +2043,7 @@ def bwd_counters() -> dict:
     from repro_torch.kernels import moe_topk as kmoe
     return {"flash_attention": kflash.launches,
             "flash_attention_tma": kflash.tma_launches,
+            "flash_attention_tma_copies": kflash.tma_copies,
             "flash_attention_bwd": kflash.bwd_launches,
             "mlstm_scan": kscan.launches, "mlstm_scan_bwd": kscan.bwd_launches,
             "moe_topk": kmoe.launches, "moe_route_bwd": kmoe.bwd_launches}
@@ -2448,9 +2524,11 @@ def sharded_train(SH, mesh, ops, Model, trainer, optimizer, cfg, b, s,
     box["state"] = SH.device_put(box["state"], SH.state_shardings(
         box["state"], mesh, ep=ep), mesh)
     before = placement_list(box["state"])
+    dbatch = SH.device_put(batch, SH.batch_shardings(batch, mesh), mesh)
     with counting_local_map(ops) as lm:
-        d = timed_steps(step, box, SH.device_put(batch, SH.batch_shardings(
-            batch, mesh), mesh), 2, counters)
+        d = timed_steps(step, box, dbatch, 2, counters)
+    exchange = moe_exchange(cfg, step, box, dbatch, b * s // accum, accum) \
+        if cfg.moe is not None else None
     kept = placement_list(box["state"]) == before
     del box["state"]
     free_device_memory()
@@ -2459,12 +2537,39 @@ def sharded_train(SH, mesh, ops, Model, trainer, optimizer, cfg, b, s,
     del box, step, model, batch
     free_device_memory()
     out = {"dtensor": d, "plain": p, "placements_kept": kept,
-           "local_map_calls": lm["calls"]}
+           "local_map_calls": lm["calls"], "exchange": exchange}
     if not kept:
         raise AssertionError(f"{cfg.name}: the step moved the placements")
     if not all(d["launches"][n] == p["launches"][n] > 0 for n in need):
         raise AssertionError(f"{cfg.name}: launches {d['launches']} under "
                              f"local_map, {p['launches']} plain")
+    return out
+
+
+def moe_exchange(cfg, step, box, dbatch, t: int, accum: int) -> dict:
+    """One more DTensor step of a MoE model with its collectives counted
+    (``analysis.collective_bytes``): the MoE layers' all-to-alls
+    (``all_to_all_single``) must be 4 a layer and micro-batch (6 under
+    remat), each of ``moe.exchange_bytes`` for ``t`` tokens on this mesh
+    (one rank: rows 1, the experts whole)."""
+    from repro_torch.models import moe as M
+    m = cfg.moe
+
+    def one():
+        box["state"], _ = step(box["state"], dbatch)
+    c = RA.collective_bytes(one, by_op=True)
+    per = M.exchange_bytes(t, m.top_k, 1.25, m.routed_total(), cfg.d_model,
+                           torch.finfo(getattr(torch, cfg.dtype)).bits // 8,
+                           rows=1)
+    calls = (cfg.n_layers - cfg.first_k_dense) * accum * (
+        6 if cfg.remat else 4)
+    got = c["by_op"].get("all_to_all_single", {"count": 0, "bytes": 0})
+    out = {"all_to_all_single": got, "per_call_bytes_formula": per,
+           "calls_formula": calls, "by_op": c["by_op"],
+           "bytes_by_kind": {k: c[k] for k in ("all-gather", "all-reduce",
+                                               "reduce-scatter", "all-to-all")}}
+    if got != {"count": calls, "bytes": calls * per}:
+        raise AssertionError(f"{cfg.name} exchange: {out}")
     return out
 
 
@@ -2678,6 +2783,7 @@ def sharded_phase(ops, Model, trainer, optimizer, get_arch) -> dict:
                 launches={k: r[k]["launches"] for k in ("dtensor", "plain")},
                 local_map_calls=r["local_map_calls"],
                 placements_kept=r["placements_kept"],
+                moe_exchange=r["exchange"],
                 seconds=time.monotonic() - t0)
             if not max(errs) < TOL[torch.bfloat16]:
                 raise AssertionError(f"{name} sharded losses {errs}")
@@ -2791,6 +2897,10 @@ def dryrun_phase() -> dict:
         want = spec_argument_bytes(arch, shape, mp, variant)
         for name, k in r["kernels"].items():
             counted[name] = counted.get(name, 0) + k["calls"]
+        from repro_torch.configs import get_arch
+        from repro_torch.configs.base import SHAPES
+        exchange = dryrun.moe_exchange(get_arch(arch), SHAPES[shape], SpecMesh(
+            *dryrun.MESHES[mp]), variant)
         log("dryrun.cell", arch=arch, shape=shape, mesh=rec["mesh"],
             variant=variant, status=rec["status"], trace_s=rec["trace_s"],
             argument_gb=mem["argument_bytes"] / 2**30,
@@ -2799,6 +2909,7 @@ def dryrun_phase() -> dict:
             output_gb=mem["output_bytes"] / 2**30,
             flops_by_type=r["flops_by_type"], coll_bytes=r["coll_bytes"],
             coll_detail=r["coll_detail"], coll_counts=r["coll_counts"],
+            coll_by_op=r["coll_by_op"], moe_exchange_formula=exchange,
             bottleneck=r["bottleneck"], t_compute_ms=r["t_compute"] * 1e3,
             t_memory_ms=r["t_memory"] * 1e3,
             t_collective_ms=r["t_collective"] * 1e3,
@@ -2807,6 +2918,10 @@ def dryrun_phase() -> dict:
         if rec["status"] != "ok" or mem["argument_bytes"] != want:
             raise AssertionError(f"dry-run {arch} {shape}: {rec['status']}, "
                                  f"arguments {mem['argument_bytes']} != {want}")
+        # the MoE layers' all-to-alls are the exchange's formula
+        if r["coll_by_op"].get("all_to_all_single") != exchange:
+            raise AssertionError(f"dry-run {arch} {shape}: all-to-alls "
+                                 f"{r['coll_by_op']}, formula {exchange}")
     torch.cuda.synchronize()
     after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
     log("dryrun.memory", allocated_before=before, allocated_after=after,
@@ -3039,7 +3154,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.monotonic()
-    built = build.build()
+    built = build.build(extra=(("flash_attention", kflash.WATCHDOG_FLAGS),))
     ptxas = {name: [ln.strip() for ln in log_.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, (_, _, log_) in built.items()}
@@ -3053,6 +3168,12 @@ def main() -> int:
     t0 = time.monotonic()
     timed = kernel_phase(ref, kflash, kdecode)
     done("kernels", t0)
+
+    t0 = time.monotonic()
+    k1_layouts = k1_layouts_phase(ref, kflash)
+    done("kernels.k1_layouts", t0)
+    # from here on no path may copy an input for K1's tensor maps
+    kflash.tma_copies.reset()
 
     t0 = time.monotonic()
     timed["flash_attention_bwd"] = backward_phase(ref, kflash)
@@ -3142,6 +3263,7 @@ def main() -> int:
     # prefill_batch logits, kernel path against plain path.
     counters = {"flash_attention": kflash.launches,
                 "flash_attention_tma": kflash.tma_launches,
+                "flash_attention_tma_copies": kflash.tma_copies,
                 "flash_attention_bwd": kflash.bwd_launches,
                 "decode_attention": kdecode.launches,
                 "mlstm_scan": kscan.launches, "moe_topk": kmoe.launches}
@@ -3161,6 +3283,7 @@ def main() -> int:
              ("internvl2-1b", "internvl2-1b", {}, attn, False),
              ("qwen2-0.5b", "qwen2-0.5b", {}, attn, False),
              ("granite-8b", "granite-8b", {}, attn, False),
+             ("stablelm-3b", "stablelm-3b", {}, attn, False),
              ("deepseek-v3-671b", "deepseek-v3-671b", {"n_layers": 5},
               ("flash_attention", "flash_attention_tma", "moe_topk"), False)]
     by_path = {}
@@ -3286,6 +3409,15 @@ def main() -> int:
     for name in ("flash_attention_bwd_mla", "mlstm_scan_bwd", "moe_route_bwd"):
         tolerance[name] = ("bf16 3e-2, f32 1e-4, x max(1, max|plain|), and "
                            "||err|| / ||plain|| bf16 1e-2, f32 1e-4")
+    # K1's inputs copied for a tensor map, by path: none on any served,
+    # training or sharded path (nor anywhere since the layouts' pass)
+    copies = {p: c["flash_attention_tma_copies"] for p, c in by_path.items()
+              if "flash_attention_tma_copies" in c}
+    log("k1.copies", by_path=copies, since_layouts_pass=kflash.tma_copies.count,
+        layouts_pass=k1_layouts["copies"])
+    if any(copies.values()) or kflash.tma_copies.count:
+        raise AssertionError(f"K1 copied inputs on a model path: {copies}, "
+                             f"{kflash.tma_copies.count} in all")
     kernels = []
     for name, d in timed.items():
         extra = {k: v for k, v in d.items() if k not in (
@@ -3307,7 +3439,8 @@ def main() -> int:
             "launches_under_local_map_path": local_map_path.get(name),
             **({"tma_launches_by_path": {
                 p: c["flash_attention_tma"] for p, c in by_path.items()
-                if "flash_attention_tma" in c}}
+                if "flash_attention_tma" in c}, "tma_copies_by_path": copies,
+                "watchdog": k1_layouts["watchdog"]}
                if name == "flash_attention" else {}),
             **extra, "card": card})
     log("phase_seconds", total=time.monotonic() - t_start,

@@ -427,11 +427,23 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 // Waits until the phase of parity `parity` has completed.  A fresh
 // barrier counts its (never run) phase of parity 1 as completed, so a
 // producer's first wait on an empty slot, at parity 1, passes at once.
-// No timeout: a `__trap()` on this path (tried as a watchdog) makes ptxas
-// ignore `setmaxnreg` and hold every role to the launch's register count.
+// The production build has no timeout: a `__trap()` anywhere in a kernel
+// makes ptxas ignore `setmaxnreg` and hold every role to the launch's
+// register count.  A build with -DREPRO_MBAR_WATCHDOG (its own library,
+// for the parity tests alone) traps after 2^24 failed tries, so a wrong
+// transaction count or a lost arrival ends the launch with an error
+// instead of hanging it; each try suspends the thread for at most a few
+// microseconds, so the bound is seconds, far past any wait of a correct
+// launch.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+#ifdef REPRO_MBAR_WATCHDOG
+  for (uint32_t tries = 0; !mbar_try_wait(bar, parity);) {
+    if (++tries == (1u << 24)) __trap();
+  }
+#else
   while (!mbar_try_wait(bar, parity)) {
   }
+#endif
 }
 
 // A TMA load of one box of a 4-D tensor map (a `__grid_constant__`

@@ -73,47 +73,50 @@ def _lib_path(name: str, flags: tuple = ()) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=None, flags: tuple = ()) -> dict:
+def build(names=None, flags: tuple = (), extra: tuple = ()) -> dict:
     """Compile every library in ``names`` (default: every ``csrc/*.cu``)
     that is not built yet, all at once, with ``flags`` added to
-    ``NVCC_FLAGS``.  Returns ``{name: (path, seconds,
-    compiler_log)}``; a library that was already built reports 0 seconds
-    and an empty log.  Raises ``RuntimeError`` with the compiler's output
-    if a build fails."""
+    ``NVCC_FLAGS``, and with them each ``(name, flags)`` of ``extra`` (a
+    second build of a source, keyed ``"name flags"``).  Returns ``{name:
+    (path, seconds, compiler_log)}``; a library that was already built
+    reports 0 seconds and an empty log.  Raises ``RuntimeError`` with the
+    compiler's output if a build fails."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    jobs = [(n, n, tuple(flags)) for n in names] + [
+        (f"{n} {' '.join(f)}", n, tuple(f)) for n, f in extra]
     with _lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with open(BUILD_DIR / "lock", "w") as lockf:
             fcntl.flock(lockf, fcntl.LOCK_EX)
             try:
-                return _build_locked(names, tuple(flags))
+                return _build_locked(jobs)
             finally:
                 fcntl.flock(lockf, fcntl.LOCK_UN)
 
 
-def _build_locked(names, flags: tuple) -> dict:
+def _build_locked(jobs) -> dict:
     out, procs = {}, {}
-    for name in names:
+    for key, name, flags in jobs:
         path = _lib_path(name, flags)
         if path.exists():
-            out[name] = (path, 0.0, "")
+            out[key] = (path, 0.0, "")
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       path, tmp, time.perf_counter())
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      path, tmp, time.perf_counter())
     failed = []
-    for name, (proc, path, tmp, t0) in procs.items():
+    for key, (proc, path, tmp, t0) in procs.items():
         log, _ = proc.communicate()
         secs = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            failed.append(f"{key} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, path)
-        out[name] = (path, secs, log)
+        out[key] = (path, secs, log)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return out

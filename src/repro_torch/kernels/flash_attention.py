@@ -23,9 +23,23 @@ decimal digits) and the float32 model checks hold the kernel to 1e-4.
 Both are this wrapper's launches, counted alike in ``launches``; neither
 is a fallback for the other.  The bf16 kernel reads q, k and v through
 tensor maps encoded on the host for each call (``tma_encode_us`` times
-that); a layout TMA refuses raises.  What bounds the kernels on the card
-and what the designs do about it is written at the top of the CUDA source.
-The plain version is ``ref.grouped_flash_ref``.
+that).  A bf16 input no tensor map can describe -- an expanded tensor (a
+stride of 0), a view whose rows are not 16-byte aligned or whose head
+dim is strided -- is first copied into a fresh contiguous tensor and
+the copy counted in ``tma_copies``: the reference's kernel takes any
+array (its arrays have no strides), and the model paths pass none such,
+so the count there stays 0.  Head dims the kernels do not take, and a
+float32 head dim that is not contiguous, still raise; a map the driver
+refuses raises too.  What bounds the kernels on the card and what the
+designs do about it is written at the top of the CUDA source.  The plain
+version is ``ref.grouped_flash_ref``.
+
+``flash_attention_watchdog`` is the same call on a second build of the
+source with ``-DREPRO_MBAR_WATCHDOG``, whose ``mbarrier`` waits trap after
+a bounded number of tries (``csrc/hopper.cuh``), so a wrong transaction
+count ends the launch with an error instead of hanging the process.  The
+trap costs the bf16 kernel its ``setmaxnreg`` split, so only the parity
+tests run it; its launches count in ``watchdog_launches`` alone.
 
 With ``return_lse`` the forward also returns each query row's logsumexp,
 (B, H, Sq) float32 in the natural log: the float32 kernel keeps its
@@ -59,7 +73,10 @@ BWD_ROW_PAD = 128    # ROW_PAD of csrc/flash_attention_bwd.cu
 
 launches = build.LaunchCounter()
 tma_launches = build.LaunchCounter()     # the bf16 kernel's, also in launches
+tma_copies = build.LaunchCounter()       # bf16 inputs copied for a tensor map
 bwd_launches = build.LaunchCounter()
+watchdog_launches = build.LaunchCounter()     # the watchdog build's alone
+WATCHDOG_FLAGS = ("-DREPRO_MBAR_WATCHDOG",)
 TMA_REFUSED = 100000     # + the CUresult of a tensor map the driver refused
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -78,7 +95,26 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``DIM_PAIRS``.  Returns (B, Sq, H, hdv) in q's dtype, and with
     ``return_lse`` also the (B, H, Sq) float32 row logsumexp (natural log,
     -inf for a row that sees no key); ``scale`` defaults to hd ** -0.5."""
+    return _forward(q, k, v, causal, window, scale, return_lse, (), (
+        launches, tma_launches) if q.dtype == torch.bfloat16 else (launches,))
+
+
+def flash_attention_watchdog(q, k, v, *, causal: bool = True, window: int = 0,
+                             scale: float | None = None,
+                             return_lse: bool = False):
+    """``flash_attention`` on the watchdog build (``WATCHDOG_FLAGS``; the
+    module docstring says what it is for), counted in
+    ``watchdog_launches`` alone."""
+    return _forward(q, k, v, causal, window, scale, return_lse,
+                    WATCHDOG_FLAGS, (watchdog_launches,))
+
+
+def _forward(q, k, v, causal, window, scale, return_lse, flags: tuple,
+             counters: tuple):
+    """One launch of the forward kernel of the library built with
+    ``flags``, added to each of ``counters`` once the driver took it."""
     _check(q, k, v)
+    q, k, v = (_readable(t) for t in (q, k, v))
     b, sq, h, hd = q.shape
     sk, kh, hdv = k.shape[1], k.shape[2], v.shape[3]
     scale = hd ** -0.5 if scale is None else scale
@@ -87,7 +123,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
            if return_lse else None)
     if isinstance(q, FakeTensor):               # shapes alone: no launch
         return (out, lse) if return_lse else out
-    fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES,
+                        flags)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(), b, sq, sk, h, kh,
              q.stride(0), q.stride(1), q.stride(2),
@@ -98,9 +135,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
              hdv, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if_refused(err)
     build.check(err, "flash_attention")
-    launches.add()
-    if q.dtype == torch.bfloat16:
-        tma_launches.add()
+    for c in counters:
+        c.add()
     return (out, lse) if return_lse else out
 
 
@@ -110,6 +146,7 @@ def tma_encode_us(q, k, v, iters: int = 1000) -> float:
     (as ``flash_attention`` would take them), the mean over ``iters``
     encodings; nothing is launched."""
     _check(q, k, v)
+    q, k, v = (_readable(t) for t in (q, k, v))
     if q.dtype != torch.bfloat16:
         raise TypeError("flash_attention: only the bfloat16 kernel reads "
                         "through tensor maps")
@@ -128,6 +165,30 @@ def tma_encode_us(q, k, v, iters: int = 1000) -> float:
     return us
 
 
+def _tma_ready(t) -> bool:
+    """Whether a tensor map describes bf16 ``t`` as it is: its head dim
+    contiguous, its first row and every other stride 16-byte aligned
+    (a fake tensor's storage offset standing for its address), no stride
+    of a dim longer than 1 zero."""
+    if t.stride(-1) != 1 or any(st == 0 and n > 1 for st, n in
+                                zip(t.stride(), t.shape)):
+        return False
+    if isinstance(t, FakeTensor) and \
+            t.storage_offset() * t.element_size() % 16:
+        return False
+    return build.aligned16(t)
+
+
+def _readable(t):
+    """``t`` as the bf16 kernels read it: itself, or a fresh contiguous
+    copy, counted in ``tma_copies``, where no tensor map describes it
+    (``_tma_ready``).  Other types pass as they are."""
+    if t.dtype != torch.bfloat16 or _tma_ready(t):
+        return t
+    tma_copies.add()
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _raise_if_refused(err: int) -> None:
     if err >= TMA_REFUSED:
         raise ValueError(f"flash_attention: the driver refused a tensor map "
@@ -142,7 +203,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``HEAD_DIMS``, or a pair of ``DIM_PAIRS``); lse: the forward's (B, H,
     Sq) float32 row logsumexp.  Returns (dq, dk, dv), contiguous, in the
     inputs' dtype.  Inputs that are not contiguous (``do`` from autograd
-    may not be) are copied first."""
+    may not be) are copied first; a bf16 q, k or v that the forward would
+    copy (``_readable``) is copied and counted as there."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
     sk, kh, hdv = k.shape[1], k.shape[2], v.shape[3]
@@ -157,6 +219,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype} is not ({b}, {h}, {sq}) float32 on "
                          f"{q.device}")
+    q, k, v = (_readable(t) for t in (q, k, v))
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     scale = hd ** -0.5 if scale is None else scale
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -190,19 +253,9 @@ def _check(q, k, v) -> None:
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be 4-D "
                              f"(B, S, heads, hd), got {tuple(t.shape)}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"flash_attention: {name}'s head dim must be "
-                             "contiguous")
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if not build.aligned16(t):
-                raise ValueError(f"flash_attention: bfloat16 {name} is read "
-                                 "by TMA and must be 16-byte aligned, with "
-                                 "strides that keep every row so")
-            if any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape)):
-                raise ValueError(f"flash_attention: bfloat16 {name} has a "
-                                 "stride of 0 (an expanded dim), which a "
-                                 "TMA tensor map cannot describe")
+        if t.stride(-1) != 1 and t.dtype == torch.float32:
+            raise ValueError(f"flash_attention: float32 {name}'s head dim "
+                             "must be contiguous")
     b, _, h, hd = q.shape
     hdv = v.shape[3]
     if not ((hd == hdv and hd in HEAD_DIMS) or (hd, hdv) in DIM_PAIRS):

@@ -283,19 +283,24 @@ def _moe_route(logits, top_k: int, *, capacity: int, n_valid: int | None = None,
 
 
 # ------------------------------------------------------------- DTensors
-def on_shards(fn, in_placements, out_placements, *args, **kwargs):
+def on_shards(fn, in_placements, out_placements, *args,
+              grad_placements=None, **kwargs):
     """``fn(*args, **kwargs)`` on each rank's shards of the DTensors in
     ``args`` under ``local_map``: each input moved to its placements (a
     list a tensor, None for another argument) first, the output placed by
     ``out_placements`` (a list, or a tuple of lists for a tuple of
-    outputs)."""
+    outputs).  ``grad_placements`` (as ``in_placements``) says how each
+    input's local gradient is placed where it is not as the input is (a
+    partial sum, when each rank computes with a part of it); by default
+    each is taken whole."""
     from torch.distributed.tensor.experimental import local_map
     mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
 
     def run(*a):
         return fn(*(_local(t) for t in a), **kwargs)
     return local_map(run, out_placements=out_placements,
-                     in_placements=in_placements, device_mesh=mesh,
+                     in_placements=in_placements,
+                     in_grad_placements=grad_placements, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
 
 

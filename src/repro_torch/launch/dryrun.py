@@ -75,6 +75,45 @@ def _train_cfg(arch_cfg, shape, mesh, unroll: bool) -> T.TrainConfig:
                          opt=opt.OptimizerConfig(state_dtype="bfloat16"))
 
 
+def moe_exchange(cfg, shape, mesh, variant: dict | None = None,
+                 unroll: bool = True) -> dict | None:
+    """The MoE layers' all-to-alls in rank 0's program of a cell, by the
+    formula of ``models/moe.py::_moe_sharded`` (``moe.exchange_bytes``):
+    ``{"count": n, "bytes": n x one call's}``, or None for a model without
+    MoE layers.  Each layer exchanges twice a forward (the rows, the
+    outputs) and twice a backward; training runs ``grad_accum``
+    micro-batches and, under remat, each layer's forward again; the tokens
+    are a micro-batch's (decode: one a sequence), cut over the data axes
+    where the batch divides, the experts over the model axis where the
+    expert weights are cut over it (their expert dim under EP, their FF
+    dim under expert-TP) and E divides."""
+    from ..models.moe import exchange_bytes
+    if cfg.moe is None:
+        return None
+    sizes = axis_sizes(mesh)
+    dp = 1
+    for a in ("pod", "data"):
+        dp *= sizes.get(a, 1)
+    tp = sizes.get("model", 1)
+    accum, passes, cf = 1, 2, 1.25
+    if shape.kind == "train":
+        accum = _train_cfg(cfg, shape, mesh, unroll).grad_accum
+        passes = 6 if cfg.remat else 4
+    b = shape.global_batch // accum
+    t = b * (1 if shape.kind == "decode" else shape.seq_len)
+    if shape.kind == "decode":
+        cf = 2.0
+    e = cfg.moe.routed_total()
+    cut = tp > 1 and e % tp == 0 and ((variant or {}).get("ep", False)
+                                      or cfg.moe.expert_ff % tp == 0)
+    rows = dp if dp > 1 and b % dp == 0 else 1
+    one = exchange_bytes(t, cfg.moe.top_k, cf, e, cfg.d_model,
+                         torch.finfo(getattr(torch, cfg.dtype)).bits // 8,
+                         rows=rows, expert_parts=tp if cut else 1)
+    n = (cfg.n_layers - cfg.first_k_dense) * accum * passes
+    return {"count": n, "bytes": n * one}
+
+
 @contextlib.contextmanager
 def fake_group(world_size: int):
     """A fake process group of ``world_size`` ranks (this process rank 0)

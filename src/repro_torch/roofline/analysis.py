@@ -19,8 +19,10 @@ one dispatch mode (``_Counter``):
   accessed" is on its CPU backend -- plus each kernel's bytes;
 * collectives: the ``torch.distributed`` operations the call issues
   (``collective_bytes``), by kind, at their result's bytes: the in-place
-  ``c10d`` operations of a process group and the functional collectives
-  that DTensor issues;
+  ``c10d`` operations of a process group, the functional collectives
+  that DTensor and the MoE layer's exchange issue, and DTensor's own
+  all-to-all between shard dims (``_dtensor::shard_dim_alltoall``); each
+  operation's count and bytes also apart (``Roofline.coll_by_op``);
 * the peak of the bytes that the call's operations allocate and hold at
   once (``Roofline.peak_bytes``): each fresh output storage counts from the
   operation that makes it until it is freed.  Under ``FakeTensorMode``
@@ -93,6 +95,9 @@ _FUNCTIONAL = {
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
 }
+# DTensor's own all-to-all, by which it moves a shard from one tensor dim
+# to another on the card (on a CPU group it gathers and chunks instead)
+_DTENSOR = {"shard_dim_alltoall": "all-to-all"}
 
 # The queries of a tensor's layout, which ``FlopCounterMode`` also passes
 # on uncounted.
@@ -139,6 +144,7 @@ class _Counter(TorchDispatchMode):
         self.bytes = 0
         self.coll = {k: 0 for k in _COLLECTIVES}
         self.counts = {k: 0 for k in _COLLECTIVES}
+        self.by_op = {}
         self.live = 0
         self.peak = 0
 
@@ -150,16 +156,18 @@ class _Counter(TorchDispatchMode):
         self._hold(func, out)
         if W.hidden():
             return out
-        if func.namespace == "c10d":
-            kind = _C10D.get(func._schema.name.split("::")[-1])
+        table = {"c10d": _C10D, "_c10d_functional": _FUNCTIONAL,
+                 "_dtensor": _DTENSOR}.get(func.namespace)
+        if table is not None:
+            name = func._schema.name.split("::")[-1]
+            kind = table.get(name)
             if kind is not None:
-                self.coll[kind] += _tensor_bytes(args[0])
+                n = _tensor_bytes(args[0] if table is _C10D else out)
+                self.coll[kind] += n
                 self.counts[kind] += 1
-        elif func.namespace == "_c10d_functional":
-            kind = _FUNCTIONAL.get(func._schema.name.split("::")[-1])
-            if kind is not None:
-                self.coll[kind] += _tensor_bytes(out)
-                self.counts[kind] += 1
+                op = self.by_op.setdefault(name, {"count": 0, "bytes": 0})
+                op["count"] += 1
+                op["bytes"] += n
         elif not func.is_view and not func._schema.name.startswith(
                 "aten::empty"):
             self.bytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
@@ -224,14 +232,18 @@ def _propagation_hidden():
         setattr(cls, name, orig)
 
 
-def collective_bytes(fn, *args, **kwargs) -> dict:
+def collective_bytes(fn, *args, by_op: bool = False, **kwargs) -> dict:
     """Per-collective-kind byte totals of the ``torch.distributed``
     operations that ``fn(*args, **kwargs)`` issues (each at its result's
     bytes), in the reference's layout: one key a kind, ``total`` and
-    ``counts``."""
+    ``counts``; with ``by_op`` also each operation's count and bytes apart
+    under that key."""
     with _Counter() as c:
         fn(*args, **kwargs)
-    return c.collectives()
+    out = c.collectives()
+    if by_op:
+        out["by_op"] = {k: dict(v) for k, v in c.by_op.items()}
+    return out
 
 
 @dataclass
@@ -247,6 +259,8 @@ class Roofline:
     flops_by_type: dict = field(default_factory=dict)
     # the peak of the bytes the call's operations allocated and held
     peak_bytes: int = 0
+    # each collective operation's count and bytes, by its name
+    coll_by_op: dict = field(default_factory=dict)
 
     @property
     def t_compute(self) -> float:
@@ -293,6 +307,7 @@ class Roofline:
             "coll_detail": {k: v for k, v in self.coll_detail.items()
                             if k != "counts"},
             "coll_counts": self.coll_detail.get("counts", {}),
+            "coll_by_op": self.coll_by_op,
             "dtype": str(self.dtype).replace("torch.", ""),
             "flops_by_type": {str(dt).replace("torch.", ""): f
                               for dt, f in self.flops_by_type.items()},
@@ -331,7 +346,8 @@ def analyze(fn, *args, model_flops: float = 0.0, dtype=torch.bfloat16,
         coll_bytes=float(coll["total"]), model_flops=model_flops,
         coll_detail=coll, dtype=dtype_of(dtype), kernels=kernels,
         flops_by_type={dt: float(f) for dt, f in by_type.items()},
-        peak_bytes=counter.peak)
+        peak_bytes=counter.peak,
+        coll_by_op={k: dict(v) for k, v in counter.by_op.items()})
 
 def analytic_memory_bytes(cfg, shape, arg_bytes: float, out_bytes: float,
                           n_devices: int) -> float:

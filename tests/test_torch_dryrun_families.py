@@ -49,3 +49,27 @@ def test_trace_is_ok_for_every_family_on_a_fake_mesh(arch, kind):
         want |= {BACKWARD[k] for k in want}
     assert set(r["kernels"]) == want
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("ep", [True, False])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b"])
+def test_moe_exchange_in_a_traced_step_is_the_formula(arch, kind, ep):
+    """The all-to-alls of a traced step (``all_to_all_single``: the MoE
+    layers' exchange alone) are ``dryrun.moe_exchange``'s count and bytes:
+    the formula of ``models/moe.py`` times the layers' passes; in training
+    at remat's full-size setting too (the reduced configs turn remat
+    off)."""
+    import dataclasses
+    cfg = get_arch(arch).reduced()
+    shape = ShapeConfig(kind, 32, 8, kind)
+
+    class Mesh:
+        axis_names, shape = ("data", "model"), {"data": 4, "model": 2}
+    for c in (cfg, dataclasses.replace(cfg, remat=True))[:2 if kind == "train"
+                                                          else 1]:
+        rec = D.trace(c, shape, (4, 2), ("data", "model"), device="cpu",
+                      variant={"ep": ep})
+        got = rec["roofline"]["coll_by_op"].get("all_to_all_single")
+        assert rec["status"] == "ok"
+        assert got == D.moe_exchange(c, shape, Mesh, {"ep": ep}), (got, kind)

@@ -1,8 +1,9 @@
 """K1's wrapper around the bf16 TMA kernel, on the CPU: what it refuses
-before any launch, what it hands the kernel, and how a tensor map the
-driver refuses comes back.  Fake tensors stand for CUDA ones (the wrapper's
-shape-only path), so nothing is built or launched here; the kernel itself
-is held to its plain version on the card (tests/test_torch_kernels_gpu.py).
+before any launch, what it copies first (and counts), what it hands the
+kernel, and how a tensor map the driver refuses comes back.  Fake tensors
+stand for CUDA ones (the wrapper's shape-only path), so nothing is built
+or launched here; the kernel itself is held to its plain version on the
+card (tests/test_torch_kernels_gpu.py).
 """
 import pytest
 import torch
@@ -15,18 +16,57 @@ def _fake(mode, *shape, dtype=torch.bfloat16):
     return mode.from_tensor(torch.zeros(shape, dtype=dtype))
 
 
-@pytest.mark.parametrize("which", ["k", "v"])
+@pytest.mark.parametrize("which", ["k", "v", "kv", "q_offset", "k_offset",
+                                   "q_strided_head_dim"])
 def test_bf16_wrapper_refuses_a_zero_stride_before_any_launch(which):
-    """An expanded K or V (stride 0 over its heads) has no tensor map: the
-    wrapper refuses it and counts nothing."""
+    """What no tensor map describes -- an expanded K or V (stride 0 over its
+    heads), a view whose rows start off 16 bytes (one element into its
+    storage), a head dim that is not contiguous -- is no longer refused:
+    the wrapper copies each such input into a fresh contiguous tensor
+    before the tensor maps are encoded, and counts each copy in
+    ``tma_copies`` (the reference's kernel takes any array).  Inputs a map
+    describes are not copied; a launch counts as before."""
     mode = FakeTensorMode()
-    q = _fake(mode, 1, 8, 4, 64)
-    kv = {"k": _fake(mode, 1, 8, 4, 64), "v": _fake(mode, 1, 8, 4, 64)}
-    kv[which] = _fake(mode, 1, 8, 1, 64).expand(1, 8, 4, 64)
-    n, m = kflash.launches.count, kflash.tma_launches.count
-    with mode, pytest.raises(ValueError, match="stride of 0"):
-        kflash.flash_attention(q, kv["k"], kv["v"])
-    assert (kflash.launches.count, kflash.tma_launches.count) == (n, m)
+    t = {n: _fake(mode, 1, 8, 4, 64) for n in "qkv"}
+    if which in ("k", "v", "kv"):
+        for n in which:
+            t[n] = _fake(mode, 1, 8, 1, 64).expand(1, 8, 4, 64)
+    elif which.endswith("_offset"):
+        t[which[0]] = _fake(mode, 8 * 4 * 64 + 1)[1:].view(1, 8, 4, 64)
+    else:
+        t["q"] = _fake(mode, 1, 8, 4, 128)[..., ::2]
+    copies = len(which) if which in ("k", "v", "kv") else 1
+    n, c = kflash.launches.count, kflash.tma_copies.count
+    with mode:
+        out = kflash.flash_attention(t["q"], t["k"], t["v"])
+    assert tuple(out.shape) == (1, 8, 4, 64) and out.dtype == torch.bfloat16
+    assert kflash.tma_copies.count == c + copies
+    assert kflash.launches.count == n     # fake tensors: shapes alone
+
+
+def test_bf16_wrapper_copies_nothing_a_tensor_map_describes():
+    """Contiguous inputs and strided views of one fused projection reach
+    the kernel as they are: no copy counted."""
+    mode = FakeTensorMode()
+    fused = _fake(mode, 2, 40, 12, 64)
+    c = kflash.tma_copies.count
+    with mode:
+        kflash.flash_attention(*(_fake(mode, 1, 8, 4, 64) for _ in "qkv"))
+        kflash.flash_attention(fused[:, :, :8], fused[:, :, 8:10],
+                               fused[:, :, 10:])
+    assert kflash.tma_copies.count == c
+
+
+def test_float32_wrapper_refuses_a_strided_head_dim():
+    """The float32 kernel reads a row's elements one after another: a head
+    dim that is not contiguous is refused, not copied."""
+    mode = FakeTensorMode()
+    q = _fake(mode, 1, 8, 4, 128, dtype=torch.float32)[..., ::2]
+    k = _fake(mode, 1, 8, 4, 64, dtype=torch.float32)
+    c = kflash.tma_copies.count
+    with mode, pytest.raises(ValueError, match="head dim"):
+        kflash.flash_attention(q, k, k)
+    assert kflash.tma_copies.count == c
 
 
 def test_float32_wrapper_keeps_taking_a_zero_stride():

@@ -394,6 +394,52 @@ def test_an_edited_header_gives_a_library_of_its_own(tmp_path, monkeypatch):
     assert build._lib_path("kern") not in (before, after)
 
 
+def test_extra_builds_share_the_batch_and_get_libraries_of_their_own(
+        tmp_path, monkeypatch):
+    """``build.build(extra=...)``: a second build of a source with other
+    flags (K1's watchdog build) is compiled in the same batch as the
+    others, keyed by its name and flags, into a library of its own; only
+    that build gets the flags."""
+    import stat
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as kflash
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "kern.cu").write_text("// kern\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nfor a; do [ "$prev" = "-o" ] && out="$a"; '
+                    'prev="$a"; done\necho "$@" > "$out"\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    got = build.build(("kern",), extra=(("kern", kflash.WATCHDOG_FLAGS),))
+    key = "kern " + " ".join(kflash.WATCHDOG_FLAGS)
+    assert sorted(got) == sorted(["kern", key])
+    plain, watch = got["kern"][0], got[key][0]
+    assert plain != watch and plain.parent == watch.parent
+    assert "-DREPRO_MBAR_WATCHDOG" in watch.read_text()
+    assert "-DREPRO_MBAR_WATCHDOG" not in plain.read_text()
+    assert watch == build._lib_path("kern", kflash.WATCHDOG_FLAGS)
+
+
+def test_production_k1_has_no_trap_and_the_watchdog_only_one():
+    """ptxas ignores ``setmaxnreg`` in a kernel that can ``__trap()``: the
+    production build of K1's TMA kernel (``flash_attention.cu`` and the
+    ``hopper.cuh`` it includes) has no trap outside the watchdog's
+    ``#ifdef REPRO_MBAR_WATCHDOG`` branch, which holds exactly one
+    (comments aside)."""
+    import re
+    from repro_torch.kernels import build
+    text = re.sub(r"//[^\n]*", "", "".join(
+        (build.CSRC / n).read_text() for n in ("flash_attention.cu",
+                                               "hopper.cuh")))
+    branch = re.compile(r"#ifdef REPRO_MBAR_WATCHDOG\n(.*?)#else\n",
+                        re.DOTALL)
+    inside = branch.findall(text)
+    assert len(inside) == 1 and inside[0].count("__trap()") == 1
+    assert "__trap" not in branch.sub("", text)
+
+
 # ------------------------------------------------ plain backward versions
 # Each written-out gradient against torch autograd of its plain forward,
 # float32, 1e-5 of max(1, max |autograd|).

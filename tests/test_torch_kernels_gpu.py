@@ -158,6 +158,64 @@ def test_flash_kernel_reads_strided_views_of_one_projection(cuda, dtype, hd,
     assert (out.float() - want.float()).abs().max().item() < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,layout", [(64, "expanded_kv"),
+                                       (80, "expanded_kv"),
+                                       (192, "expanded_kv"), (64, "offset_q"),
+                                       (80, "offset_k"), (128, "offset_v")])
+def test_flash_kernel_takes_what_no_tensor_map_describes(cuda, dtype, hd,
+                                                         layout):
+    """K and V expanded over their KV heads (stride 0), or q, k or v one
+    element into its storage (rows off 16 bytes): bf16 copies each such
+    input once (``tma_copies``) and matches the plain version; float32
+    reads them as they are (no copy)."""
+    b, s, h, kh = 2, 300, 8, 2
+    dv = 128 if hd == 192 else hd
+    t = {"q": _randn((b, s, h, hd), dtype, cuda, 51),
+         "k": _randn((b, s, kh, hd), dtype, cuda, 52),
+         "v": _randn((b, s, kh, dv), dtype, cuda, 53)}
+    if layout == "expanded_kv":
+        t["k"] = _randn((b, s, 1, hd), dtype, cuda, 54).expand(b, s, kh, hd)
+        t["v"] = _randn((b, s, 1, dv), dtype, cuda, 55).expand(b, s, kh, dv)
+        copied = 2
+    else:
+        name = layout[-1]
+        shape = t[name].shape
+        t[name] = _randn((t[name].numel() + 1,), dtype, cuda, 56)[1:].view(
+            shape)
+        copied = 1
+    n, c = kflash.launches.count, kflash.tma_copies.count
+    out = kflash.flash_attention(t["q"], t["k"], t["v"], causal=True)
+    torch.cuda.synchronize()
+    assert kflash.launches.count == n + 1
+    assert kflash.tma_copies.count == c + (copied if dtype == torch.bfloat16
+                                           else 0)
+    want = ref.grouped_flash_ref(t["q"], t["k"], t["v"], causal=True)
+    assert (out.float() - want.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("hd,dv", [(64, 64), (80, 80), (192, 128)])
+def test_flash_watchdog_build_matches_plain(cuda, hd, dv):
+    """The watchdog build of K1 (``-DREPRO_MBAR_WATCHDOG``: every mbarrier
+    wait traps after a bounded number of tries) against the plain version
+    at bf16 3e-2, over more work tiles than SMs, and bit for bit the
+    production build's output; its launches count apart."""
+    b, s, h, kh = 4, 1000, 16, 4
+    q = _randn((b, s, h, hd), torch.bfloat16, cuda, 61)
+    k = _randn((b, s, kh, hd), torch.bfloat16, cuda, 62)
+    v = _randn((b, s, kh, 128 + dv), torch.bfloat16, cuda, 63)[..., 128:] \
+        if hd == 192 else _randn((b, s, kh, hd), torch.bfloat16, cuda, 63)
+    n, w = kflash.launches.count, kflash.watchdog_launches.count
+    out, lse = kflash.flash_attention_watchdog(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert kflash.watchdog_launches.count == w + 1
+    assert kflash.launches.count == n
+    want = ref.grouped_flash_ref(q, k, v)
+    assert (out.float() - want.float()).abs().max().item() < TOL[torch.bfloat16]
+    prod, plse = kflash.flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(out, prod) and torch.equal(lse, plse)
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kh,hd,dv,causal", [
     (8, 1024, 1024, 16, 16, 64, 64, False),     # seamless encoder
     (8, 256, 256, 128, 128, 192, 128, True),    # deepseek MLA admission
@@ -1416,7 +1474,10 @@ def test_a_non_contiguous_shard_reaches_the_kernel(nccl_mesh, monkeypatch):
     """A rank's shard that is a view with a strided head dim (what a
     ``redistribute`` can hand over): the DTensor branch makes it contiguous
     and the kernel takes it, forward and backward, as it takes the
-    contiguous tensor; the plain version is never called."""
+    contiguous tensor; the plain version is never called.  The same view
+    passed to the wrapper directly is copied there (bf16, counted in
+    ``tma_copies``); under ``local_map`` nothing is copied for a tensor
+    map."""
     from torch.distributed.tensor import DTensor, Replicate
     cuda = torch.device("cuda")
     for name in ("grouped_flash_ref", "grouped_flash_bwd_ref",
@@ -1427,16 +1488,20 @@ def test_a_non_contiguous_shard_reaches_the_kernel(nccl_mesh, monkeypatch):
     assert qt.stride(-1) != 1
     k = _randn((2, 256, 2, 64), torch.bfloat16, cuda, 221)
     v = _randn((2, 256, 2, 64), torch.bfloat16, cuda, 222)
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.grouped_flash(qt, k, v)
+    c = kflash.tma_copies.count
+    ops.grouped_flash(qt, k, v)
+    torch.cuda.synchronize()
+    assert kflash.tma_copies.count == c + 1
     dq = DTensor.from_local(qt, nccl_mesh, [Replicate(), Replicate()],
                             run_check=False).detach().requires_grad_(True)
     n = (kflash.launches.count, kflash.bwd_launches.count)
+    c = kflash.tma_copies.count
     out = ops.grouped_flash(dq, _dt(nccl_mesh, k), _dt(nccl_mesh, v))
     g, = torch.autograd.grad(out.sum(), dq)
     torch.cuda.synchronize()
     assert (kflash.launches.count, kflash.bwd_launches.count) == (
         n[0] + 1, n[1] + 1)
+    assert kflash.tma_copies.count == c
     pq = qt.contiguous().requires_grad_(True)
     pout = ops.grouped_flash(pq, k, v)
     pg, = torch.autograd.grad(pout.sum(), pq)

@@ -17,7 +17,9 @@ A sharded step's micro-batch i is each data rank's i-th slice of its own
 rows (data parallelism's accumulation); the reference is given the same
 micro-batches: the batch's rows in that order (``micro_order``).  The MoE
 layer plans over every token of the micro-batch, as the reference's does,
-so which token a full expert drops is the same.
+so which token a full expert drops is the same, and moves each routed row
+to the rank of its expert's slot and back by all-to-alls; one layer is
+also held alone, on several meshes and placements, gradients included.
 
 Tolerances: each step's loss 1e-4 and every parameter leaf 1e-4 x max(1,
 max |reference leaf|) after 3 steps (reductions over ranks and the
@@ -29,7 +31,9 @@ to 4 x the summed learning rates, at most 4 elements a run beyond 1e-4
 (xlstm-350m's ``wq`` has one: a gradient of 3e-6 of its leaf's largest at
 step 1); resume onto another mesh and onto a plain process within 1e-5 of
 the uninterrupted loss, onto the same mesh bit for bit; decode logits
-1e-4."""
+1e-4; one MoE layer's outputs, aux loss and gradients 2e-5 x max(1,
+max |reference|) (float32, one layer: the reference's own layer
+tolerance)."""
 import json
 import os
 import subprocess
@@ -53,6 +57,7 @@ from repro_torch.configs import get_arch as tget_arch
 from repro_torch.distributed import sharding as S
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.moe import capacity as tcapacity
 from repro_torch.models.transformer import Model as TModel
 from repro_torch.models.weights import params_from_numpy, tree_leaves
 from repro_torch.training import checkpoint as TC
@@ -289,9 +294,67 @@ def kernels():
     res["errs"] = errs
 
 
+def moe_layer():
+    # one MoE layer forward and backward on DTensors for each variant:
+    # the parameters placed with and without EP, the token rows over data
+    # with d whole or over model; the outputs, aux loss, every gradient
+    # and the plan the layer used
+    import dataclasses
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as M
+    plans = []
+    route = ops.moe_route
+
+    def spy(*a, **k):
+        r = route(*a, **k)
+        plans.append(r)
+        return r
+    ops.moe_route = spy
+    for n, v in enumerate(case["variants"]):
+        red = get_arch(v["arch"]).reduced()
+        cfg = dataclasses.replace(red, moe=dataclasses.replace(
+            red.moe, **v["routing"]))
+        arrs = np.load(v["inputs"])
+        p = {}
+        for key in arrs.files:
+            if key.startswith("p/"):
+                node = p
+                *head, last = key[2:].split("/")
+                for h in head:
+                    node = node.setdefault(h, {})
+                node[last] = torch.from_numpy(arrs[key])
+        pd = S.device_put(p, S.params_shardings(p, mesh, ep=v["ep"]), mesh)
+        named = []
+        S.tree_map_with_path(lambda path, t: named.append(
+            ("/".join(map(str, path)), t.requires_grad_(True))), pd)
+        leaves = [t for _, t in named]
+        x = torch.from_numpy(arrs["x"])
+        xpl = list(S.placements(S.batch_spec(x, mesh), mesh))
+        if v["cols"]:
+            xpl[mesh.mesh_dim_names.index("model")] = Shard(2)
+        xd = distribute_tensor(x, mesh, xpl).requires_grad_(True)
+        plans.clear()
+        with implicit_replication():
+            y, aux = M.moe_forward(cfg, pd, xd, capacity_factor=v["cf"])
+            loss = (y * torch.from_numpy(arrs["dy"])).sum() + \
+                float(arrs["aux_w"]) * aux
+            grads = torch.autograd.grad(loss, [xd] + leaves)
+        (r,) = plans
+        got = {"y": whole(y), "aux": whole(aux), "slot": whole(r.slot),
+               "idx": whole(r.idx)}
+        got["g/x"] = whole(grads[0])
+        got.update({f"g/{name}": whole(g) for (name, _), g in
+                    zip(named, grads[1:])})
+        if rank == 0:
+            np.savez(f"{out}/moe{n}.npz",
+                     **{k: t.float().numpy() if t.is_floating_point()
+                        else t.numpy() for k, t in got.items()})
+
+
 {"train": train, "elastic_save": elastic_save,
  "elastic_restore": elastic_restore, "decode": decode,
- "kernels": kernels}[case["case"]]()
+ "kernels": kernels, "moe_layer": moe_layer}[case["case"]]()
 with open(f"{out}/res-{case['tag']}-{rank}.json", "w") as f:
     json.dump(res, f)
 dist.destroy_process_group()
@@ -351,6 +414,7 @@ def _reference_steps(jm, jp, batches, accum):
 @pytest.mark.parametrize("arch,mesh,ep", [
     ("qwen2-0.5b", (4, 2), False),
     ("qwen2-moe-a2.7b", (2, 2), True),
+    ("qwen2-moe-a2.7b", (4, 2), True),
     ("xlstm-350m", (2, 2), False)])
 def test_train_step_on_gloo_ranks_matches_reference(tmp_path, arch, mesh, ep):
     """3 AdamW steps (grad_accum 2, batch 8 x 32) on a (data, model) mesh:
@@ -489,6 +553,215 @@ def test_kernel_entries_under_local_map_give_the_plain_gradients(tmp_path,
                                   "arch": "llama3.2-1b", "mesh": list(mesh)})
     for r in res:
         assert len(r["errs"]) == 3 and max(r["errs"]) < 1e-5, r["errs"]
+
+
+# -------------------------------------------------------- the MoE layer
+# The reduced configs with the full ones' routing: qwen2-moe's 60 experts
+# padded to 64, top 4; deepseek-v3's 256, top 8, scale 2.5; and qwen2-moe
+# with 6 experts, top 2, which do not divide over a model axis of 4 (on
+# (1, 4) EP leaves them whole and expert-TP cuts only their FF dim).
+MOE_ROUTING = ("n_routed", "padded_routed", "top_k", "router_scale")
+MOE_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v3-671b")
+MOE_ODD = {"n_routed": 6, "padded_routed": 0, "top_k": 2, "router_scale": 1.0}
+MOE_MESHES = [(2, 2), (4, 2), (1, 4)]
+MOE_VARIANTS = [(arch, ep, cols, cf) for arch in MOE_ARCHS + ("odd",)
+                for ep in (True, False) for cols in (False, True)
+                for cf in (1.25, 0.5)]
+MOE_B, MOE_S, MOE_AUX = 4, 16, 0.37
+_MOE_RUNS = {}
+
+
+def _moe_cfgs(arch):
+    """The layer's config in both packages."""
+    import dataclasses
+    out = []
+    for get in (get_arch, tget_arch):
+        base = get(MOE_ARCHS[0] if arch == "odd" else arch)
+        red = base.reduced()
+        out.append(dataclasses.replace(red, moe=dataclasses.replace(
+            red.moe, **(MOE_ODD if arch == "odd" else {
+                f: getattr(base.moe, f) for f in MOE_ROUTING}))))
+    return out
+
+
+def _flat(tree, prefix=""):
+    """A nested dict's leaves by their "a/b/c" paths."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+_MOE_REF = {}
+
+
+def _moe_reference(arch, cf):
+    """The reference's layer on one process: its parameters (a router
+    spread wide enough that experts fill up), the inputs, the outputs, the
+    gradients of sum(y dy) + MOE_AUX aux, and the (token, expert) pairs its
+    sort drops."""
+    if (arch, cf) in _MOE_REF:
+        return _MOE_REF[arch, cf]
+    from repro.kernels import ref as jref
+    from repro.models import moe as JMoE
+    cfg, _ = _moe_cfgs(arch)
+    m, d = cfg.moe, cfg.d_model
+    rng = np.random.default_rng(11)
+    jp = JMoE.moe_init(jax.random.PRNGKey(3), cfg)
+    jp["router"]["w"] = jnp.asarray(rng.standard_normal(
+        jp["router"]["w"].shape).astype(np.float32))
+    x = rng.standard_normal((MOE_B, MOE_S, d)).astype(np.float32)
+    dy = rng.standard_normal((MOE_B, MOE_S, d)).astype(np.float32)
+
+    def loss(p, xx):
+        y, aux = JMoE.moe_forward(cfg, p, xx, capacity_factor=cf,
+                                  backend="xla")
+        return (y * dy).sum() + MOE_AUX * aux, (y, aux)
+    (_, (y, aux)), (gp, gx) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x))
+    # the reference's drops, by its own lines
+    t, k = MOE_B * MOE_S, m.top_k
+    _, idx = jref.moe_topk_ref(jnp.asarray(x.reshape(t, d)) @ jp["router"]["w"],
+                               k, n_valid=m.n_routed)
+    flat = idx.reshape(-1)
+    order = jnp.argsort(flat)
+    sizes = jnp.bincount(flat[order], length=m.routed_total())
+    pos = jnp.arange(t * k) - (jnp.cumsum(sizes) - sizes)[flat[order]]
+    cap = tcapacity(t, k, cf, m.routed_total())
+    keep = np.asarray(pos < cap)
+    order, idx = np.asarray(order), np.asarray(idx)
+    drops = {(int(f // k), int(idx.reshape(-1)[f])) for f in order[~keep]}
+    kept = {(int(f // k), int(idx.reshape(-1)[f])) for f in order[keep]}
+    out = {"params": _flat(jp), "x": x, "dy": dy, "y": np.asarray(y),
+           "aux": float(aux), "grads": {"x": np.asarray(gx), **_flat(gp)},
+           "drops": drops, "kept": kept, "cap": cap}
+    _MOE_REF[arch, cf] = out
+    return out
+
+
+def _moe_runs(tmp_path_factory, mesh):
+    """Every variant of the layer on one set of gloo ranks of ``mesh``
+    (cached a mesh): each variant's saved outputs, gradients and plan."""
+    if mesh in _MOE_RUNS:
+        return _MOE_RUNS[mesh]
+    tmp = tmp_path_factory.mktemp("moe")
+    variants = []
+    for n, (arch, ep, cols, cf) in enumerate(MOE_VARIANTS):
+        ref = _moe_reference(arch, cf)
+        path = tmp / f"in{n}.npz"
+        np.savez(path, x=ref["x"], dy=ref["dy"], aux_w=MOE_AUX,
+                 **{f"p/{k}": v for k, v in ref["params"].items()})
+        _, tcfg = _moe_cfgs(arch)
+        variants.append({
+            "arch": MOE_ARCHS[0] if arch == "odd" else arch, "ep": ep,
+            "cols": cols, "cf": cf, "inputs": str(path),
+            "routing": {f: getattr(tcfg.moe, f) for f in MOE_ROUTING}})
+    res = run_ranks(tmp, mesh[0] * mesh[1], {
+        "tag": "moe", "case": "moe_layer", "arch": MOE_ARCHS[0],
+        "mesh": list(mesh), "variants": variants})
+    runs = {}
+    for n, v in enumerate(MOE_VARIANTS):
+        got = dict(np.load(tmp / f"moe{n}.npz"))
+        runs[v] = got
+    _MOE_RUNS[mesh] = runs
+    return runs
+
+
+@pytest.mark.parametrize("variant", MOE_VARIANTS, ids=[
+    f"{a.split('-')[0]}-{'ep' if ep else 'tp'}-{'dcut' if c else 'dwhole'}"
+    f"-cf{cf}"
+    for a, ep, c, cf in MOE_VARIANTS])
+@pytest.mark.parametrize("mesh", MOE_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_moe_layer_exchange_on_gloo_ranks_matches_reference(
+        tmp_path_factory, mesh, variant):
+    """One MoE layer on DTensors over (data, model) gloo ranks -- experts
+    over model (EP) or their FF dim (expert-TP), token rows over data with
+    d whole or cut over model -- against the reference's unsharded layer on
+    the same weights: the output, the aux loss and every gradient within
+    2e-5 x max(1, max |reference|), and the same (token, expert) pairs
+    dropped; at cf 0.5 an expert drops a token of one data rank after
+    keeping another's."""
+    arch, ep, cols, cf = variant
+    got, ref = _moe_runs(tmp_path_factory, mesh)[variant], \
+        _moe_reference(arch, cf)
+    leaves_close([got["y"], got["aux"]], [ref["y"], np.float32(ref["aux"])],
+                 2e-5)
+    names = sorted(ref["grads"])
+    assert sorted(k[2:] for k in got if k.startswith("g/")) == names
+    leaves_close([got[f"g/{k}"] for k in names],
+                 [ref["grads"][k] for k in names], 2e-5)
+    _, tcfg = _moe_cfgs(arch)
+    e, k = tcfg.moe.routed_total(), tcfg.moe.top_k
+    slot, idx = got["slot"], got["idx"]
+    drops = {(t, int(idx[t, c])) for t, c in zip(*np.nonzero(
+        slot == e * ref["cap"]))}
+    assert drops == ref["drops"]
+    if cf < 1:
+        t_rank = MOE_B * MOE_S // mesh[0]
+        assert any(t // t_rank != u // t_rank for t, ex in drops
+                   for u, ey in ref["kept"] if ex == ey) or mesh[0] == 1
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_layer_collectives_are_the_exchange(arch):
+    """Rank 0's collectives of one layer's forward and backward on a fake
+    (2, 2) mesh with EP (``analysis.collective_bytes``, under
+    ``FakeTensorMode``), token rows over data and d over model as the
+    residual stream arrives, at T = 256 and 512 tokens and d = 64 and 128
+    (T above d: DTensor picks the router product's layout by their sizes):
+    the all-to-alls are four (two forward, their reverse backward), each
+    of ``moe.exchange_bytes``; and no all-gather grows with the token rows
+    or the slots (T d, E C d with C in proportion to T): the all-gather
+    bytes have no T x d term (the logits' T E and the experts' E d f do
+    not have one).  The routed experts alone: the shared expert's output
+    arrives with its rows over model, and DTensor moves it to the routed
+    output's layout by its own all-to-all on the card but by all-gather
+    and chunk on a CPU group, which would count here as an all-gather."""
+    import dataclasses
+    import types
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import moe as TMoE
+    from repro_torch.roofline import analysis as RA
+    _, base = _moe_cfgs(arch)
+    gathers = {}
+    for b in (16, 32):
+        for d in (64, 128):
+            cfg = dataclasses.replace(base, d_model=d, moe=dataclasses.replace(
+                base.moe, n_shared=0))
+            m = cfg.moe
+            with D.fake_group(4):
+                mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+                with FakeTensorMode():
+                    p = TMoE.moe_init(types.SimpleNamespace(
+                        device=torch.device("meta")), cfg)
+                    pd = D._place(p, mesh, lambda path, l: S.param_spec(
+                        path, l, mesh, ep=True))
+                    x = D._place({"x": torch.empty((b, MOE_S, d),
+                                                   device="meta")}, mesh,
+                                 lambda path, l: ("data", None, "model"))["x"]
+                    leaves = [x.requires_grad_(True)] + [
+                        t.requires_grad_(True) for t in tree_leaves(pd)]
+
+                    def step():
+                        with implicit_replication():
+                            y, aux = TMoE.moe_forward(cfg, pd, x)
+                            torch.autograd.grad(y.sum() + aux, leaves)
+                    c = RA.collective_bytes(step, by_op=True)
+            one = TMoE.exchange_bytes(b * MOE_S, m.top_k, 1.25,
+                                      m.routed_total(), d, 4, rows=2,
+                                      expert_parts=2)
+            assert c["counts"]["all-to-all"] == 4, c
+            assert c["by_op"]["all_to_all_single"] == {
+                "count": 4, "bytes": 4 * one} and c["all-to-all"] == 4 * one, \
+                (c, one)
+            gathers[b, d] = c["all-gather"]
+    td = gathers[32, 128] - gathers[32, 64] - gathers[16, 128] + \
+        gathers[16, 64]
+    assert td == 0, gathers
 
 
 # ------------------------------------------------------- one process
