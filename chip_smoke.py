@@ -25,8 +25,11 @@ Phases, each printed on its own line and each fatal:
 2. build    -- compile the CUDA kernels from ``src/repro_torch/csrc``;
                ptxas must report no spill in the mLSTM scan, and its
                tensor-core kernels' SASS must hold HGMMA (cuobjdump); K1's
-               backward: registers and spill stores of each bf16 wgmma
-               kernel at each head dim, and HGMMA in each one's SASS; no
+               bf16 backward (``flash_bwd_dkdv_tma_kernel``,
+               ``flash_bwd_dq_tma_kernel``): registers and spill stores (0)
+               of each at each pair of dims, no wgmma serialised nor
+               setmaxnreg dropped, HGMMA in each one's SASS, its watchdog
+               build's ptxas beside it; no
                spill in K3's backward (``csrc/mlstm_scan_bwd.cu``); K1's
                bf16 forward (``flash_fwd_tma_kernel``): registers, spill
                stores and serialised wgmma by ptxas, HGMMA in the SASS of
@@ -64,6 +67,11 @@ Phases, each printed on its own line and each fatal:
                and logsumexp; the forward's row logsumexp on its live rows
                to 1e-5 (float32) and 1e-4 (bf16); its times beside SDPA's
                backward, with each of its three kernels' own device time;
+               its watchdog build against the plain version and the
+               production build's bits (``kernels.parity.k1_bwd_watchdog``);
+               its device ms by kernel and grids at every training shape
+               (``flash_bwd_study.SHAPES``) beside its bound and the library's
+               backward (``kernels.time.k1_bwd_shape``);
                the backward kernels of this slice (``kernels.parity.bwd2``)
                against their plain gradients at the same gates: K3's at
                xlstm's dk = dv = 512, hymba's SSD heads, a ragged S and S
@@ -164,8 +172,11 @@ Phases, each printed on its own line and each fatal:
                wgmma kernels), the same measures; and the crash / ``--resume``
                drill for qwen2-moe at full width with 2 layers
 
-Then a ``kernels`` JSON line, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+Then a ``kernels`` JSON line (its ``not_ported``: each reference function
+that reaches ``pl.pallas_call`` whose port kernel this run did not launch
+on its path or hold against its plain version), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.  Without a
+CUDA device it exits
 with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -271,10 +282,12 @@ def check_scan_build(build, built) -> None:
         raise AssertionError(f"mlstm_scan_bwd: HGMMA {bwd_hgmma}")
 
 
-# K1's backward on the tensor cores: each kernel at each (query-key dim,
-# value dim) it is built for -- the five equal dims and MLA's (192, 128)
-BWD_WGMMA = re.compile(r"(flash_bwd_\w+?_wgmma_kernel)ILi(\d+)ELi(\d+)E")
-BWD_WGMMA_KERNELS = 2 * 6
+# K1's bf16 backward: the warp-specialised dK/dV and dQ kernels at each
+# (query-key dim, value dim) they are built for -- the five equal dims and
+# MLA's (192, 128)
+BWD_TMA = re.compile(r"(flash_bwd_\w+?_tma_kernel)ILi(\d+)ELi(\d+)E")
+BWD_TMA_KERNELS = 2 * 6
+BWD_PTXAS = {}      # "flash_bwd_*_tma_kernel<DK, DV>": registers, spill
 
 
 def bwd_name(m) -> str:
@@ -282,18 +295,35 @@ def bwd_name(m) -> str:
 
 
 def check_bwd_build(build, built) -> None:
-    """K1's backward: ptxas's registers a thread and spill stores of each
-    bf16 `wgmma` kernel at each pair of dims (when this run built it), and
-    HGMMA in each one's SASS, MLA's (192, 128) included."""
+    """K1's bf16 backward: ptxas's registers a thread and spill stores of
+    each TMA kernel at each pair of dims (when this run built it; the
+    launch's 168, the consumers holding 240 by setmaxnreg), HGMMA in each
+    one's SASS, and the production build's register split kept: nothing
+    spilled, no wgmma serialised, no setmaxnreg dropped.  The watchdog
+    build's ptxas is printed beside it (its trap costs the split)."""
     path, _, log_ = built["flash_attention_bwd"]
-    ptxas = ptxas_by_kernel(log_, BWD_WGMMA, bwd_name)
+    BWD_PTXAS.update(ptxas_by_kernel(log_, BWD_TMA, bwd_name))
     hgmma = {bwd_name(m): c
              for n, c in hgmma_counts(build, path).items()
-             if (m := BWD_WGMMA.search(n))}
-    log("build.flash_attention_bwd", ptxas=ptxas, hgmma_per_kernel=hgmma,
-        built_here=bool(log_))
-    if len(hgmma) != BWD_WGMMA_KERNELS or not all(hgmma.values()):
-        raise AssertionError(f"flash_attention_bwd: HGMMA {hgmma}")
+             if (m := BWD_TMA.search(n))}
+    serialised = [ln.strip() for ln in log_.splitlines()
+                  if "serializ" in ln.lower()]
+    setmaxnreg = [ln.strip() for ln in log_.splitlines()
+                  if "setmaxnreg" in ln.lower()]
+    w_log = next((lg for key, (_, _, lg) in built.items()
+                  if key.startswith("flash_attention_bwd -D")), "")
+    log("build.flash_attention_bwd", ptxas=BWD_PTXAS, hgmma_per_kernel=hgmma,
+        wgmma_serialised=serialised, setmaxnreg_lines=setmaxnreg,
+        built_here=bool(log_),
+        watchdog_ptxas=ptxas_by_kernel(w_log, BWD_TMA, bwd_name))
+    if (len(hgmma) != BWD_TMA_KERNELS or not all(hgmma.values())
+            or (log_ and len(BWD_PTXAS) != BWD_TMA_KERNELS)):
+        raise AssertionError(f"flash_attention_bwd: HGMMA {hgmma}, "
+                             f"ptxas {BWD_PTXAS}")
+    if log_ and (serialised or setmaxnreg or any(
+            v.get("spill_store_bytes") for v in BWD_PTXAS.values())):
+        raise AssertionError(f"flash_attention_bwd: ptxas {BWD_PTXAS}, "
+                             f"{serialised}, {setmaxnreg}")
 
 
 # K1's bf16 forward: the TMA kernel at each (query-key dim, value dim)
@@ -338,6 +368,31 @@ def check_flash_build(build, built) -> None:
             v.get("spill_store_bytes") for v in FWD_PTXAS.values())):
         raise AssertionError(f"flash_attention: ptxas {FWD_PTXAS}, "
                              f"{serialised}, {setmaxnreg}")
+
+
+# The port's kernel of each reference function that reaches pl.pallas_call
+PORT_OF_PALLAS = {"flash_attention_pallas": "flash_attention",
+                  "decode_attention_pallas": "decode_attention",
+                  "mlstm_scan_pallas": "mlstm_scan",
+                  "moe_topk_pallas": "moe_topk"}
+
+
+def pallas_functions() -> list:
+    """Each function of the reference package (``src/repro``) that reaches
+    ``pl.pallas_call``, as ("file:line of the call", name), read from its
+    source text (nothing of it is imported)."""
+    import ast
+    found = []
+    for path in sorted((ROOT / "src" / "repro").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, ast.FunctionDef):
+                continue
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Attribute) and sub.attr == "pallas_call":
+                    found.append((f"{path.relative_to(ROOT)}:{sub.lineno}",
+                                  node.name))
+                    break
+    return found
 
 
 def host_us(fn, n: int = 1000, batch: int = 100) -> float:
@@ -809,6 +864,108 @@ def norm_err(got, want) -> float:
     return ((got.float() - want).norm() / want.norm()).item()
 
 
+def bwd_training_shapes(ref, kflash) -> dict:
+    """K1's bf16 backward at each of the port's training shapes
+    (``launch/flash_bwd_study.SHAPES``: llama3.2-1b at train_4k's length,
+    ``FAMILY_STEPS``' families): held to the plain
+    version (bf16 3e-2 of max(1, max |plain|), norm 1e-2), its ms a call
+    by CUDA events beside the plain version's, its device ms a call and by
+    kernel (profiler), the kernels' grids, its bound, and the
+    library's backward beside it -- SDPA's (``flash_bwd_study.library_call``),
+    CUDA events and device ms over every kernel it launches, its backend
+    named.  Returns {tag: fields}."""
+    from repro_torch.launch.flash_bwd_study import SHAPES, library_call
+    dt, out = torch.bfloat16, {}
+    for j, (tag, (b, sq, sk, h, kh, hd, dv, causal, window)) in enumerate(
+            SHAPES.items()):
+        sc = hd ** -0.5
+        q, do = (randn((b, sq, h, d), dt, 640 + 4 * j + i)
+                 for i, d in enumerate((hd, dv)))
+        k, v = (randn((b, sk, kh, d), dt, 642 + 4 * j + i)
+                for i, d in enumerate((hd, dv)))
+        o, lse = kflash.flash_attention(q, k, v, causal=causal, window=window,
+                                        scale=sc, return_lse=True)
+
+        def call():
+            return kflash.flash_attention_bwd(q, k, v, o, lse, do,
+                                              causal=causal, window=window,
+                                              scale=sc)
+        got = call()
+        po, plse = ref.grouped_flash_ref(q, k, v, causal=causal,
+                                         window=window, scale=sc,
+                                         return_lse=True)
+        e, ne = grad_errors(got, ref.grouped_flash_bwd_ref(
+            q, k, v, po, plse, do, causal=causal, window=window, scale=sc))
+        if not (e < TOL[dt] and ne < NORM_TOL[dt]):
+            raise AssertionError(f"flash_attention_bwd {dt} at {tag}: error "
+                                 f"{e}, norm error {ne}")
+        del got, po, plse
+        library = library_call(q, k, v, do, causal, window, sc)
+        d = {"shape": [b, sq, sk, h, kh, hd, dv],
+             "mask": ("causal" if causal else "unmasked")
+             + (f", window {window}" if window else ""),
+             "max_rel_err": e, "norm_err": ne,
+             "ms": cuda_ms(call, iters=10, warmup=2),
+             "plain_ms": cuda_ms(lambda: ref.grouped_flash_bwd_ref(
+                 q, k, v, o, lse, do, causal=causal, window=window,
+                 scale=sc), iters=2, warmup=1),
+             "library_ms": cuda_ms(library, iters=10, warmup=2)}
+        d["device_ms"], d["launches_per_call"], d["grid"] = \
+            device_ms_per_call(call, "bwd_d", iters=3, max_per_call=3)
+        d["device_ms_by_kernel"] = device_ms_by_kernel(call, "bwd_d", iters=5)
+        check_ran(d["device_ms_by_kernel"], FLASH_BWD_BF16, FLASH_BWD_F32,
+                  f"flash_attention_bwd bf16 at {tag}")
+        lib = device_ms_by_kernel(library, "", iters=5)
+        d["library_device_ms"] = sum(lib.values())
+        d["library_backend"], d["library_kernels"] = sdpa_backend(library)
+        d["bound_ms"], d["bound_by"] = RA.bound_ms(W.flash_bwd(
+            q, k, v, causal=causal, window=window))
+        d["device_over_library_device"] = (d["device_ms"]
+                                           / d["library_device_ms"])
+        log("kernels.time.k1_bwd_shape", tag=tag, **d)
+        out[tag] = d
+        del library
+    free_device_memory()
+    return out
+
+
+def k1_bwd_watchdog(ref, kflash) -> list:
+    """The backward's watchdog build (``flash_attention_bwd_watchdog``,
+    built beside the others) at hd 64, 128 and 192 / 128, over more work
+    tiles than SMs, against the plain version (bf16 gates) and whether it
+    gives the production build's bits; its launches count apart."""
+    dt, cases = torch.bfloat16, []
+    for b, s, h, kh, hd, dv in ((2, 1000, 16, 4, 64, 64),
+                                (2, 1000, 16, 16, 128, 128),
+                                (2, 1000, 16, 16, 192, 128)):
+        sc = hd ** -0.5
+        q, do = (randn((b, s, h, d), dt, 660 + i) for i, d in
+                 enumerate((hd, dv)))
+        k, v = (randn((b, s, kh, d), dt, 662 + i) for i, d in
+                enumerate((hd, dv)))
+        o, lse = kflash.flash_attention(q, k, v, scale=sc, return_lse=True)
+        n, w = kflash.bwd_launches.count, kflash.bwd_watchdog_launches.count
+        got = kflash.flash_attention_bwd_watchdog(q, k, v, o, lse, do,
+                                                  scale=sc)
+        torch.cuda.synchronize()
+        launched = (kflash.bwd_watchdog_launches.count - w,
+                    kflash.bwd_launches.count - n)
+        prod = kflash.flash_attention_bwd(q, k, v, o, lse, do, scale=sc)
+        po, plse = ref.grouped_flash_ref(q, k, v, scale=sc, return_lse=True)
+        e, ne = grad_errors(got, ref.grouped_flash_bwd_ref(
+            q, k, v, po, plse, do, scale=sc))
+        cases.append({"shape": [b, s, h, kh, hd, dv], "max_rel_err": e,
+                      "norm_err": ne, "production_bits": all(
+                          torch.equal(x, y) for x, y in zip(got, prod)),
+                      "launches_watchdog_production": list(launched)})
+        if not (e < TOL[dt] and ne < NORM_TOL[dt] and launched == (1, 0)
+                and cases[-1]["production_bits"]):
+            raise AssertionError(f"K1 backward watchdog build: {cases[-1]}")
+    log("kernels.parity.k1_bwd_watchdog", cases=cases,
+        flags=list(kflash.WATCHDOG_FLAGS))
+    return cases
+
+
 def backward_phase(ref, kflash) -> dict:
     """K1's backward against ``ref.grouped_flash_bwd_ref`` on dq, dk and dv
     (float32 1e-4, bf16 3e-2, of max(1, max |plain|); and the error's norm
@@ -906,10 +1063,12 @@ def backward_phase(ref, kflash) -> dict:
         call, "bwd_d", iters=3, max_per_call=3)
     d["device_ms_by_kernel"] = device_ms_by_kernel(call, "bwd_d", iters=5)
     d["design"] = ("bf16: bwd_delta_kernel (D, lse log2 e), "
-                   "flash_bwd_dkdv_wgmma_kernel (128 keys a block, wgmma "
-                   "S^T, dP^T, dV, dK), flash_bwd_dq_wgmma_kernel (128 "
-                   "queries a block, wgmma S, dP, dQ); float32 on the CUDA "
-                   "cores (bwd_dkdv_kernel, bwd_dq_kernel)")
+                   "flash_bwd_dkdv_tma_kernel (work tiles of 128 keys), "
+                   "flash_bwd_dq_tma_kernel (work tiles of 128 queries): "
+                   "each a TMA producer warpgroup and two wgmma consumer "
+                   "warpgroups (setmaxnreg 24 / 240), persistent; float32 "
+                   "on the CUDA cores (bwd_dkdv_kernel, bwd_dq_kernel)")
+    d["ptxas"] = {n: v for n, v in BWD_PTXAS.items() if f"<{hd}, {hd}>" in n}
     d["library_backend"], d["library_kernels"] = sdpa_backend(library)
     d["bound_ms"], d["bound_by"] = RA.bound_ms(W.flash_bwd(q, k, v))
     d["kept_pairs"] = b * h * W.flash_pairs(s, s, True, 0)
@@ -946,6 +1105,8 @@ def backward_phase(ref, kflash) -> dict:
     d["norm_err"] = max(norm_err(g, w) for g, w in zip(got, want))
     d["max_abs_err_f32"] = errs["float32"]
     d["shape"] = f"B={b} S={s} H={h} KH={kh} hd={hd} causal bf16 (train_4k)"
+    d["watchdog"] = k1_bwd_watchdog(ref, kflash)
+    d["training_shapes"] = bwd_training_shapes(ref, kflash)
     log("kernels.time", kernel="flash_attention_bwd", **d)
     return d
 
@@ -1205,7 +1366,7 @@ SCAN_BWD_BF16 = ("scan_bwd_walk_wgmma_kernel", "scan_bwd_norm_wgmma_kernel",
                  "scan_bwd_grad_wgmma_kernel")
 SCAN_BWD_F32 = ("scan_bwd_outer_kernel", "scan_bwd_carry_kernel",
                 "scan_bwd_norm_kernel", "scan_bwd_grad_kernel")
-FLASH_BWD_BF16 = ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")
+FLASH_BWD_BF16 = ("flash_bwd_dkdv_tma_kernel", "flash_bwd_dq_tma_kernel")
 FLASH_BWD_F32 = ("bwd_dkdv_kernel", "bwd_dq_kernel")
 
 
@@ -1449,10 +1610,12 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
         raise AssertionError(f"flash_attention_bwd {dt} (192, 128) B {b} S {s} "
                              f"H {h}: error {e}, norm error {d['norm_err']}")
     d["max_abs_err_f32"] = ferrs["float32"][0]
-    d["design"] = ("bf16: bwd_delta_kernel, flash_bwd_dkdv_wgmma_kernel<192, "
-                   "128> (dV and dK blocks apart), flash_bwd_dq_wgmma_kernel"
-                   "<192, 128> on wgmma; float32: bwd_dkdv_kernel, "
-                   "bwd_dq_kernel on the CUDA cores")
+    d["design"] = ("bf16: bwd_delta_kernel, flash_bwd_dkdv_tma_kernel<192, "
+                   "128> (dV and dK work tiles apart), flash_bwd_dq_tma_kernel"
+                   "<192, 128>, each a TMA producer and two wgmma consumers; "
+                   "float32: bwd_dkdv_kernel, bwd_dq_kernel on the CUDA "
+                   "cores")
+    d["ptxas"] = {n: v for n, v in BWD_PTXAS.items() if "<192, 128>" in n}
     d["shape"] = "B=1 S=2048 H=KH=128 dk=192 dv=128 causal bf16 (deepseek-v3)"
     del got, want, po, plse, sdpa_out, qt, kt, vt
     # hymba's training shape (bf16 runs the wgmma kernels at hd 64)
@@ -3154,7 +3317,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.monotonic()
-    built = build.build(extra=(("flash_attention", kflash.WATCHDOG_FLAGS),))
+    built = build.build(extra=(("flash_attention", kflash.WATCHDOG_FLAGS),
+                               ("flash_attention_bwd", kflash.WATCHDOG_FLAGS)))
     ptxas = {name: [ln.strip() for ln in log_.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, (_, _, log_) in built.items()}
@@ -3443,9 +3607,26 @@ def main() -> int:
                 "watchdog": k1_layouts["watchdog"]}
                if name == "flash_attention" else {}),
             **extra, "card": card})
+    # Each reference Pallas kernel beside the port's kernel that this run
+    # launched on its path and held against its plain version (every parity
+    # phase raises on a failure, so an entry of ``timed`` was held)
+    ported = []
+    for where, fn in pallas_functions():
+        port = PORT_OF_PALLAS.get(fn)
+        ported.append({
+            "reference": f"{where} {fn}", "port": port,
+            "launches": by_path[own[port]][port] if port in timed else 0,
+            "max_abs_err": timed[port]["max_abs_err"] if port in timed
+            else None})
+    not_ported = [r["reference"] for r in ported
+                  if not (r["launches"] and r["max_abs_err"] is not None)]
+    log("ported", kernels=ported, not_ported=not_ported)
+    if not ported:
+        raise AssertionError("no reference function reaches pl.pallas_call")
     log("phase_seconds", total=time.monotonic() - t_start,
         build=seconds["build"], by_phase=seconds)
-    print(json.dumps({"kernels": kernels, "not_ported": []}), flush=True)
+    print(json.dumps({"kernels": kernels, "not_ported": not_ported}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

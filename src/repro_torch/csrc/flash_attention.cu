@@ -108,7 +108,6 @@
 // (deepseek-v3's MLA).  The backward pass for training is its own source,
 // `flash_attention_bwd.cu`; the `wgmma`, tile-layout, `mbarrier` and TMA
 // helpers are in `hopper.cuh`.
-#include <cuda.h>  // CUtensorMap and its enums; no libcuda call
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -360,7 +359,6 @@ constexpr int CONSUMER_WARPS = 8;  // arrivals that free a stage or the Q tile
 constexpr int PP_BAR = 1;  // named barriers PP_BAR + c: warpgroup c's turn
 constexpr int WG_BAR = 3;  // named barriers WG_BAR + c: warpgroup c alone
 constexpr int SMEM_MAX = 232448;   // a block's shared memory on the H100
-constexpr int TMA_REFUSED = 100000;  // + the CUresult of a refused map
 
 // Tiles, panels and shared memory of one (DK, DV) instantiation.
 template <int DK, int DV>
@@ -409,15 +407,6 @@ struct Smem {
     return bar + 16 * C::STAGES + 8 * (C::Q_BUFS + i);
   }
 };
-
-// Steps a ring position (slot, phase parity) of n slots.
-template <int N>
-__device__ __forceinline__ void advance(int& slot, uint32_t& phase) {
-  if (++slot == N) {
-    slot = 0;
-    phase ^= 1;
-  }
-}
 
 // A work tile: BQ query rows from q0 of head h, batch row b, and the n key
 // tiles of BK from k_begin that any of its rows can see.
@@ -826,71 +815,7 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-// ---- host side -------------------------------------------------------------
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library links no libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &got);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got);
-#endif
-    return e == cudaSuccess && got == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 (B, S, heads, cols) view with strides in elements (cols
-// contiguous) as the 4-D tensor map (cols, heads, S, B) whose box is one
-// swizzle panel of W bytes x 1 head x `rows` rows x 1 batch row, in the
-// swizzle `Layout` gives W.  Rows past S and columns past `cols` arrive
-// as zeros.  A dim of extent 1 is read at coordinate 0 alone, so its
-// stride (which a view may leave anything) is set to the packed one.
-CUresult encode_view(CUtensorMap* map, const void* ptr, int cols, int heads,
-                     int S, int B, long long sh, long long ss, long long sb,
-                     int w, int rows) {
-  const EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const long long ext[3] = {heads, S, B};
-  long long st[3] = {sh, ss, sb};
-  long long packed = (cols + 7) / 8 * 8;
-  for (int i = 0; i < 3; ++i) {
-    if (ext[i] <= 1) st[i] = packed;
-    packed = st[i] * (ext[i] > 1 ? ext[i] : 1);
-  }
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S > 0 ? S : 1),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[0] * 2),
-                                 static_cast<cuuint64_t>(st[1] * 2),
-                                 static_cast<cuuint64_t>(st[2] * 2)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(w / 2), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = w == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : w == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                          : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
+// ---- host side (tensor maps: `hopper::encode_view`) -------------------------
 
 // The four maps a launch at (DK, DV) reads q, k and v and writes o
 // through; 0, or TMA_REFUSED + the CUresult of the first map refused.
@@ -909,19 +834,6 @@ int encode_maps(const Params& p, CUtensorMap (&m)[4]) {
     r = encode_view(&m[3], p.o, DV, p.H, p.Sq, p.B, p.o_sh, p.o_ss, p.o_sb,
                     C::LV::W, 64);
   return r == CUDA_SUCCESS ? 0 : TMA_REFUSED + static_cast<int>(r);
-}
-
-// The SMs of the current device, read once a device.
-int sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (counts[dev] == 0) {
-    int n = 0;
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    counts[dev] = n > 0 ? n : 132;
-  }
-  return counts[dev];
 }
 
 template <int DK, int DV>

@@ -6,128 +6,164 @@
 // that gradient for the port's forward, `flash_attention.cu`, reached
 // through `torch.autograd.Function` in `kernels/ops.py`.
 //
-// Layout, as the forward: q, o, dO and dq are (B, Sq, H, hd), k, v, dk and
-// dv (B, Sk, KH, hd), all contiguous; query head h reads KV head h / G with
-// G = H / KH.  lse is the forward's (B, H, Sq) float32 row logsumexp in the
-// natural log.  Masks as the forward: causal keeps kpos <= qpos with the
-// queries at the last Sq key positions (qpos = i + Sk - Sq), window > 0
-// keeps kpos > qpos - window, neither is unmasked; ragged tails are masked.
-// A row whose lse is -inf (it kept no key) has P = 0, so it adds nothing
-// and gets dq = 0.
+// Layout, as the forward: q, o and dO are (B, Sq, H, hd), k and v (B, Sk,
+// KH, hd), each read through its own (batch, row, head) strides with the
+// head dim contiguous; dq, dk and dv are written contiguous.  Query head h
+// reads KV head h / G with G = H / KH.  lse is the forward's (B, H, Sq)
+// float32 row logsumexp in the natural log.  Masks as the forward: causal
+// keeps kpos <= qpos with the queries at the last Sq key positions (qpos =
+// i + Sk - Sq), window > 0 keeps kpos > qpos - window, neither is
+// unmasked; ragged tails are masked.  A row whose lse is -inf (it kept no
+// key) has P = 0, so it adds nothing and gets dq = 0.
 //
 // The formulas: D = rowsum(dO o O); P = exp(scale Q K^T - lse); dV = P^T dO
 // summed over a KV head's G query heads; dS = P o (dO V^T - D); dQ = scale
 // dS K; dK = scale dS^T Q.  Three launches a call, in stream order, none
 // with atomics, so a call is deterministic (the G heads and the query tiles
-// are summed in a fixed order):
+// are summed in a fixed order, whatever block takes a work tile):
 //
 // (a) `bwd_delta_kernel`: one warp a (batch row, query, head) row, D into
 //     a float32 scratch the wrapper allocates.  For bf16 it also stores
 //     lse log2(e) beside D, +inf for a row that kept no key, and pads both
-//     to whole 128-row blocks (D 0, lse +inf), so the bf16 kernels read them
-//     as aligned 16-byte tiles and a pad or dead row gets P = exp2(-inf) = 0
-//     without a mask.
+//     to whole 128-row blocks (D 0, lse +inf), so the bf16 kernels load
+//     them as aligned rows of the ring tiles and a pad or dead row gets P =
+//     exp2(-inf) = 0 without a mask.
 // (b) dK and dV, (c) dQ: by the input type, as in the forward -- the bf16
 //     kernels on the tensor cores, the float32 ones on the CUDA cores
 //     (`wgmma` on float32 is TF32, about three decimal digits, which cannot
 //     hold the 1e-4 the float32 gradient checks need).  Neither is a
 //     fallback for the other.
 //
-// bf16, `flash_bwd_dkdv_wgmma_kernel<DK, DV>`: one block of two warpgroups per
-// (128 keys, KV head, batch row); each warpgroup owns 64 keys, `wgmma`'s M.
-// K and V are copied once into 128-byte-swizzled tiles (`hopper.cuh`).  The
-// block walks the G query heads and, for each, the 64-row query tiles the
-// mask lets see a key of the block; Q, dO, lse log2(e) and D tiles stream
-// through a two-stage ring filled by 16-byte `cp.async` (zero-filled past
-// Sq), so tile t + 1 loads while tile t computes.  For each tile a
-// warpgroup computes S^T = K Q^T and dP^T = V dO^T (`wgmma` m64n64k16, both
-// operands K-major from shared memory, committed as two groups so P^T is
-// exponentiated while dP^T is still running), P^T = exp2(S^T scale log2 e -
-// lse log2 e) and dS^T = P^T o (dP^T - D) in the accumulator registers
-// (masks only on tiles that cross the causal or window edge), then dV +=
-// P^T dO and dK += dS^T Q (`wgmma` with A from registers: P^T and dS^T
-// packed to bf16 as the forward packs P, B = dO or Q read MN-major from the
-// same shared tiles).  dK and dV stay in float32 registers until the end,
-// where dK is scaled and both are stored once.  Key rows past Sk compute
-// garbage that is never stored (each key row is independent here), so the
-// Sk edge needs no mask.  Blocks are ordered so the heaviest (causal: the
-// first keys, which every later query sees) launch first.
+// bf16: `flash_bwd_dkdv_tma_kernel<DK, DV>` and `flash_bwd_dq_tma_kernel<DK,
+// DV>`, warp specialised as the forward's `flash_fwd_tma_kernel`.  A block
+// is three warpgroups, 384 threads.  Warpgroup 0 gives its registers away
+// (`setmaxnreg` 24) and one of its threads issues every load: TMA tile
+// copies (`cp.async.bulk.tensor`; four tensor maps of q, k, v and dO
+// encoded on the host each call, a box one swizzle panel x 64 rows) and
+// 1-D bulk copies of the lse log2(e) and D rows, all completing on
+// `mbarrier`s.  Warpgroups 1 and 2 (`setmaxnreg` 240) compute on `wgmma`,
+// each freeing a ring stage (one arrival a warp) once the products that
+// read it have completed.  The two consumers run apart -- no block or
+// named barrier in the tile loop -- so one's exponentials run under the
+// other's products (taking turns to issue, as the forward's consumers do,
+// measured 1-3% slower here).  Both kernels are persistent: a grid of
+// min(work tiles, SMs) blocks walks the work tiles in a snake over blocks,
+// heaviest first, which balances the causal walks to within a tile.
 //
-// bf16, `flash_bwd_dq_wgmma_kernel<DK, DV>`: one block of two warpgroups per
-// (128 queries, head, batch row), 64 queries a warpgroup; Q and dO stay in
-// shared memory, each thread's two rows of lse log2(e) and D in registers.
-// It walks the forward's key range through a two-stage ring of 64-key K and
-// V tiles: S = Q K^T and dP = dO V^T (SS), P and dS in registers (masks on
-// edge tiles, the Sk edge included: a zero key row would give P = exp2(-lse
-// log2 e), which may overflow), dQ += dS K (A from registers, K read
-// MN-major).  Causal blocks run last-queries first, the heaviest.  The
-// separate dQ kernel recomputes S and dP: 14 hd operations a kept pair
-// against the bound's 10 hd, kept so that dQ needs no float32 atomics,
-// whose order would change between calls.
+// * dK / dV: a work tile is (128 keys, KV head, batch row), key block 0
+//   first (under a causal mask the first keys see the most queries); each
+//   consumer warpgroup owns 64 keys, `wgmma`'s M.  The producer loads K and
+//   V once a work tile (once the consumers have freed the last one's),
+//   then walks the G query heads and, for each, the query tiles the mask
+//   lets see a key of the block: Q, dO, lse log2 e and D into a ring of as
+//   many stages as shared memory holds, up to 4 (3 at 192 / 128).  For each
+//   tile a consumer computes S^T = K Q^T and dP^T = V dO^T (both operands
+//   K-major from shared memory, committed as two groups, so P^T =
+//   2^(S^T scale log2 e - lse log2 e) is exponentiated while dP^T is still
+//   running), dS^T = P^T o (dP^T - D) in the accumulator registers (masks
+//   only on tiles that cross the causal or window edge, in a loop of their
+//   own), then dV += P^T dO and dK += dS^T Q (`wgmma` with A from
+//   registers: P^T and dS^T packed to bf16 a k16 slice at a time, B = dO
+//   or Q read MN-major from the same stage).  dK and dV stay in float32
+//   registers until the work tile ends; then each consumer writes dK
+//   (scaled) and dV as bf16 into its own rows of the K and V tiles and one
+//   of its threads stores them with TMA, which clips rows past Sk and
+//   columns past the dims; K and V are freed once the stores have read
+//   them (stores from registers, 4 bytes a thread an instruction, took
+//   4-9% more device time).  Key rows past Sk (zeros from TMA) compute
+//   rows that are never stored, so the Sk edge needs no mask.  A
+//   warpgroup whose keys no query of a tile sees waits for the stage and
+//   frees it at once.
+// * dQ: a work tile is (128 queries, head, batch row), the last query
+//   block first (the most keys under a causal mask); 64 queries a
+//   consumer.  The producer loads Q and dO once a work tile (two buffers
+//   where they fit: every dim but 192 / 128), then the forward's key range
+//   as a ring of K and V tiles.  S = Q K^T and dP = dO V^T (SS), P and dS
+//   in registers (masks on edge tiles, the Sk edge included: a zero key
+//   row would give P = 2^(-lse log2 e)), dQ += dS K (A from registers, K
+//   read MN-major); dQ leaves through the consumer's own rows of the Q
+//   tile and a TMA store, as dK and dV do.
+//
+// The score tiles (S^T: queries a ring tile; S: keys a ring tile) are 128
+// wide where both padded dims are at most 64 (every training shape but
+// qwen2-moe's hd 128 and MLA's): an m64n64k16 product from shared memory
+// reads its 4 KB of operands in the 32 clocks its operations take, at
+// shared memory's 128 bytes a clock, while n128 reads 6 KB in 64; and a
+// tile's waits spread over twice the work (64-wide dK/dV tiles measured
+// 4-10% slower at the hd-64 training shapes, PERF.md).  At larger dims
+// they are 64 wide: a consumer's dK and dV (or dQ) accumulators leave no
+// room for 128-wide S and dP in 240 registers.
+//
+// The separate dQ kernel recomputes S and dP: 14 hd operations a kept pair
+// against the bound's 10, kept so that dQ needs no float32 atomics, whose
+// order would change between calls.  A deterministic single pass would
+// add each (key block, query tile)'s dQ partial into a float32 scratch in
+// key-block order: at hd 64 that is a read and a write of 64 x 128 x 4
+// bytes a pair of tiles, 2.1 GB at llama's shape against the scratch's 67
+// MB, which the 50 MB L2 cannot hold -- not built (PERF.md).
 //
 // P and dS are rounded to bf16 as the A operands of dV, dK and dQ (the
-// forward does the same to P); sums stay float32.  The CPU test
+// forward does the same to P); sums stay float32, in the order of the
+// design this one replaces (below), so a call gives that design's bits
+// but where a P falls below
+// 2^-126, which `ex2` (MUFU.EX2 with flush to zero) makes 0 (at every
+// training shape the bits were equal, `launch/flash_bwd_study.py`).  The
+// CPU test
 // `test_torch_flash_grad.py` emulates this rounding against the float32
 // gradient within the bf16 gates (norm 1e-2, max 3e-2 of max(1, |plain|)).
 //
 // Head dims 16, 32, 64, 80 and 128 (query-key dim = value dim), and MLA's
-// (192, 128).  The kernels take the query-key dim DK and the value dim DV
-// apart: Q, K (and dQ, dK) are laid out at DK's padded dim, V and dO (dV)
-// at DV's.  hd 80 is laid out at 128 as in the forward: S and dP take its
-// 5 k16 steps, the products over N = hd run at n128 on tiles whose columns
-// 80-127 are zeroed once, and only 80 columns are stored.  At hd 16 the N =
-// hd products are n16 and S, dP have one k16 step.
+// (192, 128).  Q, K (and dQ, dK) are laid out at DK's padded dim, V and dO
+// (dV) at DV's.  hd 80 is laid out at 128 as in the forward: its maps'
+// inner extent is 80, so the second 128-byte box fills columns 80-127 with
+// zeros; S and dP take its 5 k16 steps, the products over N = hd run at
+// n128 and only 80 columns are stored.  At hd 16 the N = hd products are
+// n16 and S, dP have one k16 step.  At (192, 128) Q and K are three
+// 128-byte panels (S^T and S take 12 k16 steps; dK and dQ run at n192): a
+// warpgroup holding a 64 x 192 float32 dK tile (96 floats a thread) beside
+// its 64 x 128 dV tile (64) and S^T, dP^T (32 each) would need 224
+// accumulator registers, so the dK/dV walk takes each key block twice:
+// work tile 2 j sums dV (S^T and P^T only, dV 64 floats; V is not loaded),
+// 2 j + 1 dK (96 floats), adjacent in the heaviest-first order.
 //
-// MLA's (192, 128) on `wgmma`.  Q and K at 192 are three 128-byte swizzled
-// panels, as in the forward (S^T and S take 12 k16 steps; dK and dQ run at
-// n192, `wgmma_rs_n192`); V and dO are laid out at 128.  A warpgroup that
-// held a 64 x 192 float32 dK tile (96 floats a thread) beside its 64 x 128
-// dV tile (64) and S^T, dP^T (32 each) would need 224 accumulator
-// registers before addresses, past the 255 a thread can have (the joint
-// kernel at hd 128 already uses 255).  Of the three splits -- three
-// warpgroups for 64 keys, two passes over the query tiles, dV and dK in
-// separate blocks -- this takes the third, inside one launch: the dK/dV
-// grid doubles, and block z sums dV (z even: S^T and P^T only, dV 64
-// floats) or dK (z odd: S^T, dP^T, dS^T, dK 96 floats) for key block z /
-// 2, so the heavy causal blocks of both kinds still launch first.  It
-// recomputes S^T once more than a joint block (a kept pair costs 2 x 192
-// more operations, 2 x (192 + 128) + 2 x 128 in the dV blocks and 2 x (192
-// + 128) + 2 x 192 in the dK blocks), needs no synchronisation between
-// warpgroups and no bf16 copy of P^T or dS^T in shared memory, and keeps
-// the equal-dim kernels' code.  The dQ kernel at 192 holds 96 dQ floats
-// beside S and dP: at 64-key tiles it spilled 152 bytes at 255 registers
-// (ptxas for sm_90a), so at DK = 192 it takes 32-key tiles (S and dP m64n32,
-// 16 floats each; `bkt`).
+// Registers: the launch holds 168 a thread (384 x 168); the producer
+// returns 144 of them (24 left), the consumers take them (240); ptxas
+// spills nothing in either kernel at any pair of dims (H100 build,
+// `chip_smoke.py`'s build phase).  A `__trap()` anywhere in these kernels
+// would make ptxas ignore `setmaxnreg` and hold every role to 168
+// (PERF.md), so the production build has none; a build with
+// -DREPRO_MBAR_WATCHDOG (its own library, the parity tests alone) traps
+// after a bounded mbarrier wait (`hopper.cuh`) and spills 16 bytes in the
+// dK/dV kernel.  A build with -DK1B_STAMPS (its own library,
+// `launch/flash_bwd_study.py --stamps`) sums each consumer's cycles by
+// phase.
 //
-// Shared memory: dK/dV 128 keys x (HK + HV) x 2 bytes of K and V plus two
-// stages of (Q, dO: 64 x HK and 64 x HV x 2 bytes; lse, D: 256 bytes each),
-// HK, HV the padded dims (130 KB at 128, 66 KB at 64, 162 KB at 192 / 128);
-// dQ 128 queries x (HK + HV) x 2 of Q and dO plus two stages of K and V
-// tiles (128 KB at 128; 32-key tiles at 192 / 128: 120 KB).  Registers a
-// thread (ptxas -v on the H100 build, `chip_smoke.py`'s build phase), hd 16
-// / 32 / 64 / 80 / 128 / (192, 128): dK/dV 134 / 152 / 194 / 254 / 255 /
-// 253, dQ 112 / 124 / 151 / 199 / 219 / 225; no spill stores but 48 bytes
-// in dK/dV at hd 128, which holds dK, dV (64 floats each), S^T and dP^T
-// (32 each).  `__launch_bounds__(256, 1)` lets each kernel take up to 255: one
-// block an SM, whose two warpgroups can overlap each other's products and
-// exponentials between their barriers.
-//
-// What bounds it: at the training shape (B = 2, S = 4096, H = 32, KH = 8,
-// hd 64, causal) 537 M kept pairs; the bound counts 6 dk + 4 dv operations
-// a pair at the tensor cores' bf16 rate (0.35 ms), far above its bytes
-// (0.05 ms).  The design does 14 hd a pair (at 192 / 128: 2 x 192 more for
-// the split, and dQ's 2 (192 + 128) + 2 x 192 again).  Left for later
-// (PERF.md): TMA copies with a producer warp and `setmaxnreg`, overlapping a
-// tile's exponentials with the next tile's products, a deterministic
-// single-pass dQ.
+// What bounds it: at llama3.2-1b's training shape (B = 2, S = 4096, H = 32,
+// KH = 8, hd 64, causal) 537 M kept pairs; the bound counts 6 dk + 4 dv
+// operations a pair at the tensor cores' bf16 rate (0.35 ms), far above
+// its bytes (0.05 ms), and so at every training shape.  The design does 14
+// hd a pair (at 192 / 128: 2 x 192 more for the split, and dQ's 2 (192 +
+// 128) + 2 x 192 again), and spends one EX2 a pair in each kernel, at 16 a
+// clock an SM against 4096 flops: at llama's shape 8192 EX2 against 2 M
+// flops a 64 x 128 consumer tile, 512 clocks of the special-function unit
+// beside 512 of the tensor cores.  The phase stamps there put a dK/dV
+// consumer's cycles in the exponentials (31-33%), in issuing products
+// behind the other consumer's (28-31%), in dS and its packing (13-14%)
+// and in waiting for ring tiles (8-10%); at MLA's (192, 128) a third of
+// them in issuing the S and dP products, n64 from shared memory at its
+// rate.  The design this one replaces filled a two-stage ring with each
+// thread's own 16-byte `cp.async`, waited on it behind a block barrier
+// before every tile, exponentiated with `exp2f` (four instructions an
+// entry) and masked inside the exponentials' loop; PERF.md has both
+// designs' device ms beside cuDNN's at each training shape.
 //
 // float32, `bwd_dkdv_kernel<DK, DV>` and `bwd_dq_kernel<DK, DV>`: the same
 // blocking at 64 keys / 64 queries with K, V (or Q, dO, lse, D) in shared
 // memory, P and dS through shared memory, each thread 4 rows x DK / 16
 // (and DV / 16) columns of the accumulators, on the CUDA cores, at every
-// pair of dims.  At (192, 128) a dK/dV block holds 4 x (12 + 8)
-// accumulators a thread and 199 KB of shared memory (K, V, Q, dO at 193 /
-// 129 floats a row, P and dS).
+// pair of dims; q, k, v and dO packed.  At (192, 128) a dK/dV block holds 4
+// x (12 + 8) accumulators a thread and 199 KB of shared memory (K, V, Q, dO
+// at 193 / 129 floats a row, P and dS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -137,7 +173,7 @@
 
 namespace {
 
-constexpr int NT = 256;         // threads a block, every kernel
+constexpr int NT = 256;         // threads a block, the D and float32 kernels
 constexpr int ROW_PAD = 128;    // bf16: lse log2(e) and D rows padded to this
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -155,6 +191,11 @@ struct Params {
   void* dv;
   int B, Sq, Sk, H, KH;
   int sq_ld;         // row stride of delta and lse2: Sq, or Sq padded (bf16)
+  // (batch, row, head) strides in elements, the head dim contiguous: D's
+  // kernel reads o and dout through them, the bf16 kernels' tensor maps q,
+  // k, v and dout; the float32 kernels take q, k, v and dout packed.
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
+  long long o_sb, o_ss, o_sh, d_sb, d_ss, d_sh;
   float scale;
   int causal;
   int window;
@@ -180,9 +221,10 @@ __global__ void __launch_bounds__(NT) bwd_delta_kernel(Params p) {
   const long long b = bi / p.sq_ld;
   float s = 0.f;
   if (i < p.Sq) {
-    const long long off = ((b * p.Sq + i) * p.H + h) * HD;
-    const T* o = static_cast<const T*>(p.o) + off;
-    const T* d = static_cast<const T*>(p.dout) + off;
+    const T* o = static_cast<const T*>(p.o) + b * p.o_sb + i * p.o_ss +
+                 h * p.o_sh;
+    const T* d = static_cast<const T*>(p.dout) + b * p.d_sb + i * p.d_ss +
+                 h * p.d_sh;
     for (int c = lane; c < HD; c += 32) s = fmaf(to_f(o[c]), to_f(d[c]), s);
 #pragma unroll
     for (int w = 16; w > 0; w >>= 1) s += __shfl_xor_sync(0xffffffffu, s, w);
@@ -558,165 +600,365 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace f32
 
-// ------------------------------------------------------ bf16, wgmma
-namespace wg {
+// ------------------------------------- bf16: TMA producer, wgmma consumers
+namespace ws {
 
 using namespace hopper;
 
-constexpr int BKV = 128;  // keys a dK/dV block: two warpgroups of 64
-constexpr int BQT = 64;   // queries a tile of the dK/dV block's ring
-constexpr int BQB = 128;  // queries a dQ block: two warpgroups of 64
-// Keys a tile of the dQ block's ring: 32 at a query-key dim of 192, where
-// the m64n192 dQ accumulator (96 floats a thread) beside S and dP at 64
-// keys (32 each) spilled at 255 registers.
-template <int DK>
-constexpr int bkt() { return DK > 128 ? 32 : 64; }
-constexpr int STAGES = 2;
-static_assert(ROW_PAD % BQB == 0 && ROW_PAD % BQT == 0, "row padding");
+constexpr int WS_NT = 384;  // warpgroup 0 loads, warpgroups 1 and 2 compute
+// setmaxnreg: 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536 registers
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int CONSUMER_WARPS = 8;  // arrivals that free a stage or a buffer
+constexpr int WG_BAR = 1;  // named barriers WG_BAR + c: consumer c alone
+constexpr int BKV = 128;  // keys of a dK/dV work tile: two warpgroups of 64
+constexpr int BQB = 128;  // queries of a dQ work tile: two warpgroups of 64
+constexpr int BOX = 64;   // rows of a TMA box, every map
+constexpr int SMEM_MAX = 232448;   // a block's shared memory on the H100
+constexpr int MAX_STAGES = 4;
+static_assert(ROW_PAD % BQB == 0, "row padding");
+
+// The width of the score tiles S^T (dK/dV: queries a ring tile) and S (dQ:
+// keys a ring tile): 128 where both padded dims are at most 64, so that
+// the S and dP products read their shared-memory operands at n128 (at n64
+// an m64n64k16 product's 4 KB of operands take the 32 clocks its
+// operations take at shared memory's 128 bytes a clock) and a tile's
+// waits are spread over twice the work; 64 at larger dims, whose dK, dV
+// or dQ accumulators leave no registers for 128-wide S and dP tiles.
+template <int HK, int HV>
+constexpr int score_cols() { return HK <= 64 && HV <= 64 ? 128 : 64; }
+
+// Phase stamps, for `launch/flash_bwd_study.py --stamps` only: built with
+// -DK1B_STAMPS, the first thread of each consumer warpgroup sums the SM
+// cycles it spends in each phase of its ring tiles and work tiles, and
+// adds them to g_k1b_stamp[kernel][warpgroup] at the end (kernel 0 dK/dV,
+// 1 dQ); `flash_attention_bwd_stamps` copies them out and clears them.
+// Without it STAMP is empty.
+#ifdef K1B_STAMPS
+constexpr int STAMP_PHASES = 11;
+__device__ unsigned long long g_k1b_stamp[2][2][STAMP_PHASES + 1];
+#define STAMP(k)                 \
+  do {                           \
+    const unsigned t_ = clock(); \
+    stamp[k] += t_ - t_stamp;    \
+    t_stamp = t_;                \
+  } while (0)
+#define STAMP_TILE() ++stamp[STAMP_PHASES]
+#define STAMP_DECL , unsigned *stamp, unsigned &t_stamp
+#define STAMP_ARGS , stamp, t_stamp
+__device__ __forceinline__ void stamp_flush(int kernel, int c, int ctid,
+                                            const unsigned* stamp) {
+  if (ctid % 128 == 0)
+    for (int k = 0; k <= STAMP_PHASES; ++k)
+      atomicAdd(&g_k1b_stamp[kernel][c][k],
+                static_cast<unsigned long long>(stamp[k]));
+}
+#else
+#define STAMP(k) \
+  do {           \
+  } while (0)
+#define STAMP_TILE() \
+  do {               \
+  } while (0)
+#define STAMP_DECL
+#define STAMP_ARGS
+#endif
 
 constexpr int round1k(int x) { return (x + 1023) / 1024 * 1024; }
+constexpr int min_i(int a, int b) { return a < b ? a : b; }
 
-// Shared memory of the dK/dV kernel, bytes: K (BKV rows at the padded
-// query-key dim HK) and V (at the padded value dim HV), then the ring's
-// stages of (Q tile, dO tile, lse log2 e, D), each tile on 1024 bytes.
+// The dK/dV kernel at (DK, DV): K and V of a work tile (BKV rows at the
+// padded dims HK, HV), then the ring's stages of (Q tile, dO tile, lse
+// log2 e and D rows), each stage on 1024 bytes, then the mbarriers.
 template <int DK, int DV>
-struct DkdvSmem {
+struct KvCfg {
   static constexpr int HK = padded_hd(DK), HV = padded_hd(DV);
-  static constexpr int K = BKV * HK * 2;
-  static constexpr int V = BKV * HV * 2;
+  static_assert(HK == DK || HK == 128, "only 80 is padded, to 128");
+  using LK = Layout<HK>;
+  using LV = Layout<HV>;
+  static constexpr int PARTS = DK == DV ? 1 : 2;  // MLA: dV and dK apart
+  static constexpr int BQT = score_cols<HK, HV>();  // queries a ring tile
+  static_assert(ROW_PAD % BQT == 0 && BQT % BOX == 0, "tiles and rows");
+  static constexpr int K_BYTES = BKV * HK * 2;
+  static constexpr int V_BYTES = BKV * HV * 2;
   static constexpr int QT = BQT * HK * 2;
   static constexpr int OT = BQT * HV * 2;
-  static constexpr int ROWS = QT + OT;  // lse log2 e, then D, BQT floats each
-  static constexpr int STAGE = round1k(QT + OT + 2 * BQT * 4);
-  static constexpr int BYTES = K + V + STAGES * STAGE;
+  static constexpr int ROW_BYTES = BQT * 4;  // lse log2 e; D after it
+  static constexpr int STAGE = round1k(QT + OT + 2 * ROW_BYTES);
+  static constexpr int STAGES = min_i(
+      (SMEM_MAX - 1024 - K_BYTES - V_BYTES - 16 * (MAX_STAGES + 1)) / STAGE,
+      MAX_STAGES);
+  static_assert(STAGES >= 2, "the ring needs two stages");
+  static constexpr int SMEM =
+      1024 + K_BYTES + V_BYTES + STAGES * STAGE + 16 * (STAGES + 1);
+  static constexpr int KPANELS = HK * 2 / LK::W;
+  static constexpr int VPANELS = HV * 2 / LV::W;
 };
 
-// Shared memory of the dQ kernel, bytes: Q and dO (BQB rows each), then the
-// ring's stages of (K tile, V tile).
+template <class C>
+struct KvSmem {
+  uint32_t k, ring, bar;  // shared addresses: K (V after it), stages, bars
+  __device__ uint32_t v() const { return k + C::K_BYTES; }
+  __device__ uint32_t q(int s) const { return ring + s * C::STAGE; }
+  __device__ uint32_t o(int s) const { return q(s) + C::QT; }
+  __device__ uint32_t rows(int s) const { return o(s) + C::OT; }
+  __device__ uint32_t full(int s) const { return bar + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bar + 8 * (C::STAGES + s); }
+  __device__ uint32_t kv_full() const { return bar + 16 * C::STAGES; }
+  __device__ uint32_t kv_empty() const { return bar + 16 * C::STAGES + 8; }
+};
+
+// The dQ kernel at (DK, DV): Q and dO of a work tile (BQB rows; two buffers
+// where two fit beside two stages), then the ring of (K tile, V tile)
+// stages, then the mbarriers.
 template <int DK, int DV>
-struct DqSmem {
+struct QCfg {
   static constexpr int HK = padded_hd(DK), HV = padded_hd(DV);
-  static constexpr int BKT = bkt<DK>();
-  static constexpr int Q = BQB * HK * 2;
-  static constexpr int O = BQB * HV * 2;
+  using LK = Layout<HK>;
+  using LV = Layout<HV>;
+  static constexpr int BKT = score_cols<HK, HV>();  // keys a ring tile
+  static_assert(BKT % BOX == 0, "whole boxes");
+  static constexpr int Q_BYTES = BQB * HK * 2;
+  static constexpr int QO = Q_BYTES + BQB * HV * 2;
   static constexpr int KT = BKT * HK * 2;
   static constexpr int STAGE = KT + BKT * HV * 2;
-  static constexpr int BYTES = Q + O + STAGES * STAGE;
+  static constexpr int Q_BUFS =
+      1024 + 2 * QO + 2 * STAGE + 16 * (MAX_STAGES + 2) <= SMEM_MAX ? 2 : 1;
+  static constexpr int STAGES = min_i(
+      (SMEM_MAX - 1024 - Q_BUFS * QO - 16 * (MAX_STAGES + Q_BUFS)) / STAGE,
+      MAX_STAGES);
+  static_assert(STAGES >= 2, "the ring needs two stages");
+  static constexpr int SMEM =
+      1024 + Q_BUFS * QO + STAGES * STAGE + 16 * (STAGES + Q_BUFS);
+  static constexpr int KPANELS = HK * 2 / LK::W;
+  static constexpr int VPANELS = HV * 2 / LV::W;
 };
 
-// Stores rows r and r + 8 of a warpgroup's m64nN float32 accumulator (N =
-// the padded hd), times `mul`, as bf16 into rows of a (rows x HD) matrix
-// with row stride ld; only the first HD columns, and only rows below nrows.
-template <int HD, int N>
-__device__ __forceinline__ void store_rows(bf16* dst, long long ld,
-                                           const float (&acc)[N / 2], int r,
-                                           int nrows, int cq, float mul) {
+template <class C>
+struct QSmem {
+  uint32_t q0, ring, bar;
+  __device__ uint32_t q(int i) const { return q0 + i * C::QO; }
+  __device__ uint32_t o(int i) const { return q(i) + C::Q_BYTES; }
+  __device__ uint32_t k(int s) const { return ring + s * C::STAGE; }
+  __device__ uint32_t v(int s) const { return k(s) + C::KT; }
+  __device__ uint32_t full(int s) const { return bar + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bar + 8 * (C::STAGES + s); }
+  __device__ uint32_t q_full(int i) const {
+    return bar + 16 * C::STAGES + 8 * i;
+  }
+  __device__ uint32_t q_empty(int i) const {
+    return bar + 16 * C::STAGES + 8 * (C::Q_BUFS + i);
+  }
+};
+
+// The k-th work tile of block i of the grid's G: a snake over the order
+// (block i takes position i of even rounds and G - 1 - i of odd ones), so
+// that the blocks' shares of heavy and light tiles even out.
+__device__ __forceinline__ int walk_at(int i, int k) {
+  const int G = gridDim.x;
+  return k * G + ((k & 1) ? G - 1 - i : i);
+}
+
+// A dK/dV work tile: keys [k0, k0 + BKV) of KV head kh, batch row b, the
+// part (MLA: 0 sums dV, 1 dK), and its n = G n_it query tiles: tile j is
+// query head kh G + j / n_it's rows i_begin + (j % n_it) BQT.
+struct KvWork {
+  int k0, kh, b, part, i_begin, n_it, n;
+};
+
+template <int PARTS, int BQT>
+__device__ __forceinline__ KvWork kv_work(int t, const Params& p) {
+  KvWork w;
+  const int per = p.KH * p.B * PARTS;
+  int r = t % per;
+  w.k0 = t / per * BKV;
+  w.part = r % PARTS;
+  r /= PARTS;
+  w.kh = r % p.KH;
+  w.b = r / p.KH;
+  // Query rows that can see a key of [k0, k_last]: [i_begin, i_end).
+  const int offs = p.causal ? p.Sk - p.Sq : 0;
+  const int k_last = min(w.k0 + BKV, p.Sk) - 1;
+  int i_begin = 0, i_end = p.Sq;
+  if (p.causal) i_begin = max(0, w.k0 - offs);
+  if (p.window > 0) i_end = min(i_end, k_last + p.window - offs);
+  w.i_begin = (i_begin / BQT) * BQT;
+  w.n_it = i_end > w.i_begin ? (i_end - w.i_begin + BQT - 1) / BQT : 0;
+  w.n = (p.H / p.KH) * w.n_it;
+  return w;
+}
+
+// A dQ work tile: queries [q0, q0 + BQB) of head h, batch row b, the last
+// query block first, heads and batch rows inner; the n key tiles of BKT
+// from k_begin that any of its rows can see, as the forward walks them.
+struct QWork {
+  int q0, h, b, k_begin, n;
+};
+
+template <int BKT>
+__device__ __forceinline__ QWork q_work(int t, const Params& p) {
+  QWork w;
+  const int hb = p.H * p.B;
+  const int n_qb = (p.Sq + BQB - 1) / BQB;
+  w.q0 = (n_qb - 1 - t / hb) * BQB;
+  w.h = t % hb % p.H;
+  w.b = t % hb / p.H;
+  const int offs = p.causal ? p.Sk - p.Sq : 0;
+  const int q_last = min(w.q0 + BQB, p.Sq) - 1;
+  int k_begin = 0, k_end = p.Sk;
+  if (p.causal) k_end = min(k_end, q_last + offs + 1);
+  if (p.window > 0) k_begin = max(0, w.q0 + offs - p.window + 1);
+  w.k_begin = (k_begin / BKT) * BKT;
+  w.n = k_end > w.k_begin ? (k_end - w.k_begin + BKT - 1) / BKT : 0;
+  return w;
+}
+
+// 2^x on the special-function unit (one MUFU.EX2; 0 for -inf, and for
+// results below 2^-126).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Frees a stage or a buffer: one arrival a consumer warp, after the warp's
+// wgmma reading it has completed.
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// Zeros this thread's part of rows r and r + 8 (columns 8 j + cq and
+// 8 j + cq + 1 of each 8) of a (rows x HD) bf16 matrix with row stride ld,
+// rows below nrows: the gradient of rows that no key or query reaches.
+template <int HD>
+__device__ __forceinline__ void zero_rows(bf16* dst, long long ld, int r,
+                                          int nrows, int cq) {
+  const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
 #pragma unroll
   for (int jn = 0; jn < HD / 8; ++jn) {
     const int col = 8 * jn + cq;
-    if (r < nrows)
-      *reinterpret_cast<__nv_bfloat162*>(dst + r * ld + col) =
-          __floats2bfloat162_rn(acc[4 * jn] * mul, acc[4 * jn + 1] * mul);
+    if (r < nrows) *reinterpret_cast<__nv_bfloat162*>(dst + r * ld + col) = z;
     if (r + 8 < nrows)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * ld + col) =
-          __floats2bfloat162_rn(acc[4 * jn + 2] * mul,
-                                acc[4 * jn + 3] * mul);
+      *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * ld + col) = z;
   }
 }
 
-// One dK/dV block's keys [k0, k0 + 128): DO_DV / DO_DK choose the
-// gradients it sums (both at equal dims; one each in MLA's split).  The
-// parameters come by value: taken by reference, the hd-64 kernel used 213
-// registers instead of 194 and its dK/dV took 1.16 device ms instead of
-// 0.87-0.91 at llama's training shape (`chip_smoke.py`, H100 80GB HBM3 at
-// 700 W), with the same bits.
-template <int DK, int DV, bool DO_DV, bool DO_DK>
-__device__ __forceinline__ void dkdv_block(Params p, int k0) {
-  extern __shared__ __align__(1024) unsigned char smem[];
-  using SM = DkdvSmem<DK, DV>;
-  constexpr int HK = SM::HK, HV = SM::HV;
-  using LK = Layout<HK>;
-  using LV = Layout<HV>;
-  const uint32_t s0 = smem_addr(smem);
-  const uint32_t sk = s0, sv = s0 + SM::K;
-  const uint32_t ring = sv + SM::V;  // stage s at ring + s STAGE
-
-  const int tid = threadIdx.x;
-  const int wgi = tid / 128;  // warpgroup: keys 64 wgi ... of the block
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = p.H / p.KH;
-  const int offs = p.causal ? p.Sk - p.Sq : 0;
-  const long long qld = static_cast<long long>(p.H) * DK;
-  const long long old = static_cast<long long>(p.H) * DV;
-  const long long kld = static_cast<long long>(p.KH) * DK;
-  const long long vld = static_cast<long long>(p.KH) * DV;
-  const long long koff = static_cast<long long>(b) * p.Sk * kld + kh * DK;
-  const long long voff = static_cast<long long>(b) * p.Sk * vld + kh * DV;
-  const bf16* q = static_cast<const bf16*>(p.q);
-  const bf16* dout = static_cast<const bf16*>(p.dout);
-
-  // Query rows that can see a key of [k0, k_last]: [i_begin, i_end), in
-  // n_it tiles a head; tile t of the walk is head t / n_it's tile t % n_it.
-  const int k_last = min(k0 + BKV, p.Sk) - 1;
-  int i_begin = 0, i_end = p.Sq;
-  if (p.causal) i_begin = max(0, k0 - offs);
-  if (p.window > 0) i_end = min(i_end, k_last + p.window - offs);
-  i_begin = (i_begin / BQT) * BQT;
-  const int n_it = i_end > i_begin ? (i_end - i_begin + BQT - 1) / BQT : 0;
-  const int n_tiles = G * n_it;
-
-  // Q, dO, lse log2 e and D of tile t into stage st.
-  auto load_stage = [&](int t, int st) {
-    const int h = kh * G + t / n_it;
-    const int i0 = i_begin + (t % n_it) * BQT;
-    const long long bq = static_cast<long long>(b) * p.Sq;
-    const uint32_t base = ring + st * SM::STAGE;
-    load_tile<BQT, DK, HK, NT>(base, q + bq * qld + h * DK, qld, i0, p.Sq,
-                               tid);
-    load_tile<BQT, DV, HV, NT>(base + SM::QT, dout + bq * old + h * DV, old,
-                               i0, p.Sq, tid);
-    if (tid < 2 * BQT / 4) {  // 16 chunks of 4 floats each
-      const long long roff = (static_cast<long long>(b) * p.H + h) * p.sq_ld +
-                             i0 + (tid % (BQT / 4)) * 4;
-      const bool is_d = tid >= BQT / 4;
-      cp_async16(base + SM::ROWS + is_d * BQT * 4 + (tid % (BQT / 4)) * 16,
-                 (is_d ? p.delta : p.lse2) + roff, true);
-    }
-  };
-
-  // A padded hd: the N = HK / HV products read the Q and dO tiles' columns
-  // past DK / DV, zeroed here once (the copies never write them); the
-  // first iteration's proxy fence and barrier order these stores before
-  // any wgmma reads them.  S^T and dP^T take DK / 16 and DV / 16 k16 steps
-  // only.
+// Rows row0 + r and row0 + r + 8 (r = 16 warp + lane / 4) of a tile of R
+// rows laid out at the padded hd HP in shared memory at `tile` (the
+// operand layout `Layout<HP>`), from a warpgroup's m64nHP float32
+// accumulator times `mul`, as bf16: the rows a consumer then stores with
+// TMA.
+template <int HP, int R>
+__device__ __forceinline__ void acc_to_tile(uint32_t tile,
+                                            const float (&acc)[HP / 2],
+                                            int row0, int warp, int lane,
+                                            float mul) {
+  const int r = row0 + warp * 16 + lane / 4;
+  const uint32_t at = tile + 4 * (lane % 4);
 #pragma unroll
-  for (int st = 0; st < STAGES; ++st) {
-    zero_pad_cols<BQT, DK, HK, NT>(smem, ring - s0 + st * SM::STAGE, tid);
-    zero_pad_cols<BQT, DV, HV, NT>(smem, ring - s0 + st * SM::STAGE + SM::QT,
-                                   tid);
+  for (int jn = 0; jn < HP / 8; ++jn) {
+    st_shared_u32(at + Layout<HP>::template offset<R>(r, jn),
+                  pack_bf16(acc[4 * jn] * mul, acc[4 * jn + 1] * mul));
+    st_shared_u32(at + Layout<HP>::template offset<R>(r + 8, jn),
+                  pack_bf16(acc[4 * jn + 2] * mul, acc[4 * jn + 3] * mul));
   }
-  // Copy group 0 holds K, V and tile 0; group t tile t.  A dV-only block
-  // reads no V.
-  load_tile<BKV, DK, HK, NT>(sk, static_cast<const bf16*>(p.k) + koff, kld,
-                             k0, p.Sk, tid);
-  if (DO_DK)
-    load_tile<BKV, DV, HV, NT>(sv, static_cast<const bf16*>(p.v) + voff, vld,
-                               k0, p.Sk, tid);
-  if (n_tiles > 0) load_stage(0, 0);
-  cp_async_commit();
+}
 
-  // This warpgroup's keys [kw0, kw0 + 64); this thread's two are kA and
-  // kA + 8, its query columns 8 j + cq and 8 j + cq + 1 of each 8.
-  const int kw0 = k0 + wgi * 64;
+// ------------------------------------------------------------------ dK/dV
+
+// The producer of the dK/dV kernel: one thread.  Per work tile with query
+// tiles, K (and V, unless it sums dV alone) once the consumers have freed
+// the previous work tile's, then each tile's Q, dO, lse log2 e and D into
+// the next ring stage once both consumers have freed it.
+template <int DK, int DV>
+__device__ __forceinline__ void dkdv_produce(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const Params& p, const KvSmem<KvCfg<DK, DV>>& sm,
+    int n_work) {
+  using C = KvCfg<DK, DV>;
+  using LK = typename C::LK;
+  using LV = typename C::LV;
+  tma_prefetch_desc(&tq);
+  tma_prefetch_desc(&tk);
+  tma_prefetch_desc(&tv);
+  tma_prefetch_desc(&tdo);
+  const int group = p.H / p.KH;
+  int s = 0;
+  uint32_t ph = 0, kvph = 0;
+  for (int k = 0;; ++k) {
+    const int t = walk_at(blockIdx.x, k);
+    if (t >= n_work) break;
+    const KvWork w = kv_work<C::PARTS, C::BQT>(t, p);
+    if (w.n == 0) continue;
+    const bool with_v = C::PARTS == 1 || w.part == 1;
+    mbar_wait(sm.kv_empty(), kvph ^ 1);
+    kvph ^= 1;
+    mbar_expect_tx(sm.kv_full(), C::K_BYTES + (with_v ? C::V_BYTES : 0));
+#pragma unroll
+    for (int pn = 0; pn < C::KPANELS; ++pn)
+#pragma unroll
+      for (int r = 0; r < BKV / BOX; ++r)
+        tma_load_4d(sm.k + (pn * BKV + r * BOX) * LK::W, &tk, sm.kv_full(),
+                    pn * LK::W / 2, w.kh, w.k0 + r * BOX, w.b);
+    if (with_v) {
+#pragma unroll
+      for (int pn = 0; pn < C::VPANELS; ++pn)
+#pragma unroll
+        for (int r = 0; r < BKV / BOX; ++r)
+          tma_load_4d(sm.v() + (pn * BKV + r * BOX) * LV::W, &tv,
+                      sm.kv_full(), pn * LV::W / 2, w.kh, w.k0 + r * BOX,
+                      w.b);
+    }
+    for (int j = 0; j < w.n; ++j) {
+      const int h = w.kh * group + j / w.n_it;
+      const int i0 = w.i_begin + (j % w.n_it) * C::BQT;
+      mbar_wait(sm.empty(s), ph ^ 1);
+      mbar_expect_tx(sm.full(s), C::QT + C::OT + 2 * C::ROW_BYTES);
+#pragma unroll
+      for (int pn = 0; pn < C::KPANELS; ++pn)
+#pragma unroll
+        for (int r = 0; r < C::BQT / BOX; ++r)
+          tma_load_4d(sm.q(s) + (pn * C::BQT + r * BOX) * LK::W, &tq,
+                      sm.full(s), pn * LK::W / 2, h, i0 + r * BOX, w.b);
+#pragma unroll
+      for (int pn = 0; pn < C::VPANELS; ++pn)
+#pragma unroll
+        for (int r = 0; r < C::BQT / BOX; ++r)
+          tma_load_4d(sm.o(s) + (pn * C::BQT + r * BOX) * LV::W, &tdo,
+                      sm.full(s), pn * LV::W / 2, h, i0 + r * BOX, w.b);
+      const long long roff =
+          (static_cast<long long>(w.b) * p.H + h) * p.sq_ld + i0;
+      bulk_load(sm.rows(s), p.lse2 + roff, C::ROW_BYTES, sm.full(s));
+      bulk_load(sm.rows(s) + C::ROW_BYTES, p.delta + roff, C::ROW_BYTES,
+                sm.full(s));
+      advance<C::STAGES>(s, ph);
+    }
+  }
+}
+
+// One consumer warpgroup c's share of a dK/dV work tile: keys [kw0, kw0 +
+// 64) of the block; this thread's two are kA and kA + 8, its query columns
+// 8 j + cq and 8 j + cq + 1 of each 8.  DO_DV / DO_DK choose the gradients
+// it sums (both at equal dims; one each in MLA's split).
+template <int DK, int DV, bool DO_DV, bool DO_DK>
+__device__ __forceinline__ void dkdv_item(const CUtensorMap& tdk,
+                                          const CUtensorMap& tdv,
+                                          const Params& p,
+                                          const KvSmem<KvCfg<DK, DV>>& sm,
+                                          int t, int c, int warp, int lane,
+                                          int& s, uint32_t& ph,
+                                          uint32_t& kvph STAMP_DECL) {
+  using C = KvCfg<DK, DV>;
+  const KvWork w = kv_work<C::PARTS, C::BQT>(t, p);
+  using LK = typename C::LK;
+  using LV = typename C::LV;
+  constexpr int HK = C::HK, HV = C::HV, BQT = C::BQT;
+  const int offs = p.causal ? p.Sk - p.Sq : 0;
+  const int kw0 = w.k0 + c * 64;
   const int kw_last = min(kw0 + 63, p.Sk - 1);
   const int kA = kw0 + warp * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
   const float sl2 = p.scale * LOG2E;
-  const uint32_t ka = sk + wgi * 64 * LK::W;  // its 64 rows of K and V
-  const uint32_t va = sv + wgi * 64 * LV::W;
 
   float dk[DO_DK ? HK / 2 : 1], dv[DO_DV ? HV / 2 : 1];
 #pragma unroll
@@ -724,323 +966,619 @@ __device__ __forceinline__ void dkdv_block(Params p, int k0) {
 #pragma unroll
   for (int i = 0; i < (DO_DV ? HV / 2 : 1); ++i) dv[i] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    // Tile t has landed (and K, V), and every thread is done with tile
-    // t - 1, whose stage the copy of tile t + 1 reuses.
-    cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();
-    if (t + 1 < n_tiles) load_stage(t + 1, (t + 1) % STAGES);
-    cp_async_commit();
+  STAMP(10);  // work tile set-up, the last one's epilogue
+  if (w.n > 0) {
+    mbar_wait(sm.kv_full(), kvph);
+    kvph ^= 1;
+    STAMP(0);  // K, V landed
+    for (int j = 0; j < w.n; ++j) {
+      const int i0 = w.i_begin + (j % w.n_it) * BQT;
+      mbar_wait(sm.full(s), ph);
+      STAMP(1);  // ring tile landed
+      STAMP_TILE();
+      bool live = kw0 < p.Sk;
+      if (p.causal) live = live && kw0 <= i0 + BQT - 1 + offs;
+      if (p.window > 0) live = live && kw_last > i0 + offs - p.window;
+      if (live) {
+        const uint32_t sq = opaque(sm.q(s)), sdo = opaque(sm.o(s));
+        const uint32_t ka = opaque(sm.k + c * 64 * LK::W);
+        const uint32_t va = opaque(sm.v() + c * 64 * LV::W);
+        const uint32_t rl = sm.rows(s), rd = rl + C::ROW_BYTES;
 
-    const int i0 = i_begin + (t % n_it) * BQT;
-    bool live = kw0 < p.Sk;
-    if (p.causal) live = live && kw0 <= i0 + BQT - 1 + offs;
-    if (p.window > 0) live = live && kw_last > i0 + offs - p.window;
-    if (!live) continue;
-    const uint32_t sq = ring + (t % STAGES) * SM::STAGE;
-    const uint32_t sdo = sq + SM::QT;
-    const float* rl = reinterpret_cast<const float*>(smem + (sq - s0) +
-                                                     SM::ROWS);
-    const float* rd = rl + BQT;
+        // S^T = K Q^T and dP^T = V dO^T, two groups: S^T is ready first.
+        float sc[BQT / 2], dp[BQT / 2];
+        fence_regs(sc);
+        if constexpr (DO_DK) fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DK / 16; ++kk)
+          wgmma_ss<BQT>(sc, LK::template kmajor<BKV>(ka, kk),
+                        LK::template kmajor<BQT>(sq, kk), kk > 0);
+        wgmma_commit();
+        if constexpr (DO_DK) {
+#pragma unroll
+          for (int kk = 0; kk < DV / 16; ++kk)
+            wgmma_ss<BQT>(dp, LV::template kmajor<BKV>(va, kk),
+                          LV::template kmajor<BQT>(sdo, kk), kk > 0);
+          wgmma_commit();
+          STAMP(2);  // issue S^T, dP^T
+          wgmma_wait<1>();
+        } else {
+          STAMP(2);
+          wgmma_wait<0>();
+        }
+        fence_regs(sc);
+        STAMP(3);  // S^T landed
 
-    // S^T = K Q^T and dP^T = V dO^T, two groups: S^T is ready first.
-    float s[32], dp[32];
-    fence_regs(s);
-    if (DO_DK) fence_regs(dp);
-    wgmma_fence();
+        // P^T = 2^(S^T scale log2 e - lse log2 e): entry i is key row kA +
+        // 8 ((i >> 1) & 1), query column 8 (i / 4) + cq + (i & 1); the two
+        // columns of a pair read one float2 of the tile's rows.
 #pragma unroll
-    for (int kk = 0; kk < DK / 16; ++kk)
-      wgmma_ss_n64(s, LK::template kmajor<BKV>(ka, kk),
-                   LK::template kmajor<BQT>(sq, kk), kk > 0);
-    wgmma_commit();
-    if constexpr (DO_DK) {
+        for (int j = 0; j < BQT / 8; ++j) {
+          const float2 l = ld_shared_f2(rl + 4 * (8 * j + cq));
 #pragma unroll
-      for (int kk = 0; kk < DV / 16; ++kk)
-        wgmma_ss_n64(dp, LV::template kmajor<BKV>(va, kk),
-                     LV::template kmajor<BQT>(sdo, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();
-    } else {
-      wgmma_wait<0>();
-    }
-    fence_regs(s);
+          for (int i = 4 * j; i < 4 * j + 4; ++i)
+            sc[i] = ex2(fmaf(sc[i], sl2, (i & 1) ? -l.y : -l.x));
+        }
+        // Masks only on tiles that cross the causal or window edge: row r
+        // keeps the columns 8 (i / 4) + (i & 1) in [lo_r, hi_r), the query
+        // limits relative to this thread's first column i0 + cq.
+        if ((p.causal && kw0 + 63 > i0 + offs) ||
+            (p.window > 0 && kw0 <= i0 + BQT - 1 + offs - p.window)) {
+          int lo[2], hi[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int base = kA + 8 * r - i0 - offs - cq;  // kpos = qpos
+            lo[r] = p.causal ? base : -BQT;
+            hi[r] = p.window > 0 ? base + p.window : BQT;
+          }
+#pragma unroll
+          for (int i = 0; i < BQT / 2; ++i) {
+            const int col = 8 * (i / 4) + (i & 1), r = (i >> 1) & 1;
+            sc[i] = col >= lo[r] && col < hi[r] ? sc[i] : 0.f;
+          }
+        }
+        STAMP(4);  // P^T
 
-    // P^T, masked only on tiles that cross the causal or window edge.
-    const bool edge = (p.causal && kw0 + 63 > i0 + offs) ||
-                      (p.window > 0 && kw0 <= i0 + BQT - 1 + offs - p.window);
+        if constexpr (DO_DK) {
+          wgmma_wait<0>();
+          fence_regs(dp);
+          STAMP(5);  // dP^T landed
+        }
+
+        // dS^T = P^T o (dP^T - D), and P^T and dS^T packed to bf16 as the A
+        // fragments of dV += P^T dO and dK += dS^T Q, one k16 slice (8
+        // entries) at a time, so that the float registers of a slice free
+        // as its fragments fill (acc_to_a's layout).
+        uint32_t pa[BQT / 16][4], da[BQT / 16][4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int c = 8 * (i / 4) + cq + (i & 1);
-      float pv = exp2f(fmaf(s[i], sl2, -rl[c]));
-      if (edge) {
-        const int kpos = kA + ((i & 2) ? 8 : 0);
-        const int qpos = i0 + c + offs;
-        bool ok = true;
-        if (p.causal) ok = kpos <= qpos;
-        if (p.window > 0) ok = ok && kpos > qpos - p.window;
-        pv = ok ? pv : 0.f;
+        for (int kk = 0; kk < BQT / 16; ++kk) {
+          if constexpr (DO_DK) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 d = ld_shared_f2(rd + 4 * (16 * kk + 8 * h + cq));
+#pragma unroll
+              for (int i = 8 * kk + 4 * h; i < 8 * kk + 4 * h + 4; ++i)
+                dp[i] = sc[i] * (dp[i] - ((i & 1) ? d.y : d.x));
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if constexpr (DO_DV)
+              pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+            if constexpr (DO_DK)
+              da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+          }
+        }
+        if constexpr (DO_DV) {
+          fence_regs(dv);
+          fence_regs(pa);
+        }
+        if constexpr (DO_DK) {
+          fence_regs(dk);
+          fence_regs(da);
+        }
+        STAMP(6);  // dS^T, packing
+        wgmma_fence();
+        if constexpr (DO_DV) {
+#pragma unroll
+          for (int kk = 0; kk < BQT / 16; ++kk)
+            wgmma_rs<HV>(dv, pa[kk], LV::template mnmajor<BQT>(sdo, kk));
+        }
+        if constexpr (DO_DK) {
+#pragma unroll
+          for (int kk = 0; kk < BQT / 16; ++kk)
+            wgmma_rs<HK>(dk, da[kk], LK::template mnmajor<BQT>(sq, kk));
+        }
+        wgmma_commit();
+        STAMP(7);  // issue dV, dK
+        wgmma_wait<0>();
+        if constexpr (DO_DV) {
+          fence_regs(dv);
+          fence_regs(pa);
+        }
+        if constexpr (DO_DK) {
+          fence_regs(dk);
+          fence_regs(da);
+        }
+        STAMP(8);  // dV, dK landed
       }
-      s[i] = pv;
-    }
-
-    if constexpr (DO_DK) {
-      wgmma_wait<0>();
-      fence_regs(dp);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int c = 8 * (i / 4) + cq + (i & 1);
-        dp[i] = s[i] * (dp[i] - rd[c]);
-      }
-    }
-
-    // dV += P^T dO, dK += dS^T Q: A from registers, B MN-major.
-    uint32_t pa[BQT / 16][4], da[BQT / 16][4];
-    if constexpr (DO_DV) acc_to_a(pa, s);
-    if constexpr (DO_DK) acc_to_a(da, dp);
-    if constexpr (DO_DV) fence_regs(dv);
-    if constexpr (DO_DK) fence_regs(dk);
-    if constexpr (DO_DV) fence_regs(pa);
-    if constexpr (DO_DK) fence_regs(da);
-    wgmma_fence();
-    if constexpr (DO_DV) {
-#pragma unroll
-      for (int kk = 0; kk < BQT / 16; ++kk)
-        wgmma_rs<HV>(dv, pa[kk], LV::template mnmajor<BQT>(sdo, kk));
-    }
-    if constexpr (DO_DK) {
-#pragma unroll
-      for (int kk = 0; kk < BQT / 16; ++kk)
-        wgmma_rs<HK>(dk, da[kk], LK::template mnmajor<BQT>(sq, kk));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    if constexpr (DO_DV) {
-      fence_regs(dv);
-      fence_regs(pa);
-    }
-    if constexpr (DO_DK) {
-      fence_regs(dk);
-      fence_regs(da);
+      release(sm.empty(s), lane);
+      advance<C::STAGES>(s, ph);
+      STAMP(9);  // release; tiles this warpgroup skips
     }
   }
-  cp_async_wait<0>();
 
-  if constexpr (DO_DK)
-    store_rows<DK, HK>(static_cast<bf16*>(p.dk) + koff, kld, dk, kA, p.Sk, cq,
-                       p.scale);
-  if constexpr (DO_DV)
-    store_rows<DV, HV>(static_cast<bf16*>(p.dv) + voff, vld, dv, kA, p.Sk, cq,
-                       1.f);
-}
-
-// Grid (KH, B, key blocks) at equal dims: block z holds keys [128 z, 128 z
-// + 128).  MLA's (192, 128), grid (KH, B, 2 x key blocks): block z holds
-// key block z / 2, and sums dV (z even) or dK (z odd) -- the split that
-// keeps a thread's accumulators within its registers (design notes above).
-template <int DK, int DV>
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_wgmma_kernel(Params p) {
-  if constexpr (DK == DV) {
-    dkdv_block<DK, DV, true, true>(p, blockIdx.z * BKV);
+  // The work tile's KV head and batch row, taken again from t (through
+  // `opaque`, so that they are not held in registers over the tile loop:
+  // at hd 64 that register spilled).
+  const KvWork e = kv_work<C::PARTS, BQT>(
+      static_cast<int>(opaque(static_cast<uint32_t>(t))), p);
+  if (w.n > 0) {
+    // dK (scaled) and dV into this warpgroup's own rows of the K and V
+    // tiles (its products are done with them; the other's read only its
+    // own), then one TMA store a panel, which clips rows past Sk and
+    // columns past the dims; K and V are freed once the stores have read
+    // them.
+    if constexpr (DO_DK)
+      acc_to_tile<HK, BKV>(sm.k, dk, c * 64, warp, lane, p.scale);
+    if constexpr (DO_DV)
+      acc_to_tile<HV, BKV>(sm.v(), dv, c * 64, warp, lane, 1.f);
+    fence_async_smem();
+    bar_sync(WG_BAR + c, 128);
+    if (warp == 0 && lane == 0) {
+      if constexpr (DO_DK) {
+#pragma unroll
+        for (int pn = 0; pn < C::KPANELS; ++pn)
+          tma_store_4d(&tdk, sm.k + (pn * BKV + c * 64) * LK::W,
+                       pn * LK::W / 2, e.kh, kw0, e.b);
+      }
+      if constexpr (DO_DV) {
+#pragma unroll
+        for (int pn = 0; pn < C::VPANELS; ++pn)
+          tma_store_4d(&tdv, sm.v() + (pn * BKV + c * 64) * LV::W,
+                       pn * LV::W / 2, e.kh, kw0, e.b);
+      }
+      bulk_commit();
+      bulk_wait_read<0>();
+    }
+    bar_sync(WG_BAR + c, 128);
+    release(sm.kv_empty(), lane);
   } else {
-    if (blockIdx.z & 1)
-      dkdv_block<DK, DV, false, true>(p, (blockIdx.z >> 1) * BKV);
-    else
-      dkdv_block<DK, DV, true, false>(p, (blockIdx.z >> 1) * BKV);
+    // No query sees these keys (nothing was loaded): zeros.
+    const long long koff = static_cast<long long>(e.b) * p.Sk * p.KH * DK +
+                           e.kh * DK;
+    const long long voff = static_cast<long long>(e.b) * p.Sk * p.KH * DV +
+                           e.kh * DV;
+    if constexpr (DO_DK)
+      zero_rows<DK>(static_cast<bf16*>(p.dk) + koff,
+                    static_cast<long long>(p.KH) * DK, kA, p.Sk, cq);
+    if constexpr (DO_DV)
+      zero_rows<DV>(static_cast<bf16*>(p.dv) + voff,
+                    static_cast<long long>(p.KH) * DV, kA, p.Sk, cq);
   }
 }
 
-// Grid (H, B, query blocks); causal: block z holds the query block
-// counted from the last, the heaviest first.
 template <int DK, int DV>
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_wgmma_kernel(Params p) {
-  extern __shared__ __align__(1024) unsigned char smem[];
-  using SM = DqSmem<DK, DV>;
-  constexpr int HK = SM::HK, HV = SM::HV, BKT = SM::BKT;
-  using LK = Layout<HK>;
-  using LV = Layout<HV>;
-  const uint32_t sq = smem_addr(smem);
-  const uint32_t sdo = sq + SM::Q;
-  const uint32_t ring = sdo + SM::O;  // stage s: K at ring + s STAGE, V after
+__device__ __forceinline__ void dkdv_consume(const CUtensorMap& tdk,
+                                             const CUtensorMap& tdv,
+                                             const Params& p,
+                                             const KvSmem<KvCfg<DK, DV>>& sm,
+                                             int n_work, int ctid) {
+  const int c = ctid / 128;
+  const int warp = (ctid % 128) / 32;
+  const int lane = ctid % 32;
+  int s = 0;
+  uint32_t ph = 0, kvph = 0;
+#ifdef K1B_STAMPS
+  unsigned stamp[STAMP_PHASES + 1] = {};
+  unsigned t_stamp = clock();
+#endif
+  for (int k = 0;; ++k) {
+    const int t = walk_at(blockIdx.x, k);
+    if (t >= n_work) break;
+    if constexpr (DK == DV) {
+      dkdv_item<DK, DV, true, true>(tdk, tdv, p, sm, t, c, warp, lane, s,
+                                    ph, kvph STAMP_ARGS);
+    } else {
+      if (kv_work<2, KvCfg<DK, DV>::BQT>(t, p).part)
+        dkdv_item<DK, DV, false, true>(tdk, tdv, p, sm, t, c, warp, lane,
+                                       s, ph, kvph STAMP_ARGS);
+      else
+        dkdv_item<DK, DV, true, false>(tdk, tdv, p, sm, t, c, warp, lane,
+                                       s, ph, kvph STAMP_ARGS);
+    }
+  }
+  if (ctid % 128 == 0) bulk_wait<0>();  // the last stores have landed
+#ifdef K1B_STAMPS
+  stamp_flush(0, c, ctid, stamp);
+#endif
+}
 
+// DK is the query-key head dim (Q, K), DV the value dim (V, dO); they
+// differ only for MLA (192, 128).  n_work: (2 at MLA) x key blocks x KH x B.
+template <int DK, int DV>
+__global__ void __launch_bounds__(WS_NT, 1)
+    flash_bwd_dkdv_tma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const __grid_constant__ CUtensorMap tdk,
+                              const __grid_constant__ CUtensorMap tdv,
+                              const __grid_constant__ Params p,
+                              const int n_work) {
+  using C = KvCfg<DK, DV>;
+  extern __shared__ unsigned char smem[];
+  KvSmem<C> sm;
+  sm.k = (smem_addr(smem) + 1023u) & ~1023u;
+  sm.ring = sm.k + C::K_BYTES + C::V_BYTES;
+  sm.bar = sm.ring + C::STAGES * C::STAGE;
   const int tid = threadIdx.x;
-  const int wgi = tid / 128;  // warpgroup: queries 64 wgi ... of the block
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int qb = p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
-  const int q0 = qb * BQB;
-  const int kh = h / (p.H / p.KH);
-  const int offs = p.causal ? p.Sk - p.Sq : 0;
-  const long long qld = static_cast<long long>(p.H) * DK;
-  const long long old = static_cast<long long>(p.H) * DV;
-  const long long kld = static_cast<long long>(p.KH) * DK;
-  const long long vld = static_cast<long long>(p.KH) * DV;
-  const long long qoff = static_cast<long long>(b) * p.Sq * qld + h * DK;
-  const long long ooff = static_cast<long long>(b) * p.Sq * old + h * DV;
-  const bf16* k = static_cast<const bf16*>(p.k) +
-                  static_cast<long long>(b) * p.Sk * kld + kh * DK;
-  const bf16* v = static_cast<const bf16*>(p.v) +
-                  static_cast<long long>(b) * p.Sk * vld + kh * DV;
-
-  // Keys any real query row of this block can see: [k_begin, k_end), as
-  // the forward walks them.
-  const int q_last = min(q0 + BQB, p.Sq) - 1;
-  int k_begin = 0, k_end = p.Sk;
-  if (p.causal) k_end = min(k_end, q_last + offs + 1);
-  if (p.window > 0) k_begin = max(0, q0 + offs - p.window + 1);
-  k_begin = (k_begin / BKT) * BKT;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BKT - 1) / BKT : 0;
-
-  // A padded hd: dQ += dS K runs at N = HK over the K tiles' columns past
-  // DK, zeroed once (S and dP take DK / 16 and DV / 16 k16 steps only).
+  if (tid == 0) {
 #pragma unroll
-  for (int st = 0; st < STAGES; ++st)
-    zero_pad_cols<BKT, DK, HK, NT>(smem, ring - sq + st * SM::STAGE, tid);
-  // Copy group 0 holds Q, dO and KV tile 0; group j KV tile j.
-  load_tile<BQB, DK, HK, NT>(sq, static_cast<const bf16*>(p.q) + qoff, qld,
-                             q0, p.Sq, tid);
-  load_tile<BQB, DV, HV, NT>(sdo, static_cast<const bf16*>(p.dout) + ooff,
-                             old, q0, p.Sq, tid);
-  if (n_tiles > 0) {
-    load_tile<BKT, DK, HK, NT>(ring, k, kld, k_begin, p.Sk, tid);
-    load_tile<BKT, DV, HV, NT>(ring + SM::KT, v, vld, k_begin, p.Sk, tid);
+    for (int st = 0; st < C::STAGES; ++st) {
+      mbar_init(sm.full(st), 1);
+      mbar_init(sm.empty(st), CONSUMER_WARPS);
+    }
+    mbar_init(sm.kv_full(), 1);
+    mbar_init(sm.kv_empty(), CONSUMER_WARPS);
+    fence_mbar_init();
   }
-  cp_async_commit();
+  __syncthreads();
+  // The role, as a value ptxas can see is the same across each warp (a
+  // shuffle from lane 0), so that it allocates each role's registers by
+  // its setmaxnreg.
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0) dkdv_produce<DK, DV>(tq, tk, tv, tdo, p, sm, n_work);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    dkdv_consume<DK, DV>(tdk, tdv, p, sm, n_work, tid - 128);
+  }
+}
 
-  // This warpgroup's query rows [wq0, wq_last]; this thread's two rows are
-  // rA and rA + 8 (lse log2 e and D in registers; rows up to the padded
-  // length exist), its key columns 8 j + cq and 8 j + cq + 1 of each 8.
-  const int wq0 = q0 + wgi * 64;
-  const int wq_last = min(wq0 + 63, p.Sq - 1);
-  const int rA = wq0 + warp * 16 + lane / 4;
+// --------------------------------------------------------------------- dQ
+
+// The producer of the dQ kernel: one thread.  Per work tile with key
+// tiles, Q and dO into the next buffer once the consumers have freed it,
+// then each K/V tile into the next ring stage once both have freed that.
+template <int DK, int DV>
+__device__ __forceinline__ void dq_produce(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const Params& p, const QSmem<QCfg<DK, DV>>& sm,
+    int n_work) {
+  using C = QCfg<DK, DV>;
+  using LK = typename C::LK;
+  using LV = typename C::LV;
+  tma_prefetch_desc(&tq);
+  tma_prefetch_desc(&tk);
+  tma_prefetch_desc(&tv);
+  tma_prefetch_desc(&tdo);
+  const int group = p.H / p.KH;
+  int s = 0, qi = 0;
+  uint32_t ph = 0, qph = 0;
+  for (int k = 0;; ++k) {
+    const int t = walk_at(blockIdx.x, k);
+    if (t >= n_work) break;
+    const QWork w = q_work<C::BKT>(t, p);
+    if (w.n == 0) continue;
+    mbar_wait(sm.q_empty(qi), qph ^ 1);
+    mbar_expect_tx(sm.q_full(qi), C::QO);
+#pragma unroll
+    for (int pn = 0; pn < C::KPANELS; ++pn)
+#pragma unroll
+      for (int r = 0; r < BQB / BOX; ++r)
+        tma_load_4d(sm.q(qi) + (pn * BQB + r * BOX) * LK::W, &tq,
+                    sm.q_full(qi), pn * LK::W / 2, w.h, w.q0 + r * BOX, w.b);
+#pragma unroll
+    for (int pn = 0; pn < C::VPANELS; ++pn)
+#pragma unroll
+      for (int r = 0; r < BQB / BOX; ++r)
+        tma_load_4d(sm.o(qi) + (pn * BQB + r * BOX) * LV::W, &tdo,
+                    sm.q_full(qi), pn * LV::W / 2, w.h, w.q0 + r * BOX, w.b);
+    advance<C::Q_BUFS>(qi, qph);
+    const int kh = w.h / group;
+    for (int j = 0; j < w.n; ++j) {
+      const int row = w.k_begin + j * C::BKT;
+      mbar_wait(sm.empty(s), ph ^ 1);
+      mbar_expect_tx(sm.full(s), C::STAGE);
+#pragma unroll
+      for (int pn = 0; pn < C::KPANELS; ++pn)
+#pragma unroll
+        for (int r = 0; r < C::BKT / BOX; ++r)
+          tma_load_4d(sm.k(s) + (pn * C::BKT + r * BOX) * LK::W, &tk,
+                      sm.full(s), pn * LK::W / 2, kh, row + r * BOX, w.b);
+#pragma unroll
+      for (int pn = 0; pn < C::VPANELS; ++pn)
+#pragma unroll
+        for (int r = 0; r < C::BKT / BOX; ++r)
+          tma_load_4d(sm.v(s) + (pn * C::BKT + r * BOX) * LV::W, &tv,
+                      sm.full(s), pn * LV::W / 2, kh, row + r * BOX, w.b);
+      advance<C::STAGES>(s, ph);
+    }
+  }
+}
+
+// A consumer warpgroup c: query rows 64 c ... of each work tile; this
+// thread's two rows are rA and rA + 8 (lse log2 e and D in registers; rows
+// up to the padded length exist), its key columns 8 j + cq and 8 j + cq + 1
+// of each 8.
+template <int DK, int DV>
+__device__ __forceinline__ void dq_consume(const CUtensorMap& tdq,
+                                           const Params& p,
+                                           const QSmem<QCfg<DK, DV>>& sm,
+                                           int n_work, int ctid) {
+  using C = QCfg<DK, DV>;
+  using LK = typename C::LK;
+  using LV = typename C::LV;
+  constexpr int HK = C::HK, BKT = C::BKT;
+  const int c = ctid / 128;
+  const int warp = (ctid % 128) / 32;
+  const int lane = ctid % 32;
   const int cq = 2 * (lane % 4);
-  const long long roff = (static_cast<long long>(b) * p.H + h) * p.sq_ld;
-  const float l0 = p.lse2[roff + rA], l1 = p.lse2[roff + rA + 8];
-  const float d0 = p.delta[roff + rA], d1 = p.delta[roff + rA + 8];
+  const int offs = p.causal ? p.Sk - p.Sq : 0;
   const float sl2 = p.scale * LOG2E;
-  const uint32_t qa = sq + wgi * 64 * LK::W;  // its 64 rows of Q and dO
-  const uint32_t oa = sdo + wgi * 64 * LV::W;
-
-  float dq[HK / 2];
+  const long long qld = static_cast<long long>(p.H) * DK;
+  int s = 0, qi = 0;
+  uint32_t ph = 0, qph = 0;
+#ifdef K1B_STAMPS
+  unsigned stamp[STAMP_PHASES + 1] = {};
+  unsigned t_stamp = clock();
+#endif
+  for (int k = 0;; ++k) {
+    const int t = walk_at(blockIdx.x, k);
+    if (t >= n_work) break;
+    const QWork w = q_work<BKT>(t, p);
+    const int wq0 = w.q0 + c * 64;
+    const int wq_last = min(wq0 + 63, p.Sq - 1);
+    const int rA = wq0 + warp * 16 + lane / 4;
+    float dq[HK / 2];
 #pragma unroll
-  for (int i = 0; i < HK / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < HK / 2; ++i) dq[i] = 0.f;
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int t0 = k_begin + j * BKT;
-    // Tile j has landed (and Q, dO), and every thread is done with tile
-    // j - 1, whose stage the copy of tile j + 1 reuses.
-    cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();
-    if (j + 1 < n_tiles) {
-      const uint32_t st = ring + ((j + 1) % STAGES) * SM::STAGE;
-      load_tile<BKT, DK, HK, NT>(st, k, kld, t0 + BKT, p.Sk, tid);
-      load_tile<BKT, DV, HV, NT>(st + SM::KT, v, vld, t0 + BKT, p.Sk, tid);
-    }
-    cp_async_commit();
+    if (w.n > 0) {
+      const long long roff =
+          (static_cast<long long>(w.b) * p.H + w.h) * p.sq_ld;
+      const float l0 = p.lse2[roff + rA], l1 = p.lse2[roff + rA + 8];
+      const float d0 = p.delta[roff + rA], d1 = p.delta[roff + rA + 8];
+      STAMP(10);  // work tile set-up, the last one's epilogue
+      mbar_wait(sm.q_full(qi), qph);
+      STAMP(0);  // Q, dO landed
+      for (int j = 0; j < w.n; ++j) {
+        const int t0 = w.k_begin + j * BKT;
+        mbar_wait(sm.full(s), ph);
+        STAMP(1);  // ring tile landed
+        STAMP_TILE();
+        bool live = wq_last >= wq0;
+        if (p.causal) live = live && t0 <= wq_last + offs;
+        if (p.window > 0) live = live && t0 + BKT - 1 > wq0 + offs - p.window;
+        if (live) {
+          const uint32_t qa = opaque(sm.q(qi) + c * 64 * LK::W);
+          const uint32_t oa = opaque(sm.o(qi) + c * 64 * LV::W);
+          const uint32_t skt = opaque(sm.k(s)), svt = opaque(sm.v(s));
 
-    bool live = wq_last >= wq0;
-    if (p.causal) live = live && t0 <= wq_last + offs;
-    if (p.window > 0) live = live && t0 + BKT - 1 > wq0 + offs - p.window;
-    if (!live) continue;
-    const uint32_t skt = ring + (j % STAGES) * SM::STAGE;
-    const uint32_t svt = skt + SM::KT;
-
-    // S = Q K^T and dP = dO V^T, two groups: S is ready first.
-    float s[BKT / 2], dp[BKT / 2];
-    fence_regs(s);
-    fence_regs(dp);
-    wgmma_fence();
+          // S = Q K^T and dP = dO V^T, two groups: S is ready first.
+          float sc[BKT / 2], dp[BKT / 2];
+          fence_regs(sc);
+          fence_regs(dp);
+          wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DK / 16; ++kk)
-      wgmma_ss<BKT>(s, LK::template kmajor<BQB>(qa, kk),
-                    LK::template kmajor<BKT>(skt, kk), kk > 0);
-    wgmma_commit();
+          for (int kk = 0; kk < DK / 16; ++kk)
+            wgmma_ss<BKT>(sc, LK::template kmajor<BQB>(qa, kk),
+                          LK::template kmajor<BKT>(skt, kk), kk > 0);
+          wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < DV / 16; ++kk)
-      wgmma_ss<BKT>(dp, LV::template kmajor<BQB>(oa, kk),
-                    LV::template kmajor<BKT>(svt, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(s);
+          for (int kk = 0; kk < DV / 16; ++kk)
+            wgmma_ss<BKT>(dp, LV::template kmajor<BQB>(oa, kk),
+                          LV::template kmajor<BKT>(svt, kk), kk > 0);
+          wgmma_commit();
+          STAMP(2);  // issue S, dP
+          wgmma_wait<1>();
+          fence_regs(sc);
+          STAMP(3);  // S landed
 
-    // P, masked only on tiles that cross an edge (Sk's included).
-    const bool edge = t0 + BKT > p.Sk ||
-                      (p.causal && t0 + BKT - 1 > wq0 + offs) ||
-                      (p.window > 0 && t0 <= wq_last + offs - p.window);
+          // P = 2^(S scale log2 e - lse log2 e), entry i at query row rA +
+          // 8 ((i >> 1) & 1), key column t0 + 8 (i / 4) + cq + (i & 1).
 #pragma unroll
-    for (int i = 0; i < BKT / 2; ++i) {
-      float pv = exp2f(fmaf(s[i], sl2, (i & 2) ? -l1 : -l0));
-      if (edge) {
-        const int qpos = rA + ((i & 2) ? 8 : 0) + offs;
-        const int kpos = t0 + 8 * (i / 4) + cq + (i & 1);
-        bool ok = kpos < p.Sk;
-        if (p.causal) ok = ok && kpos <= qpos;
-        if (p.window > 0) ok = ok && kpos > qpos - p.window;
-        pv = ok ? pv : 0.f;
+          for (int i = 0; i < BKT / 2; ++i)
+            sc[i] = ex2(fmaf(sc[i], sl2, (i & 2) ? -l1 : -l0));
+          // Masks only on tiles that cross an edge (Sk's included): row r
+          // keeps the columns 8 (i / 4) + (i & 1) in [lo_r, hi_r), the key
+          // limits relative to this thread's first column t0 + cq.
+          if (t0 + BKT > p.Sk || (p.causal && t0 + BKT - 1 > wq0 + offs) ||
+              (p.window > 0 && t0 <= wq_last + offs - p.window)) {
+            int lo[2], hi[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int qpos = rA + 8 * r + offs;
+              hi[r] = p.causal ? min(p.Sk, qpos + 1) : p.Sk;
+              lo[r] = p.window > 0 ? qpos - p.window + 1 : t0;
+              hi[r] -= t0 + cq;
+              lo[r] -= t0 + cq;
+            }
+#pragma unroll
+            for (int i = 0; i < BKT / 2; ++i) {
+              const int col = 8 * (i / 4) + (i & 1), r = (i >> 1) & 1;
+              sc[i] = col >= lo[r] && col < hi[r] ? sc[i] : 0.f;
+            }
+          }
+          STAMP(4);  // P
+          wgmma_wait<0>();
+          fence_regs(dp);
+          STAMP(5);  // dP landed
+#pragma unroll
+          for (int i = 0; i < BKT / 2; ++i)
+            dp[i] = sc[i] * (dp[i] - ((i & 2) ? d1 : d0));
+
+          // dQ += dS K: A from registers, K MN-major.
+          uint32_t da[BKT / 16][4];
+          acc_to_a(da, dp);
+          fence_regs(dq);
+          fence_regs(da);
+          STAMP(6);  // dS, packing
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BKT / 16; ++kk)
+            wgmma_rs<HK>(dq, da[kk], LK::template mnmajor<BKT>(skt, kk));
+          wgmma_commit();
+          STAMP(7);  // issue dQ
+          wgmma_wait<0>();
+          fence_regs(dq);
+          fence_regs(da);
+          STAMP(8);  // dQ landed
+        }
+        release(sm.empty(s), lane);
+        advance<C::STAGES>(s, ph);
+        STAMP(9);  // release; tiles this warpgroup skips
       }
-      s[i] = pv;
+      // dQ (scaled) into this warpgroup's own rows of the Q tile, then one
+      // TMA store a panel (rows past Sq and columns past DK clipped); the
+      // buffer is freed once the stores have read it.
+      acc_to_tile<HK, BQB>(sm.q(qi), dq, c * 64, warp, lane, p.scale);
+      fence_async_smem();
+      bar_sync(WG_BAR + c, 128);
+      if (warp == 0 && lane == 0) {
+#pragma unroll
+        for (int pn = 0; pn < C::KPANELS; ++pn)
+          tma_store_4d(&tdq, sm.q(qi) + (pn * BQB + c * 64) * LK::W,
+                       pn * LK::W / 2, w.h, wq0, w.b);
+        bulk_commit();
+        bulk_wait_read<0>();
+      }
+      bar_sync(WG_BAR + c, 128);
+      release(sm.q_empty(qi), lane);
+      advance<C::Q_BUFS>(qi, qph);
+    } else {
+      // No key is seen (nothing was loaded): zeros.
+      zero_rows<DK>(static_cast<bf16*>(p.dq) +
+                        static_cast<long long>(w.b) * p.Sq * qld + w.h * DK,
+                    qld, rA, p.Sq, cq);
     }
-    wgmma_wait<0>();
-    fence_regs(dp);
-#pragma unroll
-    for (int i = 0; i < BKT / 2; ++i)
-      dp[i] = s[i] * (dp[i] - ((i & 2) ? d1 : d0));
-
-    // dQ += dS K: A from registers, K MN-major.
-    uint32_t da[BKT / 16][4];
-    acc_to_a(da, dp);
-    fence_regs(dq);
-    fence_regs(da);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BKT / 16; ++kk)
-      wgmma_rs<HK>(dq, da[kk], LK::template mnmajor<BKT>(skt, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq);
-    fence_regs(da);
   }
-  cp_async_wait<0>();
+  if (ctid % 128 == 0) bulk_wait<0>();  // the last stores have landed
+#ifdef K1B_STAMPS
+  stamp_flush(1, c, ctid, stamp);
+#endif
+}
 
-  store_rows<DK, HK>(static_cast<bf16*>(p.dq) + qoff, qld, dq, rA, p.Sq, cq,
-                     p.scale);
+// n_work: query blocks x H x B.
+template <int DK, int DV>
+__global__ void __launch_bounds__(WS_NT, 1)
+    flash_bwd_dq_tma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const __grid_constant__ CUtensorMap tdq,
+                            const __grid_constant__ Params p,
+                            const int n_work) {
+  using C = QCfg<DK, DV>;
+  extern __shared__ unsigned char smem[];
+  QSmem<C> sm;
+  sm.q0 = (smem_addr(smem) + 1023u) & ~1023u;
+  sm.ring = sm.q0 + C::Q_BUFS * C::QO;
+  sm.bar = sm.ring + C::STAGES * C::STAGE;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < C::STAGES; ++st) {
+      mbar_init(sm.full(st), 1);
+      mbar_init(sm.empty(st), CONSUMER_WARPS);
+    }
+#pragma unroll
+    for (int i = 0; i < C::Q_BUFS; ++i) {
+      mbar_init(sm.q_full(i), 1);
+      mbar_init(sm.q_empty(i), CONSUMER_WARPS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0) dq_produce<DK, DV>(tq, tk, tv, tdo, p, sm, n_work);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    dq_consume<DK, DV>(tdq, p, sm, n_work, tid - 128);
+  }
+}
+
+// ---- host side -------------------------------------------------------------
+
+// The maps both kernels read q, k, v and dO through and the kernels store
+// dq, dk and dv through (packed), in that order (a box: one swizzle panel
+// x 1 head x BOX rows); 0, or TMA_REFUSED + the CUresult of the first map
+// refused.
+template <int DK, int DV>
+int encode_maps(const Params& p, CUtensorMap (&m)[7]) {
+  using LK = Layout<padded_hd(DK)>;
+  using LV = Layout<padded_hd(DV)>;
+  CUresult r = encode_view(&m[0], p.q, DK, p.H, p.Sq, p.B, p.q_sh, p.q_ss,
+                           p.q_sb, LK::W, BOX);
+  if (r == CUDA_SUCCESS)
+    r = encode_view(&m[1], p.k, DK, p.KH, p.Sk, p.B, p.k_sh, p.k_ss, p.k_sb,
+                    LK::W, BOX);
+  if (r == CUDA_SUCCESS)
+    r = encode_view(&m[2], p.v, DV, p.KH, p.Sk, p.B, p.v_sh, p.v_ss, p.v_sb,
+                    LV::W, BOX);
+  if (r == CUDA_SUCCESS)
+    r = encode_view(&m[3], p.dout, DV, p.H, p.Sq, p.B, p.d_sh, p.d_ss,
+                    p.d_sb, LV::W, BOX);
+  const long long qs = static_cast<long long>(p.H) * DK;
+  const long long ks = static_cast<long long>(p.KH) * DK;
+  const long long vs = static_cast<long long>(p.KH) * DV;
+  if (r == CUDA_SUCCESS)
+    r = encode_view(&m[4], p.dq, DK, p.H, p.Sq, p.B, DK, qs, qs * p.Sq,
+                    LK::W, BOX);
+  if (r == CUDA_SUCCESS)
+    r = encode_view(&m[5], p.dk, DK, p.KH, p.Sk, p.B, DK, ks, ks * p.Sk,
+                    LK::W, BOX);
+  if (r == CUDA_SUCCESS)
+    r = encode_view(&m[6], p.dv, DV, p.KH, p.Sk, p.B, DV, vs, vs * p.Sk,
+                    LV::W, BOX);
+  return r == CUDA_SUCCESS ? 0 : TMA_REFUSED + static_cast<int>(r);
 }
 
 template <int DK, int DV>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr int s_b = DkdvSmem<DK, DV>::BYTES;
-  constexpr int s_c = DqSmem<DK, DV>::BYTES;
-  constexpr int parts = DK == DV ? 1 : 2;  // MLA: dV and dK blocks apart
-  static const cudaError_t attr_b = cudaFuncSetAttribute(
-      flash_bwd_dkdv_wgmma_kernel<DK, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, s_b);
-  static const cudaError_t attr_c = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<DK, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, s_c);
-  if (attr_b != cudaSuccess) return attr_b;
-  if (attr_c != cudaSuccess) return attr_c;
-  flash_bwd_dkdv_wgmma_kernel<DK, DV>
-      <<<dim3(p.KH, p.B, parts * ((p.Sk + BKV - 1) / BKV)), NT, s_b,
-         stream>>>(p);
-  cudaError_t e = cudaGetLastError();
+int launch(const Params& p, cudaStream_t stream) {
+  using KC = KvCfg<DK, DV>;
+  using QC = QCfg<DK, DV>;
+  static const cudaError_t attr_kv = cudaFuncSetAttribute(
+      flash_bwd_dkdv_tma_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, KC::SMEM);
+  static const cudaError_t attr_q = cudaFuncSetAttribute(
+      flash_bwd_dq_tma_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, QC::SMEM);
+  if (attr_kv != cudaSuccess) return attr_kv;
+  if (attr_q != cudaSuccess) return attr_q;
+  CUtensorMap m[7];
+  const int r = encode_maps<DK, DV>(p, m);
+  if (r != 0) return r;
+  // Persistent: one block an SM (its registers hold one) walks the work
+  // tiles; fewer tiles than SMs, a block each.
+  const int sms = sm_count();
+  const int n_kv = KC::PARTS * ((p.Sk + BKV - 1) / BKV) * p.KH * p.B;
+  flash_bwd_dkdv_tma_kernel<DK, DV>
+      <<<min_i(n_kv, sms), WS_NT, KC::SMEM, stream>>>(
+          m[0], m[1], m[2], m[3], m[5], m[6], p, n_kv);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_wgmma_kernel<DK, DV>
-      <<<dim3(p.H, p.B, (p.Sq + BQB - 1) / BQB), NT, s_c, stream>>>(p);
+  const int n_q = (p.Sq + BQB - 1) / BQB * p.H * p.B;
+  flash_bwd_dq_tma_kernel<DK, DV>
+      <<<min_i(n_q, sms), WS_NT, QC::SMEM, stream>>>(m[0], m[1], m[2], m[3],
+                                                     m[4], p, n_q);
   return cudaGetLastError();
 }
 
-}  // namespace wg
+}  // namespace ws
 
 // (a), then (b) and (c): bf16 on the tensor cores, float32 on the CUDA
-// cores.
+// cores.  Returns a cudaError_t, or TMA_REFUSED + a CUresult.
 template <typename T, int DK, int DV>
-cudaError_t launch(Params p, cudaStream_t stream) {
-  constexpr bool WG = sizeof(T) == 2;
-  p.sq_ld = WG ? (p.Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD : p.Sq;
-  p.lse2 = WG ? p.delta + static_cast<long long>(p.B) * p.H * p.sq_ld
+int launch(Params p, cudaStream_t stream) {
+  constexpr bool WS = sizeof(T) == 2;
+  p.sq_ld = WS ? (p.Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD : p.Sq;
+  p.lse2 = WS ? p.delta + static_cast<long long>(p.B) * p.H * p.sq_ld
               : nullptr;
   const long long rows = static_cast<long long>(p.B) * p.sq_ld * p.H;
   const int rows_per_block = NT / 32;
@@ -1049,15 +1587,14 @@ cudaError_t launch(Params p, cudaStream_t stream) {
          NT, 0, stream>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  if constexpr (WG)
-    return wg::launch<DK, DV>(p, stream);
+  if constexpr (WS)
+    return ws::launch<DK, DV>(p, stream);
   else
     return f32::launch<DK, DV>(p, stream);
 }
 
 template <typename T>
-cudaError_t dispatch_hd(const Params& p, int hd, int hdv,
-                        cudaStream_t stream) {
+int dispatch_hd(const Params& p, int hd, int hdv, cudaStream_t stream) {
   if (hd == 192 && hdv == 128) return launch<T, 192, 128>(p, stream);
   if (hd != hdv) return cudaErrorInvalidValue;
   switch (hd) {
@@ -1074,28 +1611,68 @@ cudaError_t dispatch_hd(const Params& p, int hd, int hdv,
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout and the outputs dq,
 // dk, dv alike; hd the query-key dim (q, k, dq, dk), hdv the value dim (v,
-// o, dout, dv): equal and in 16, 32, 64, 80, 128, or (192, 128).  Every
-// tensor contiguous in the layouts above, and for
-// bfloat16 16-byte aligned.  scratch: 2 B H ceil(Sq / 128) 128 float32,
-// 16-byte aligned (D, and for bfloat16 lse log2 e beside it).  Launches
-// (a), (b) and (c) on the stream and returns the first launch's error that
-// is not cudaSuccess (0 on success).
+// o, dout, dv): equal and in 16, 32, 64, 80, 128, or (192, 128).  Strides
+// in elements of (batch, row, head), the head dim contiguous: for float32
+// q, k, v and dout packed; for bfloat16 q, k, v and dout as TMA reads them
+// (16-byte aligned, every stride a multiple of 8 elements, none 0 over a
+// dim longer than 1; the wrapper checks).  dq, dk and dv are written
+// packed.  scratch: 2 B H ceil(Sq / 128) 128 float32, 16-byte aligned (D,
+// and for bfloat16 lse log2 e beside it).  Launches (a), (b) and (c) on the
+// stream and returns the first launch's error that is not cudaSuccess (0 on
+// success), or TMA_REFUSED + the CUresult of a tensor map the driver
+// refused (nothing launched but (a)).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* scratch, void* dq, void* dk,
-    void* dv, int B, int Sq, int Sk, int H, int KH, float scale, int causal,
-    int window, int dtype, int hd, int hdv, void* stream) {
+    void* dv, int B, int Sq, int Sk, int H, int KH, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, long long d_sb,
+    long long d_ss, long long d_sh, float scale, int causal, int window,
+    int dtype, int hd, int hdv, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KH <= 0 || H % KH != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q,  k,  v,  o,  dout, lse, scratch, nullptr, dq, dk,
-           dv, B,  Sq, Sk, H,    KH,  0,       scale,   causal, window};
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.dout = dout;
+  p.lse = lse;
+  p.delta = scratch;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.B = B;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.H = H;
+  p.KH = KH;
+  p.q_sb = q_sb, p.q_ss = q_ss, p.q_sh = q_sh;
+  p.k_sb = k_sb, p.k_ss = k_ss, p.k_sh = k_sh;
+  p.v_sb = v_sb, p.v_ss = v_ss, p.v_sh = v_sh;
+  p.o_sb = o_sb, p.o_ss = o_ss, p.o_sh = o_sh;
+  p.d_sb = d_sb, p.d_ss = d_ss, p.d_sh = d_sh;
+  p.scale = scale;
+  p.causal = causal;
+  p.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0)
-    e = dispatch_hd<float>(p, hd, hdv, st);
-  else if (dtype == 1)
-    e = dispatch_hd<__nv_bfloat16>(p, hd, hdv, st);
-  else
-    e = cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_hd<float>(p, hd, hdv, st);
+  if (dtype == 1) return dispatch_hd<__nv_bfloat16>(p, hd, hdv, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#ifdef K1B_STAMPS
+// Copies the consumer warpgroups' phase cycles, (2 kernels, 2 warpgroups,
+// STAMP_PHASES + 1) uint64 (the last column: ring tiles), to `host` and
+// clears them.
+extern "C" int flash_attention_bwd_stamps(void* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, ws::g_k1b_stamp,
+                                       sizeof(ws::g_k1b_stamp));
+  static const unsigned long long zero[2][2][ws::STAMP_PHASES + 1] = {};
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(ws::g_k1b_stamp, zero, sizeof(zero));
   return static_cast<int>(e);
 }
+#endif
+

@@ -9,14 +9,18 @@
 // m64nNk16, N = 16 / 32 / 64 / 128 / 192, with A from registers), the
 // swizzled shared-memory layout of a bf16 tile with the descriptors that
 // read it, and the copy of a tile into that layout.  For warp-specialised
-// kernels (K1's bf16 forward): `mbarrier`s (init, arrive, expect_tx, a
-// parity wait), TMA tile loads (`cp.async.bulk.tensor`) that complete on
-// an `mbarrier` and TMA tile stores in bulk groups, `setmaxnreg` and named
-// barriers.  A kernel that includes this file is built with nvcc
-// -std=c++17 for sm_90a.
+// kernels (K1's bf16 forward and backward): `mbarrier`s (init, arrive,
+// expect_tx, a parity wait) and ring positions, TMA tile loads
+// (`cp.async.bulk.tensor`) and 1-D bulk loads that complete on an
+// `mbarrier`, TMA tile stores in bulk groups, `setmaxnreg` and named
+// barriers; on the host, the tensor maps those loads read through
+// (`encode_view`) and the device's SM count.  A kernel that includes this
+// file is built with nvcc -std=c++17 for sm_90a.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda call
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -484,6 +488,25 @@ template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// A 1-D bulk load of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global memory to shared memory at `dst`, completing on the
+// mbarrier `bar` like a TMA tile load.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Two floats from shared memory at `addr` (8-byte aligned).  Volatile, so
+// it stays after the mbarrier wait that makes the data visible.
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
@@ -513,6 +536,100 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Steps a ring position (slot, phase parity) of N slots.
+template <int N>
+__device__ __forceinline__ void advance(int& slot, uint32_t& phase) {
+  if (++slot == N) {
+    slot = 0;
+    phase ^= 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps and the SM count
+// ---------------------------------------------------------------------------
+
+// What a C entry point returns, plus the CUresult, when the driver refuses
+// a tensor map.
+constexpr int TMA_REFUSED = 100000;
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so a library
+// links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &got);
+#endif
+    return e == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 (B, S, heads, cols) view with strides in elements (cols
+// contiguous) as the 4-D tensor map (cols, heads, S, B) whose box is one
+// swizzle panel of W bytes x 1 head x `rows` rows x 1 batch row, in the
+// swizzle `Layout` gives W.  Rows past S and columns past `cols` arrive
+// as zeros.  A dim of extent 1 is read at coordinate 0 alone, so its
+// stride (which a view may leave anything) is set to the packed one.
+inline CUresult encode_view(CUtensorMap* map, const void* ptr, int cols,
+                            int heads, int S, int B, long long sh,
+                            long long ss, long long sb, int w, int rows) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const long long ext[3] = {heads, S, B};
+  long long st[3] = {sh, ss, sb};
+  long long packed = (cols + 7) / 8 * 8;
+  for (int i = 0; i < 3; ++i) {
+    if (ext[i] <= 1) st[i] = packed;
+    packed = st[i] * (ext[i] > 1 ? ext[i] : 1);
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S > 0 ? S : 1),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[0] * 2),
+                                 static_cast<cuuint64_t>(st[1] * 2),
+                                 static_cast<cuuint64_t>(st[2] * 2)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(w / 2), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = w == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : w == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                          : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The SMs of the current device, read once a device.
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 132;
+  }
+  return counts[dev];
 }
 
 }  // namespace hopper

@@ -49,12 +49,19 @@ it stores.  ``flash_attention_bwd`` is the gradient, a source of its own
 call in ``bwd_launches``), with ``ref.grouped_flash_bwd_ref`` as its plain
 version; ``ops.grouped_flash`` reaches it through autograd.  As in the
 forward the input type alone picks the kernels, at every pair of dims:
-bfloat16 runs dK/dV and dQ on the tensor cores
-(``flash_bwd_dkdv_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``; at MLA's
-(192, 128) the dK/dV launch sums dV and dK in separate blocks, and dQ takes
-32-key tiles), float32 on the CUDA cores (``bwd_dkdv_kernel``,
-``bwd_dq_kernel``); both start with ``bwd_delta_kernel``.  A pair of dims
-the kernels do not take is refused before a launch.
+bfloat16 runs dK/dV and dQ on the tensor cores, each warp specialised as
+the forward (``flash_bwd_dkdv_tma_kernel``, ``flash_bwd_dq_tma_kernel``:
+a TMA producer, two ``wgmma`` consumer warpgroups, persistent; at MLA's
+(192, 128) the dK/dV walk sums dV and dK in separate work tiles), float32
+on the CUDA cores (``bwd_dkdv_kernel``, ``bwd_dq_kernel``); both start
+with ``bwd_delta_kernel``.  The bf16 kernels read q, k, v and ``do``
+through tensor maps encoded each call, so what no map describes is
+copied first and counted in ``tma_copies``, as in the forward (``do``
+from autograd may be a strided view a map does describe: it is read as
+it is); ``o`` is read through its strides.  A pair of dims the kernels do
+not take is refused before a launch, and a map the driver refuses
+raises.  ``flash_attention_bwd_watchdog`` is the backward on its watchdog
+build, counted in ``bwd_watchdog_launches`` alone.
 """
 from __future__ import annotations
 
@@ -76,6 +83,7 @@ tma_launches = build.LaunchCounter()     # the bf16 kernel's, also in launches
 tma_copies = build.LaunchCounter()       # bf16 inputs copied for a tensor map
 bwd_launches = build.LaunchCounter()
 watchdog_launches = build.LaunchCounter()     # the watchdog build's alone
+bwd_watchdog_launches = build.LaunchCounter()   # the backward's, alike
 WATCHDOG_FLAGS = ("-DREPRO_MBAR_WATCHDOG",)
 TMA_REFUSED = 100000     # + the CUresult of a tensor map the driver refused
 
@@ -83,7 +91,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_float]
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                 + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                 + [ctypes.c_longlong] * 15 + [ctypes.c_float]
+                 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _ENCODE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                     + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3)
 
@@ -189,10 +198,11 @@ def _readable(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _raise_if_refused(err: int) -> None:
+def _raise_if_refused(err: int, what: str = "flash_attention",
+                      inputs: str = "q, k or v") -> None:
     if err >= TMA_REFUSED:
-        raise ValueError(f"flash_attention: the driver refused a tensor map "
-                         f"of q, k or v (CUresult {err - TMA_REFUSED})")
+        raise ValueError(f"{what}: the driver refused a tensor map of "
+                         f"{inputs} (CUresult {err - TMA_REFUSED})")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -202,9 +212,26 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dtype, and the dims as the forward takes them (hdv = hd in
     ``HEAD_DIMS``, or a pair of ``DIM_PAIRS``); lse: the forward's (B, H,
     Sq) float32 row logsumexp.  Returns (dq, dk, dv), contiguous, in the
-    inputs' dtype.  Inputs that are not contiguous (``do`` from autograd
-    may not be) are copied first; a bf16 q, k or v that the forward would
-    copy (``_readable``) is copied and counted as there."""
+    inputs' dtype.  float32 inputs that are not contiguous are copied
+    first; a bf16 q, k, v or do that no tensor map describes is copied and
+    counted in ``tma_copies`` (``_readable``), and o is read through its
+    strides."""
+    return _backward(q, k, v, o, lse, do, causal, window, scale, (),
+                     (bwd_launches,))
+
+
+def flash_attention_bwd_watchdog(q, k, v, o, lse, do, *, causal: bool = True,
+                                 window: int = 0, scale: float | None = None):
+    """``flash_attention_bwd`` on the watchdog build (``WATCHDOG_FLAGS``),
+    counted in ``bwd_watchdog_launches`` alone."""
+    return _backward(q, k, v, o, lse, do, causal, window, scale,
+                     WATCHDOG_FLAGS, (bwd_watchdog_launches,))
+
+
+def _backward(q, k, v, o, lse, do, causal, window, scale, flags: tuple,
+              counters: tuple):
+    """One call of the backward's launches from the library built with
+    ``flags``, added to each of ``counters`` once the driver took them."""
     _check(q, k, v)
     b, sq, h, hd = q.shape
     sk, kh, hdv = k.shape[1], k.shape[2], v.shape[3]
@@ -219,24 +246,33 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype} is not ({b}, {h}, {sq}) float32 on "
                          f"{q.device}")
-    q, k, v = (_readable(t) for t in (q, k, v))
-    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_readable(t) for t in (q, k, v, do))
+        if o.stride(-1) != 1:       # D's kernel reads a row's elements in turn
+            o = o.contiguous()
+    else:
+        q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    lse = lse.contiguous()
     scale = hd ** -0.5 if scale is None else scale
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
     # D, and for bfloat16 lse log2(e) beside it, rows padded to BWD_ROW_PAD
     scratch = torch.empty((2, b, h, -(-sq // BWD_ROW_PAD) * BWD_ROW_PAD),
                           dtype=torch.float32, device=q.device)
     if isinstance(q, FakeTensor):               # shapes alone: no launch
         return dq, dk, dv
     fn = build.function("flash_attention_bwd", "flash_attention_bwd",
-                        _BWD_ARGTYPES)
+                        _BWD_ARGTYPES, flags)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh, float(scale),
-             int(bool(causal)), int(window), DTYPES[q.dtype], hd, hdv,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             dk.data_ptr(), dv.data_ptr(), b, sq, sk, h, kh,
+             *(t.stride(i) for t in (q, k, v, o, do) for i in range(3)),
+             float(scale), int(bool(causal)), int(window), DTYPES[q.dtype],
+             hd, hdv, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_if_refused(err, "flash_attention_bwd", "q, k, v or do")
     build.check(err, "flash_attention_bwd")
-    bwd_launches.add()
+    for c in counters:
+        c.add()
     return dq, dk, dv
 
 

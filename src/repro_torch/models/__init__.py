@@ -1,3 +1,3 @@
-from .transformer import Model, Segment, build_plan
+from .transformer import Model, Segment, build_plan, make_model
 
-__all__ = ["Model", "Segment", "build_plan"]
+__all__ = ["Model", "Segment", "build_plan", "make_model"]

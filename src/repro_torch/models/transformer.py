@@ -598,3 +598,15 @@ class Model(nn.Module):
                     "k_scale": z((b, s, kh), torch.float32),
                     "v_scale": z((b, s, kh), torch.float32)}
         return {"k": z((b, s, kh, hd), dt), "v": z((b, s, kh, hd), dt)}
+
+
+def make_model(name_or_cfg, *, device="cuda", **kw) -> Model:
+    """The reference's ``make_model``: a ``Model`` of a registered arch name
+    or of an ``ArchConfig``, on ``device``; ``kw`` are ``Model``'s own
+    (``kv_quant``, ``capacity_factor``).  The reference's ``backend`` has no
+    counterpart: the port picks each kernel or its plain version by the
+    device of the tensors it is given."""
+    from ..configs.base import get_arch
+    cfg = (name_or_cfg if isinstance(name_or_cfg, ArchConfig)
+           else get_arch(name_or_cfg))
+    return Model(cfg, device=device, **kw)

@@ -1,6 +1,7 @@
-"""K1's wrapper around the bf16 TMA kernel, on the CPU: what it refuses
-before any launch, what it copies first (and counts), what it hands the
-kernel, and how a tensor map the driver refuses comes back.  Fake tensors
+"""K1's wrappers around the bf16 TMA kernels (the forward and, since its
+redesign on a TMA producer, the backward), on the CPU: what they refuse
+before any launch, what they copy first (and count), what they hand the
+kernels, and how a tensor map the driver refuses comes back.  Fake tensors
 stand for CUDA ones (the wrapper's shape-only path), so nothing is built
 or launched here; the kernel itself is held to its plain version on the
 card (tests/test_torch_kernels_gpu.py).
@@ -112,3 +113,123 @@ def test_encode_timing_takes_only_bfloat16():
     q = _fake(mode, 1, 8, 4, 64, dtype=torch.float32)
     with mode, pytest.raises(TypeError, match="bfloat16"):
         kflash.tma_encode_us(q, q, q)
+
+
+def _bwd_args(mode, b=1, s=8, h=4, kh=2, hd=64, hdv=64, dtype=torch.bfloat16):
+    """q, k, v, o, lse and do for ``flash_attention_bwd``, fake and packed."""
+    return (_fake(mode, b, s, h, hd, dtype=dtype),
+            _fake(mode, b, s, kh, hd, dtype=dtype),
+            _fake(mode, b, s, kh, hdv, dtype=dtype),
+            _fake(mode, b, s, h, hdv, dtype=dtype),
+            _fake(mode, b, h, s, dtype=torch.float32),
+            _fake(mode, b, s, h, hdv, dtype=dtype))
+
+
+@pytest.mark.parametrize("which,copies", [
+    ("packed", 0),
+    ("do_transposed", 0),     # a strided view a map describes: read as is
+    ("o_transposed", 0),      # o is read through its strides, no map
+    ("k_expanded", 1),        # stride 0 over the KV heads
+    ("kv_expanded", 2),
+    ("q_offset", 1),          # rows one element off 16 bytes
+    ("do_offset", 1),
+    ("do_strided_head_dim", 1),
+])
+def test_bf16_backward_copies_what_no_tensor_map_describes(which, copies):
+    """The backward reads q, k, v and do through tensor maps: what no map
+    describes is copied into a fresh contiguous tensor first and counted in
+    ``tma_copies``, as in the forward; do from autograd as a transposed
+    view is described by a map and not copied; o is read through its
+    strides.  The gradients come back contiguous in the inputs' shapes;
+    fake tensors launch nothing."""
+    mode = FakeTensorMode()
+    q, k, v, o, lse, do = _bwd_args(mode)
+    if which == "do_transposed":
+        do = _fake(mode, 1, 4, 8, 64).transpose(1, 2)
+    elif which == "o_transposed":
+        o = _fake(mode, 1, 4, 8, 64).transpose(1, 2)
+    elif which.endswith("expanded"):
+        k = _fake(mode, 1, 8, 1, 64).expand(1, 8, 2, 64)
+        if which == "kv_expanded":
+            v = _fake(mode, 1, 8, 1, 64).expand(1, 8, 2, 64)
+    elif which.endswith("_offset"):
+        t = _fake(mode, 8 * 4 * 64 + 1)[1:].view(1, 8, 4, 64)
+        q, do = (t, do) if which == "q_offset" else (q, t)
+    elif which == "do_strided_head_dim":
+        do = _fake(mode, 1, 8, 4, 128)[..., ::2]
+    n, c = kflash.bwd_launches.count, kflash.tma_copies.count
+    with mode:
+        dq, dk, dv = kflash.flash_attention_bwd(q, k, v, o, lse, do)
+    assert kflash.tma_copies.count == c + copies
+    assert kflash.bwd_launches.count == n
+    for g, shape in ((dq, (1, 8, 4, 64)), (dk, (1, 8, 2, 64)),
+                     (dv, (1, 8, 2, 64))):
+        assert tuple(g.shape) == shape and g.is_contiguous()
+        assert g.dtype == torch.bfloat16
+
+
+def test_float32_backward_packs_its_inputs_without_counting():
+    """The float32 kernels read q, k, v and do packed by pointer: a strided
+    do is copied, but that is no tensor map's copy and is not counted."""
+    mode = FakeTensorMode()
+    q, k, v, o, lse, _ = _bwd_args(mode, dtype=torch.float32)
+    do = _fake(mode, 1, 4, 8, 64, dtype=torch.float32).transpose(1, 2)
+    c = kflash.tma_copies.count
+    with mode:
+        dq, _, _ = kflash.flash_attention_bwd(q, k, v, o, lse, do)
+    assert kflash.tma_copies.count == c
+    assert dq.dtype == torch.float32 and dq.is_contiguous()
+
+
+@pytest.mark.parametrize("bad", ["o_shape", "do_dtype", "lse_dtype",
+                                 "lse_shape", "dims", "heads"])
+def test_backward_refuses_before_any_copy_or_launch(bad):
+    """Inputs the kernels do not take are refused before anything is
+    copied or launched: o or do not (B, Sq, H, hdv) in q's dtype, lse not
+    (B, H, Sq) float32, a pair of head dims neither equal and taken nor
+    MLA's, query heads not a multiple of the KV heads."""
+    mode = FakeTensorMode()
+    q, k, v, o, lse, do = _bwd_args(mode)
+    if bad == "o_shape":
+        o = _fake(mode, 1, 8, 4, 32)
+    elif bad == "do_dtype":
+        do = _fake(mode, 1, 8, 4, 64, dtype=torch.float32)
+    elif bad == "lse_dtype":
+        lse = _fake(mode, 1, 4, 8)
+    elif bad == "lse_shape":
+        lse = _fake(mode, 1, 8, 4, dtype=torch.float32)
+    elif bad == "dims":
+        q, k, v, o, lse, do = _bwd_args(mode, hd=96, hdv=96)
+    else:
+        q, k, v, o, lse, do = _bwd_args(mode, h=3, kh=2)
+    k = _fake(mode, 1, 8, 1, k.shape[-1]).expand(*k.shape)   # would copy
+    n, c = kflash.bwd_launches.count, kflash.tma_copies.count
+    with mode, pytest.raises(ValueError):
+        kflash.flash_attention_bwd(q, k, v, o, lse, do)
+    assert (kflash.bwd_launches.count, kflash.tma_copies.count) == (n, c)
+
+
+def test_a_refused_backward_tensor_map_names_the_backward():
+    """The backward's C entry point returns TMA_REFUSED + the CUresult for
+    a map the driver refuses, as the forward's does; the wrapper raises it
+    as a ValueError that names the backward and its mapped inputs, and
+    lets every other code through to the launch check."""
+    with pytest.raises(ValueError, match=r"flash_attention_bwd: .*q, k, v "
+                                         r"or do \(CUresult 700\)"):
+        kflash._raise_if_refused(kflash.TMA_REFUSED + 700,
+                                 "flash_attention_bwd", "q, k, v or do")
+    for err in (0, 1, 700, kflash.TMA_REFUSED - 1):
+        kflash._raise_if_refused(err, "flash_attention_bwd", "q, k, v or do")
+
+
+def test_backward_interface_passes_every_stride():
+    """The C interface of the backward takes (batch, row, head) strides of
+    q, k, v, o and do after the sizes: ten pointers, five sizes, fifteen
+    strides, the scale, five ints and the stream."""
+    import ctypes
+    types = kflash._BWD_ARGTYPES
+    assert types[:10] == [ctypes.c_void_p] * 10
+    assert types[10:15] == [ctypes.c_int] * 5
+    assert types[15:30] == [ctypes.c_longlong] * 15
+    assert types[30:] == [ctypes.c_float] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]

@@ -424,14 +424,15 @@ def test_extra_builds_share_the_batch_and_get_libraries_of_their_own(
 
 def test_production_k1_has_no_trap_and_the_watchdog_only_one():
     """ptxas ignores ``setmaxnreg`` in a kernel that can ``__trap()``: the
-    production build of K1's TMA kernel (``flash_attention.cu`` and the
-    ``hopper.cuh`` it includes) has no trap outside the watchdog's
-    ``#ifdef REPRO_MBAR_WATCHDOG`` branch, which holds exactly one
-    (comments aside)."""
+    production builds of K1's TMA kernels (``flash_attention.cu``,
+    ``flash_attention_bwd.cu`` and the ``hopper.cuh`` both include) have
+    no trap outside the watchdog's ``#ifdef REPRO_MBAR_WATCHDOG`` branch,
+    which holds exactly one (comments aside)."""
     import re
     from repro_torch.kernels import build
     text = re.sub(r"//[^\n]*", "", "".join(
         (build.CSRC / n).read_text() for n in ("flash_attention.cu",
+                                               "flash_attention_bwd.cu",
                                                "hopper.cuh")))
     branch = re.compile(r"#ifdef REPRO_MBAR_WATCHDOG\n(.*?)#else\n",
                         re.DOTALL)

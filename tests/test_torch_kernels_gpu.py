@@ -672,6 +672,11 @@ BWD_SHAPES = [
     (1, 257, 257, 4, 4, 80, False, 0),      # hd 80 (padded), unmasked
     (1, 129, 129, 2, 1, 16, True, 40),      # hd 16, window, G = 2
     (1, 1024, 1024, 16, 4, 64, True, 0),    # G = 4 at S = 1024
+    # work tiles that no key or query reaches (their gradients stored as
+    # zeros, nothing loaded): query blocks before the first key (Sq > Sk,
+    # causal), and a key block older than every query's window
+    (1, 300, 40, 4, 2, 64, True, 0),
+    (1, 64, 300, 4, 2, 64, True, 16),
 ]
 
 
@@ -744,6 +749,57 @@ def test_flash_backward_is_deterministic_and_takes_strided_grads(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("hd,dv,kh", [(64, 64, 4), (128, 128, 16),
+                                       (192, 128, 16)])
+def test_flash_backward_watchdog_build_gives_the_production_bits(cuda, hd,
+                                                                 dv, kh):
+    """The backward's watchdog build (``-DREPRO_MBAR_WATCHDOG``: every
+    mbarrier wait traps after a bounded number of tries) against the plain
+    version at the bf16 gates, over more work tiles than SMs, and bit for
+    bit the production build's gradients; its launches count apart."""
+    dt, b, s, h = torch.bfloat16, 2, 1000, 16
+    q, k = _randn((b, s, h, hd), dt, cuda, 64), _randn((b, s, kh, hd), dt,
+                                                        cuda, 65)
+    v = _randn((b, s, kh, dv), dt, cuda, 66)
+    do = _randn((b, s, h, dv), dt, cuda, 67)
+    scale = hd ** -0.5
+    o, lse = kflash.flash_attention(q, k, v, scale=scale, return_lse=True)
+    n, w = kflash.bwd_launches.count, kflash.bwd_watchdog_launches.count
+    got = kflash.flash_attention_bwd_watchdog(q, k, v, o, lse, do, scale=scale)
+    torch.cuda.synchronize()
+    assert (kflash.bwd_launches.count, kflash.bwd_watchdog_launches.count) \
+        == (n, w + 1)
+    po, plse = ref.grouped_flash_ref(q, k, v, scale=scale, return_lse=True)
+    want = ref.grouped_flash_bwd_ref(q, k, v, po, plse, do, scale=scale)
+    for name, g, wnt in zip("qkv", got, want):
+        assert _rel_err(g, wnt) < TOL[dt], (name, _rel_err(g, wnt))
+        assert _norm_err(g, wnt) < NORM_TOL[dt], (name, _norm_err(g, wnt))
+    prod = kflash.flash_attention_bwd(q, k, v, o, lse, do, scale=scale)
+    assert all(torch.equal(x, y) for x, y in zip(got, prod))
+
+
+def test_flash_backward_copies_what_no_tensor_map_describes(cuda):
+    """bf16 K and V expanded over their heads (stride 0) and q one element
+    into its storage are copied before the tensor maps are encoded, each
+    counted in ``tma_copies``; dO as a transposed view is read as it is (a
+    map describes it).  The gradients equal those of packed copies of the
+    same inputs, bit for bit."""
+    dt, b, s, h, kh, hd = torch.bfloat16, 2, 300, 8, 2, 64
+    q = _randn((b * s * h * hd + 1,), dt, cuda, 68)[1:].view(b, s, h, hd)
+    k = _randn((b, s, 1, hd), dt, cuda, 69).expand(b, s, kh, hd)
+    v = _randn((b, s, 1, hd), dt, cuda, 70).expand(b, s, kh, hd)
+    do = _randn((b, h, s, hd), dt, cuda, 71).transpose(1, 2)
+    o, lse = kflash.flash_attention(q, k, v, return_lse=True)
+    c, n = kflash.tma_copies.count, kflash.bwd_launches.count
+    got = kflash.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert kflash.tma_copies.count == c + 3
+    assert kflash.bwd_launches.count == n + 1
+    packed = [t.contiguous() for t in (q, k, v, do)]
+    want = kflash.flash_attention_bwd(*packed[:3], o, lse, packed[3])
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 def _bwd_kernel_names(call, expect: int = 3) -> set:
     """Names of the device kernels ``call`` launches whose name holds
     ``bwd_``, from ``torch.profiler`` over two calls after one outside the
@@ -769,8 +825,8 @@ def _bwd_kernel_names(call, expect: int = 3) -> set:
 
 @pytest.mark.parametrize("hd", kflash.HEAD_DIMS)
 def test_flash_backward_launches_the_kernels_of_its_input_type(cuda, hd):
-    """bfloat16 runs dK/dV and dQ on the tensor cores (the ``wgmma``
-    kernels), float32 on the CUDA cores; both start with D's kernel."""
+    """bfloat16 runs dK/dV and dQ on the tensor cores (the warp-specialised
+    TMA kernels), float32 on the CUDA cores; both start with D's kernel."""
     launched = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, do = _bwd_inputs(1, 130, 130, 4, 2, hd, dtype, cuda)
@@ -778,23 +834,23 @@ def test_flash_backward_launches_the_kernels_of_its_input_type(cuda, hd):
         launched[dtype] = _bwd_kernel_names(
             lambda: kflash.flash_attention_bwd(q, k, v, o, lse, do))
     for dtype, names in launched.items():
-        wgmma = {n for n in names if "wgmma" in n}
+        tma = {n for n in names if "_tma_kernel" in n}
         assert len(names) == 3, (dtype, names)
         assert sum("bwd_delta_kernel" in n for n in names) == 1, names
         if dtype == torch.bfloat16:
-            assert (sum("flash_bwd_dkdv_wgmma_kernel" in n for n in wgmma),
-                    sum("flash_bwd_dq_wgmma_kernel" in n for n in wgmma)) == (
+            assert (sum("flash_bwd_dkdv_tma_kernel" in n for n in tma),
+                    sum("flash_bwd_dq_tma_kernel" in n for n in tma)) == (
                 1, 1), names
         else:
-            assert not wgmma, names
+            assert not tma, names
             assert (sum("bwd_dkdv_kernel" in n for n in names),
                     sum("bwd_dq_kernel" in n for n in names)) == (1, 1), names
 
 
 def test_flash_backward_at_mla_dims_launches_the_kernels_of_its_input_type(
         cuda):
-    """MLA's (192, 128): bfloat16 runs the ``wgmma`` kernels (dV and dK
-    blocks apart inside one dK/dV launch), float32 the CUDA-core ones."""
+    """MLA's (192, 128): bfloat16 runs the TMA kernels (dV and dK work
+    tiles apart inside one dK/dV launch), float32 the CUDA-core ones."""
     for dtype in (torch.float32, torch.bfloat16):
         q = _randn((1, 130, 4, 192), dtype, cuda, 74)
         k = _randn((1, 130, 4, 192), dtype, cuda, 75)
@@ -805,16 +861,16 @@ def test_flash_backward_at_mla_dims_launches_the_kernels_of_its_input_type(
             lambda: kflash.flash_attention_bwd(q, k, v, o, lse, do))
         assert len(names) == 3, (dtype, names)
         assert sum("bwd_delta_kernel" in n for n in names) == 1, names
-        wgmma = (sum("flash_bwd_dkdv_wgmma_kernel<192, 128>" in n
-                     for n in names),
-                 sum("flash_bwd_dq_wgmma_kernel<192, 128>" in n
-                     for n in names))
+        tma = (sum("flash_bwd_dkdv_tma_kernel<192, 128>" in n
+                   for n in names),
+               sum("flash_bwd_dq_tma_kernel<192, 128>" in n
+                   for n in names))
         cuda_cores = (sum("bwd_dkdv_kernel<192, 128>" in n for n in names),
                       sum("bwd_dq_kernel<192, 128>" in n for n in names))
         if dtype == torch.bfloat16:
-            assert wgmma == (1, 1) and cuda_cores == (0, 0), names
+            assert tma == (1, 1) and cuda_cores == (0, 0), names
         else:
-            assert wgmma == (0, 0) and cuda_cores == (1, 1), names
+            assert tma == (0, 0) and cuda_cores == (1, 1), names
 
 
 def test_grouped_flash_gradient_runs_the_kernels_not_the_plain_version(
@@ -986,27 +1042,32 @@ def test_scan_backward_builds_without_spill(cuda, tmp_path, monkeypatch):
 
 
 # Spill stores K1's bf16 backward kernels may have, as the design notes in
-# csrc/flash_attention_bwd.cu state them: the dK/dV kernel at hd 128 (dK,
-# dV, S^T and dP^T in registers); every other one none, MLA's (192, 128)
-# included (its dQ kernel takes 32-key tiles for that).
-BWD_SPILL_STORES = {"flash_bwd_dkdv_wgmma_kernelILi128ELi128E": 48}
+# csrc/flash_attention_bwd.cu state them: none, at every pair of dims (a
+# consumer warpgroup holds 240 registers by setmaxnreg).
+BWD_SPILL_STORES = {}
 
 
 def test_flash_backward_wgmma_kernels_spill_no_more_than_stated(
         cuda, tmp_path, monkeypatch):
+    """ptxas's spill stores of each bf16 backward kernel (the warp-
+    specialised dK/dV and dQ kernels, each on ``wgmma``) at each pair of
+    dims, against ``BWD_SPILL_STORES``; and no role's setmaxnreg dropped
+    nor wgmma serialised."""
     from repro_torch.kernels import build
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     _, _, log_ = build.build(("flash_attention_bwd",))["flash_attention_bwd"]
     spills, name = {}, None
     for ln in log_.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"flash_bwd_\w+?_wgmma_kernelILi\d+ELi\d+E", ln)
+            m = re.search(r"flash_bwd_\w+?_tma_kernelILi\d+ELi\d+E", ln)
             name = m.group(0) if m else None
         elif name and (m := re.search(r"(\d+) bytes spill stores", ln)):
             spills[name] = int(m.group(1))
     assert len(spills) == 2 * (len(kflash.HEAD_DIMS) + len(kflash.DIM_PAIRS))
     over = {n: b for n, b in spills.items() if b > BWD_SPILL_STORES.get(n, 0)}
     assert not over, spills
+    assert not [ln for ln in log_.splitlines()
+                if "setmaxnreg" in ln.lower() or "serializ" in ln.lower()]
 
 
 def test_scan_backward_launches_the_kernels_of_its_input_type(cuda):
@@ -1476,8 +1537,10 @@ def test_a_non_contiguous_shard_reaches_the_kernel(nccl_mesh, monkeypatch):
     and the kernel takes it, forward and backward, as it takes the
     contiguous tensor; the plain version is never called.  The same view
     passed to the wrapper directly is copied there (bf16, counted in
-    ``tma_copies``); under ``local_map`` nothing is copied for a tensor
-    map."""
+    ``tma_copies``); under ``local_map`` the forward copies nothing for a
+    tensor map, and the backward copies one input: the gradient of
+    ``out.sum()``, ones expanded with every stride 0, which no tensor map
+    describes."""
     from torch.distributed.tensor import DTensor, Replicate
     cuda = torch.device("cuda")
     for name in ("grouped_flash_ref", "grouped_flash_bwd_ref",
@@ -1501,7 +1564,7 @@ def test_a_non_contiguous_shard_reaches_the_kernel(nccl_mesh, monkeypatch):
     torch.cuda.synchronize()
     assert (kflash.launches.count, kflash.bwd_launches.count) == (
         n[0] + 1, n[1] + 1)
-    assert kflash.tma_copies.count == c
+    assert kflash.tma_copies.count == c + 1
     pq = qt.contiguous().requires_grad_(True)
     pout = ops.grouped_flash(pq, k, v)
     pg, = torch.autograd.grad(pout.sum(), pq)
