@@ -30,7 +30,11 @@ Phases, each printed on its own line and each fatal:
                of each at each pair of dims, no wgmma serialised nor
                setmaxnreg dropped, HGMMA in each one's SASS, its watchdog
                build's ptxas beside it; no
-               spill in K3's backward (``csrc/mlstm_scan_bwd.cu``); K1's
+               spill in K3's backward (``csrc/mlstm_scan_bwd.cu``), its
+               warp-specialised kernels' register split kept (no wgmma
+               serialised or waited on by ptxas, no setmaxnreg dropped),
+               no trap in the production build's SASS and one in the
+               watchdog build's; K1's
                bf16 forward (``flash_fwd_tma_kernel``): registers, spill
                stores and serialised wgmma by ptxas, HGMMA in the SASS of
                each of its six instantiations
@@ -71,7 +75,8 @@ Phases, each printed on its own line and each fatal:
                production build's bits (``kernels.parity.k1_bwd_watchdog``);
                its device ms by kernel and grids at every training shape
                (``flash_bwd_study.SHAPES``) beside its bound and the library's
-               backward (``kernels.time.k1_bwd_shape``);
+               backward (``kernels.time.k1_bwd_shape``); K3's backward's
+               watchdog build likewise (``kernels.parity.k3_bwd_watchdog``);
                the backward kernels of this slice (``kernels.parity.bwd2``)
                against their plain gradients at the same gates: K3's at
                xlstm's dk = dv = 512, hymba's SSD heads, a ragged S and S
@@ -209,23 +214,6 @@ SCAN_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}   # bf16: x max(1, |ref|)
 MODEL_TOL = 1e-3
 
 
-def hgmma_counts(build, path) -> dict:
-    """HGMMA (tensor-core) instructions in each kernel of a built library's
-    SASS (cuobjdump), by mangled kernel name."""
-    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    hgmma, name = {}, None
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            name = ln.split("Function :")[1].strip()
-            hgmma[name] = 0
-        elif name and "HGMMA" in ln:
-            hgmma[name] += 1
-    return hgmma
-
-
 def ptxas_by_kernel(log_: str, pattern, name) -> dict:
     """ptxas's registers a thread and spill stores of each kernel whose
     mangled name the regex ``pattern`` matches, from a build's
@@ -244,8 +232,10 @@ def ptxas_by_kernel(log_: str, pattern, name) -> dict:
 
 
 # K3's backward on the tensor cores (bf16): the state walk forward <1> and
-# in reverse <-1> (mangled ILi1E, ILin1E), the normaliser, the gradient
-SCAN_BWD_WGMMA = re.compile(r"(scan_bwd_\w+?_wgmma_kernel)(?:ILi(n?)(\d+)E)?")
+# in reverse <-1> (mangled ILi1E, ILin1E) and the gradient kernel, warp
+# specialised on TMA, and the normaliser
+SCAN_BWD_WGMMA = re.compile(
+    r"(?<=\d)(scan_bwd_[a-z_]+?_(?:wgmma|tma)_kernel)(?:ILi(n?)(\d+)E)?")
 SCAN_BWD_WGMMA_KERNELS = 4
 
 
@@ -257,17 +247,28 @@ def scan_bwd_name(m) -> str:
 def check_scan_build(build, built) -> None:
     """ptxas reports no spill in the mLSTM scan or its backward (when this
     run built them), and the SASS of the scan's bf16 kernels and of its
-    backward's bf16 kernels (``scan_bwd_*_wgmma_kernel``) holds tensor-core
-    instructions (HGMMA); each backward wgmma kernel's registers and spill
-    stores are printed."""
+    backward's bf16 kernels (``scan_bwd_*_tma_kernel`` and the normaliser)
+    holds tensor-core instructions (HGMMA); each backward tensor-core
+    kernel's registers and spill stores are printed.  The backward's
+    production build keeps its register split (no wgmma serialised or
+    waited on by ptxas, no setmaxnreg dropped) and holds no trap (BPT.TRAP
+    in its SASS), its watchdog build does."""
     path, _, log_ = built["mlstm_scan"]
     bwd_path, _, bwd_log = built["mlstm_scan_bwd"]
+    w_path, _, w_log = next(v for key, v in built.items()
+                            if key.startswith("mlstm_scan_bwd -D"))
+    split = [ln.strip() for ln in bwd_log.splitlines()
+             if "serializ" in ln.lower() or "setmaxnreg" in ln.lower()
+             or "warpgroup.wait is injected" in ln]
+    traps = {w: sum(c for n, c in build.sass_counts(pth, "TRAP").items()
+                    if "scan_bwd" in n)
+             for w, pth in (("production", bwd_path), ("watchdog", w_path))}
     spills = [ln.strip() for ln in (log_ + bwd_log).splitlines()
               if re.search(r"[1-9]\d* bytes spill", ln)]
-    hgmma = hgmma_counts(build, path)
+    hgmma = build.sass_counts(path, "HGMMA")
     wgmma = {n: c for n, c in hgmma.items() if "mlstm_wgmma_kernel" in n}
     bwd_hgmma = {scan_bwd_name(m): c
-                 for n, c in hgmma_counts(build, bwd_path).items()
+                 for n, c in build.sass_counts(bwd_path, "HGMMA").items()
                  if (m := SCAN_BWD_WGMMA.search(n))}
     log("build.mlstm_scan", spill_lines=spills, hgmma_per_kernel=wgmma,
         built_here=bool(log_), bwd_built_here=bool(bwd_log),
@@ -275,11 +276,16 @@ def check_scan_build(build, built) -> None:
                        if "registers" in ln],
         bwd_wgmma_ptxas=ptxas_by_kernel(bwd_log, SCAN_BWD_WGMMA,
                                         scan_bwd_name),
-        bwd_hgmma_per_kernel=bwd_hgmma)
+        bwd_hgmma_per_kernel=bwd_hgmma, bwd_register_split_lines=split,
+        bwd_sass_traps=traps,
+        bwd_watchdog_ptxas=ptxas_by_kernel(w_log, SCAN_BWD_WGMMA,
+                                           scan_bwd_name))
     if spills or not wgmma or not all(wgmma.values()):
         raise AssertionError(f"mlstm_scan: spills {spills}, HGMMA {hgmma}")
     if len(bwd_hgmma) != SCAN_BWD_WGMMA_KERNELS or not all(bwd_hgmma.values()):
         raise AssertionError(f"mlstm_scan_bwd: HGMMA {bwd_hgmma}")
+    if split or traps["production"] or not traps["watchdog"]:
+        raise AssertionError(f"mlstm_scan_bwd: {split}, traps {traps}")
 
 
 # K1's bf16 backward: the warp-specialised dK/dV and dQ kernels at each
@@ -304,7 +310,7 @@ def check_bwd_build(build, built) -> None:
     path, _, log_ = built["flash_attention_bwd"]
     BWD_PTXAS.update(ptxas_by_kernel(log_, BWD_TMA, bwd_name))
     hgmma = {bwd_name(m): c
-             for n, c in hgmma_counts(build, path).items()
+             for n, c in build.sass_counts(path, "HGMMA").items()
              if (m := BWD_TMA.search(n))}
     serialised = [ln.strip() for ln in log_.splitlines()
                   if "serializ" in ln.lower()]
@@ -341,7 +347,7 @@ def check_flash_build(build, built) -> None:
     path, _, log_ = built["flash_attention"]
     FWD_PTXAS.update(ptxas_by_kernel(log_, FWD_TMA, bwd_name))
     hgmma = {bwd_name(m): c
-             for n, c in hgmma_counts(build, path).items()
+             for n, c in build.sass_counts(path, "HGMMA").items()
              if (m := FWD_TMA.search(n))}
     serialised = [ln.strip() for ln in log_.splitlines()
                   if "serializ" in ln.lower()]
@@ -966,6 +972,37 @@ def k1_bwd_watchdog(ref, kflash) -> list:
     return cases
 
 
+def k3_bwd_watchdog(ref, kscan) -> list:
+    """K3's backward on its watchdog build (``mlstm_scan_bwd_watchdog``,
+    built beside the others) at xlstm's heads, hymba's SSD heads and dims
+    that are not multiples of 64, against the plain version (bf16 gates)
+    and whether it gives the production build's bits; its launches count
+    apart."""
+    dt, cases = torch.bfloat16, []
+    for j, (bh, s, dk, dv, scale, qk, ssd) in enumerate((
+            (4, 256, 512, 512, None, 1.0, False),
+            (50, 256, 16, 64, 1.0, 0.5, True),
+            (3, 130, 32, 96, None, 1.5, False))):
+        x = scan_bwd_inputs(bh, s, dk, dv, dt, 670 + 10 * j, qk, ssd)
+        n, w = kscan.bwd_launches.count, kscan.bwd_watchdog_launches.count
+        got = kscan.mlstm_scan_bwd_watchdog(*x, scale=scale)
+        torch.cuda.synchronize()
+        launched = (kscan.bwd_watchdog_launches.count - w,
+                    kscan.bwd_launches.count - n)
+        prod = kscan.mlstm_scan_bwd(*x, scale=scale)
+        e, ne = grad_errors(got, ref.mlstm_chunkwise_bwd_ref(*x, scale=scale))
+        cases.append({"shape": [bh, s, dk, dv], "max_rel_err": e,
+                      "norm_err": ne, "production_bits": all(
+                          torch.equal(a, b) for a, b in zip(got, prod)),
+                      "launches_watchdog_production": list(launched)})
+        if not (e < TOL[dt] and ne < NORM_TOL[dt] and launched == (1, 0)
+                and cases[-1]["production_bits"]):
+            raise AssertionError(f"K3 backward watchdog build: {cases[-1]}")
+    log("kernels.parity.k3_bwd_watchdog", cases=cases,
+        flags=list(kscan.WATCHDOG_FLAGS))
+    return cases
+
+
 def backward_phase(ref, kflash) -> dict:
     """K1's backward against ``ref.grouped_flash_bwd_ref`` on dq, dk and dv
     (float32 1e-4, bf16 3e-2, of max(1, max |plain|); and the error's norm
@@ -1362,8 +1399,9 @@ def grad_errors(got, want) -> tuple:
 # bf16 backward kernels on the tensor cores, and the CUDA-core kernels
 # they replaced on the bf16 path (float32 still runs those): K3's, and K1's
 # at MLA's (192, 128)
-SCAN_BWD_BF16 = ("scan_bwd_walk_wgmma_kernel", "scan_bwd_norm_wgmma_kernel",
-                 "scan_bwd_grad_wgmma_kernel")
+SCAN_BWD_BF16 = ("scan_bwd_gates_warp_kernel", "scan_bwd_walk_tma_kernel",
+                 "scan_bwd_norm_wgmma_kernel", "scan_bwd_grad_tma_kernel",
+                 "scan_bwd_final_kernel")
 SCAN_BWD_F32 = ("scan_bwd_outer_kernel", "scan_bwd_carry_kernel",
                 "scan_bwd_norm_kernel", "scan_bwd_grad_kernel")
 FLASH_BWD_BF16 = ("flash_bwd_dkdv_tma_kernel", "flash_bwd_dq_tma_kernel")
@@ -1513,6 +1551,15 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
                                                              iters=3)
         check_ran(d["device_ms_by_kernel" + tag], SCAN_BWD_BF16,
                   SCAN_BWD_F32, f"mlstm_scan_bwd bf16 BH {bh} dk {dk}")
+        # the chunk states' bytes a call: the walks write C and dC as bf16,
+        # the gradient kernel reads C once and dC twice; and their rates
+        by = d["device_ms_by_kernel" + tag]
+        cells = bh * -(-s // kscan.BWD_CHUNK) * dk * dv
+        d["state_bytes" + tag] = {"walks": 4 * cells, "gradient": 6 * cells,
+                                  "total": 10 * cells}
+        d["state_tb_per_s" + tag] = {
+            "walks": 4 * cells / by["scan_bwd_walk_tma_kernel"] / 1e9,
+            "gradient": 6 * cells / by["scan_bwd_grad_tma_kernel"] / 1e9}
         d["bound_ms" + tag], by = RA.bound_ms(W.scan_bwd(q, k, v, logf, i))
         if not tag:
             d["bound_by"] = by
@@ -1530,6 +1577,7 @@ def backward2_phase(ref, kflash, kscan, kmoe, capacity) -> dict:
     d["library_ms"] = None
     d["library"] = "none: no PyTorch call computes the scan or its gradient"
     d["max_abs_err_f32"] = errs["float32"][0]
+    d["watchdog"] = k3_bwd_watchdog(ref, kscan)
     d["shape"] = ("BH=16 S=2048 dk=dv=512 (xlstm-350m, B=4 H=4; _hymba: "
                   "BH=50 S=2048 dk=16 dv=64 scale 1.0) bf16")
     log("kernels.time", kernel="mlstm_scan_bwd", **d)
@@ -2209,6 +2257,7 @@ def bwd_counters() -> dict:
             "flash_attention_tma_copies": kflash.tma_copies,
             "flash_attention_bwd": kflash.bwd_launches,
             "mlstm_scan": kscan.launches, "mlstm_scan_bwd": kscan.bwd_launches,
+            "mlstm_scan_tma_copies": kscan.tma_copies,
             "moe_topk": kmoe.launches, "moe_route_bwd": kmoe.bwd_launches}
 
 
@@ -3318,7 +3367,8 @@ def main() -> int:
 
     t0 = time.monotonic()
     built = build.build(extra=(("flash_attention", kflash.WATCHDOG_FLAGS),
-                               ("flash_attention_bwd", kflash.WATCHDOG_FLAGS)))
+                               ("flash_attention_bwd", kflash.WATCHDOG_FLAGS),
+                               ("mlstm_scan_bwd", kscan.WATCHDOG_FLAGS)))
     ptxas = {name: [ln.strip() for ln in log_.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, (_, _, log_) in built.items()}
@@ -3582,6 +3632,13 @@ def main() -> int:
     if any(copies.values()) or kflash.tma_copies.count:
         raise AssertionError(f"K1 copied inputs on a model path: {copies}, "
                              f"{kflash.tma_copies.count} in all")
+    # K3's backward's likewise, on every training path
+    scan_copies = {p: c["mlstm_scan_tma_copies"] for p, c in by_path.items()
+                   if "mlstm_scan_tma_copies" in c}
+    log("k3.copies", by_path=scan_copies, in_all=kscan.tma_copies.count)
+    if any(scan_copies.values()) or kscan.tma_copies.count:
+        raise AssertionError(f"K3's backward copied inputs on a model path: "
+                             f"{scan_copies}, {kscan.tma_copies.count} in all")
     kernels = []
     for name, d in timed.items():
         extra = {k: v for k, v in d.items() if k not in (

@@ -138,6 +138,24 @@ def function(lib: str, symbol: str, argtypes: list, flags: tuple = ()):
     return fn
 
 
+def sass_counts(path, op: str) -> dict:
+    """The SASS lines of each kernel of the built library ``path`` that
+    hold ``op`` (``"HGMMA"``: tensor-core instructions; ``"TRAP"``), by
+    mangled kernel name, from ``cuobjdump -sass`` beside ``nvcc``."""
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            out[name] = 0
+        elif name and op in ln:
+            out[name] += 1
+    return out
+
+
 def aligned16(t) -> bool:
     """Whether every (.., row) of ``t`` starts on 16 bytes: the kernels
     copy rows in 16-byte chunks.  A fake tensor has no address; its

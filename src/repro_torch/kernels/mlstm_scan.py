@@ -27,12 +27,19 @@ the card is written at the top of the CUDA source.  The plain version is
 once a call in ``bwd_launches``, with ``ref.mlstm_chunkwise_bwd_ref`` as its
 plain version; ``ops.mlstm_scan`` reaches it through autograd.  The input
 type alone picks its kernels: bfloat16 runs six launches with every product
-on the tensor cores (``wgmma``: two walks over the chunks that carry the
-state and its gradient in float32 registers, the normaliser, the gradient
-kernel by 64-column tiles, the gates), bf16 operands and float32 sums;
-float32 runs seven launches on the CUDA cores, float32 throughout.  Every
-bfloat16 shape the forward takes (dk, dv multiples of 8, dk up to 512) runs
-the tensor-core route, hymba's dk 16, dv 64 included.
+on the tensor cores (``wgmma``: the gates; two walks over the chunks that
+carry the state and its gradient in float32 registers, their tiles brought
+by TMA; the normaliser; the gradient kernel by 64-column tiles, its tiles
+brought by TMA; the gate gradients), bf16
+operands and float32 sums; float32 runs seven launches on the CUDA cores,
+float32 throughout.  Every bfloat16 shape the forward takes (dk, dv
+multiples of 8, dk up to 512) runs the tensor-core route, hymba's dk 16, dv
+64 included.  The bf16 kernels read q, k, v and dh through tensor maps of
+packed rows: one that is not packed (``dh`` from autograd may not be) is
+copied first and counted in ``tma_copies``.  ``mlstm_scan_bwd_watchdog`` is
+the same call on a second build with ``-DREPRO_MBAR_WATCHDOG`` (every
+``mbarrier`` wait traps after a bounded number of tries, where the
+production build would hang), counted in ``bwd_watchdog_launches`` alone.
 """
 from __future__ import annotations
 
@@ -67,13 +74,17 @@ CP_MAX_SCRATCH = 64 << 20
 
 launches = build.LaunchCounter()
 bwd_launches = build.LaunchCounter()
+bwd_watchdog_launches = build.LaunchCounter()   # the watchdog build's alone
+tma_copies = build.LaunchCounter()   # bf16 inputs of the backward copied
+WATCHDOG_FLAGS = ("-DREPRO_MBAR_WATCHDOG",)
+TMA_REFUSED = 100000   # hopper.cuh: + the CUresult of a refused tensor map
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 10
              + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 23 + [ctypes.c_int] * 4
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 4
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -186,9 +197,66 @@ def mlstm_scan_bwd(q, k, v, logf, i, dh, *, scale: float | None = None):
     """The gradient of ``mlstm_scan`` on the card.  q, k: (BH, S, dk); v,
     dh: (BH, S, dv), CUDA tensors of one type, float32 or bfloat16; logf,
     i: (BH, S) gates.  Returns (dq, dk, dv) contiguous in the inputs' type
-    and (dlogf, di) float32.  Inputs that are not contiguous (``dh`` from
-    autograd may not be) are copied first; ``scale`` defaults to dk **
-    -0.5."""
+    and (dlogf, di) float32.  Inputs that are not contiguous are copied
+    first (bf16 ones counted in ``tma_copies``); ``scale`` defaults to dk
+    ** -0.5."""
+    return _backward(q, k, v, logf, i, dh, scale, (), (bwd_launches,))
+
+
+def mlstm_scan_bwd_watchdog(q, k, v, logf, i, dh, *,
+                            scale: float | None = None):
+    """``mlstm_scan_bwd`` on the watchdog build (``WATCHDOG_FLAGS``),
+    counted in ``bwd_watchdog_launches`` alone."""
+    return _backward(q, k, v, logf, i, dh, scale, WATCHDOG_FLAGS,
+                     (bwd_watchdog_launches,))
+
+
+def _packed(t):
+    """``t`` as the backward reads it: itself, or a fresh packed copy where
+    it is not packed and 16-byte aligned; a bf16 copy (the tensor maps read
+    packed rows) is counted in ``tma_copies``."""
+    if t.is_contiguous() and build.aligned16(t):
+        return t
+    if t.dtype == torch.bfloat16:
+        tma_copies.add()
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def bwd_scratch(bh: int, s: int, dk: int, dv: int, dtype, device) -> list:
+    """The backward's scratch, in the entry point's order (None where the
+    route reads nothing): la, the per-step rows, the chunk totals, C, n, dC,
+    dn, P, Y, the shares, the bf16 copies of C and dC, the gradient
+    kernel's bf16 operands dS o D and S, and the sums of E and F."""
+    chunk = BWD_CHUNK
+    nc = -(-s // chunk)
+
+    def buf(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+    nd, ne = -(-dk // 64), -(-dv // 64)
+    if dtype == torch.bfloat16:
+        # the states before and the gradients after each chunk as bf16
+        # operand copies, nothing in float32; the tiles' shares of the
+        # normaliser's row dots (ne + 1 rows a dk tile), of dA and dw (2
+        # rows) and of <C, dC>
+        f32 = (None,) * 4                                   # C, dC, P, Y
+        bf = (buf(bh * nc * nd * ((ne + 3) * chunk + 1)),
+              *(buf(bh, nc, *shape, dtype=torch.bfloat16)
+                for shape in ((dk, dv), (dk, dv), (chunk, chunk),
+                              (chunk, chunk))),
+              buf(bh, nc, 3, chunk))
+    else:
+        f32 = (buf(bh, nc, dk, dv), buf(bh, nc, dk, dv),
+               buf(bh, nc, chunk, chunk), buf(bh, nc, chunk, chunk))
+        bf = (None,) * 6
+    return [torch.empty((bh, nc * chunk), dtype=torch.float64, device=device),
+            buf(4, bh, nc * chunk), buf(bh, nc),
+            f32[0], buf(bh, nc, dk), f32[1], buf(bh, nc, dk),  # C, n, dC, dn
+            f32[2], f32[3], *bf]
+
+
+def _backward(q, k, v, logf, i, dh, scale, flags: tuple, counters: tuple):
+    """One call of the backward's launches from the library built with
+    ``flags``, added to each of ``counters`` once the driver took them."""
     _check(q, k, v, logf, i)
     if dh.device != q.device or dh.dtype != q.dtype or dh.shape != v.shape:
         raise ValueError(f"mlstm_scan_bwd: dh {tuple(dh.shape)} {dh.dtype} "
@@ -197,48 +265,31 @@ def mlstm_scan_bwd(q, k, v, logf, i, dh, *, scale: float | None = None):
     bh, s, dk = q.shape
     dv = v.shape[-1]
     scale = dk ** -0.5 if scale is None else scale
-    q, k, v, dh = (t.contiguous() for t in (q, k, v, dh))
-    if not build.aligned16(dh):
-        dh = dh.clone()
+    q, k, v, dh = (_packed(t) for t in (q, k, v, dh))
     logf = logf.float().contiguous()
     i = i.float().contiguous()
     dev = q.device
     grads = [torch.empty_like(t) for t in (q, k, v)]
     dlogf = torch.empty((bh, s), dtype=torch.float32, device=dev)
     di = torch.empty((bh, s), dtype=torch.float32, device=dev)
-    chunk = BWD_CHUNK
-    nc = -(-s // chunk)
-
-    def buf(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-    bf16 = q.dtype == torch.bfloat16
-    nd, ne = -(-dk // 64), -(-dv // 64)
-    # the state before each chunk, float32; for float32 its gradient after
-    # each chunk too, for bfloat16 both as bf16 operand copies instead
-    states = (buf(bh, nc, dk, dv), None if bf16 else buf(bh, nc, dk, dv))
-    copies = ((buf(bh, nc, dk, dv, dtype=torch.bfloat16),
-               buf(bh, nc, dk, dv, dtype=torch.bfloat16)) if bf16
-              else (None, None))
-    scratch = [torch.empty((bh, nc * chunk), dtype=torch.float64, device=dev),
-               buf(4, bh, nc * chunk), buf(bh, nc),
-               states[0], buf(bh, nc, dk),                 # C, n
-               states[1], buf(bh, nc, dk),                 # dC, dn
-               buf(bh, nc, chunk, chunk), buf(bh, nc, chunk, chunk),  # P, Y
-               # bf16: each 64-column tile of dk's shares of dA and dw (a
-               # row each), each 64 x 64 state tile's share of <C, dC>
-               buf(bh * nc * nd * (2 * chunk + ne)) if bf16 else None,
-               *copies]
+    scratch = bwd_scratch(bh, s, dk, dv, q.dtype, dev)
     if isinstance(q, FakeTensor):               # shapes alone: no launch
         return (*grads, dlogf, di)
-    fn = build.function("mlstm_scan_bwd", "mlstm_scan_bwd", _BWD_ARGTYPES)
+    fn = build.function("mlstm_scan_bwd", "mlstm_scan_bwd", _BWD_ARGTYPES,
+                        flags)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dh.data_ptr(),
              logf.data_ptr(), i.data_ptr(),
              *(t.data_ptr() for t in grads), dlogf.data_ptr(), di.data_ptr(),
              *(0 if t is None else t.data_ptr() for t in scratch), bh, s, dk,
              dv, float(scale),
              DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err >= TMA_REFUSED:
+        raise ValueError(f"mlstm_scan_bwd: the driver refused a tensor map "
+                         f"of q, k, v, dh or the states (CUresult "
+                         f"{err - TMA_REFUSED})")
     build.check(err, "mlstm_scan_bwd")
-    bwd_launches.add()
+    for c in counters:
+        c.add()
     return (*grads, dlogf, di)
 
 

@@ -424,15 +424,17 @@ def test_extra_builds_share_the_batch_and_get_libraries_of_their_own(
 
 def test_production_k1_has_no_trap_and_the_watchdog_only_one():
     """ptxas ignores ``setmaxnreg`` in a kernel that can ``__trap()``: the
-    production builds of K1's TMA kernels (``flash_attention.cu``,
-    ``flash_attention_bwd.cu`` and the ``hopper.cuh`` both include) have
-    no trap outside the watchdog's ``#ifdef REPRO_MBAR_WATCHDOG`` branch,
+    production builds of K1's and K3's backward's TMA kernels
+    (``flash_attention.cu``, ``flash_attention_bwd.cu``,
+    ``mlstm_scan_bwd.cu`` and the ``hopper.cuh`` they include) have no
+    trap outside the watchdog's ``#ifdef REPRO_MBAR_WATCHDOG`` branch,
     which holds exactly one (comments aside)."""
     import re
     from repro_torch.kernels import build
     text = re.sub(r"//[^\n]*", "", "".join(
         (build.CSRC / n).read_text() for n in ("flash_attention.cu",
                                                "flash_attention_bwd.cu",
+                                               "mlstm_scan_bwd.cu",
                                                "hopper.cuh")))
     branch = re.compile(r"#ifdef REPRO_MBAR_WATCHDOG\n(.*?)#else\n",
                         re.DOTALL)

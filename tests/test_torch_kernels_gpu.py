@@ -1029,16 +1029,37 @@ def test_scan_backward_kernel_matches_plain(cuda, dtype, bh, s, dk, dv, scale,
 
 def test_scan_backward_builds_without_spill(cuda, tmp_path, monkeypatch):
     """ptxas reports no spill in any kernel of K3's backward, the float32
-    CUDA-core kernels and the bf16 ``wgmma`` ones alike (dk up to 512
-    changes no register count: the tiles are 64 x 64 whatever dk is)."""
+    CUDA-core kernels and the bf16 tensor-core ones alike (dk up to 512
+    changes no register count: the tiles are 64 x 64 whatever dk is), and
+    the warp-specialised kernels keep their register split: no wgmma
+    serialised or waited on by ptxas, no setmaxnreg dropped."""
     from repro_torch.kernels import build
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     _, _, log_ = build.build(("mlstm_scan_bwd",))["mlstm_scan_bwd"]
-    for name in ("scan_bwd_grad_kernel", "scan_bwd_walk_wgmma_kernel",
-                 "scan_bwd_norm_wgmma_kernel", "scan_bwd_grad_wgmma_kernel"):
+    for name in ("scan_bwd_grad_kernel", "scan_bwd_walk_tma_kernel",
+                 "scan_bwd_norm_wgmma_kernel", "scan_bwd_grad_tma_kernel",
+                 "scan_bwd_gates_warp_kernel", "scan_bwd_final_kernel"):
         assert name in log_, name
     assert not [ln for ln in log_.splitlines()
                 if re.search(r"[1-9]\d* bytes spill", ln)], log_
+    assert not [ln for ln in log_.splitlines()
+                if "serializ" in ln.lower() or "setmaxnreg" in ln.lower()
+                or "warpgroup.wait is injected" in ln], log_
+
+
+def test_scan_backward_production_build_holds_no_trap(cuda, tmp_path,
+                                                      monkeypatch):
+    """No kernel of K3's backward's production build can trap (a trap
+    makes ptxas ignore setmaxnreg); its watchdog build's mbarrier waits
+    can (``BPT.TRAP`` in the SASS)."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    built = build.build(("mlstm_scan_bwd",),
+                        extra=(("mlstm_scan_bwd", kscan.WATCHDOG_FLAGS),))
+    traps = {key: sum(build.sass_counts(path, "TRAP").values())
+             for key, (path, _, _) in built.items()}
+    assert traps["mlstm_scan_bwd"] == 0, traps
+    assert traps["mlstm_scan_bwd -DREPRO_MBAR_WATCHDOG"] > 0, traps
 
 
 # Spill stores K1's bf16 backward kernels may have, as the design notes in
@@ -1071,14 +1092,14 @@ def test_flash_backward_wgmma_kernels_spill_no_more_than_stated(
 
 
 def test_scan_backward_launches_the_kernels_of_its_input_type(cuda):
-    """bfloat16 runs K3's backward on the tensor cores (the two state walks,
-    the normaliser and the gradient kernel on ``wgmma``, then the gates'
-    kernel); float32 keeps the CUDA-core kernels.  Both start with the
-    gates."""
-    bf16 = {"scan_bwd_gates_kernel", "scan_bwd_walk_wgmma_kernel<1>",
-            "scan_bwd_walk_wgmma_kernel<-1>", "scan_bwd_norm_wgmma_kernel",
-            "scan_bwd_grad_wgmma_kernel", "scan_bwd_final_kernel"}
-    f32 = {"scan_bwd_gates_kernel", "scan_bwd_outer_kernel",
+    """bfloat16 runs K3's backward on the tensor cores (the gates a warp a
+    chunk, the two state walks and the gradient kernel warp specialised on
+    TMA, the normaliser on ``wgmma``, then the gate gradients' kernel);
+    float32 keeps the CUDA-core kernels after the same gates' kernel."""
+    bf16 = {"scan_bwd_gates_warp_kernel", "scan_bwd_walk_tma_kernel<1>",
+            "scan_bwd_walk_tma_kernel<-1>", "scan_bwd_norm_wgmma_kernel",
+            "scan_bwd_grad_tma_kernel", "scan_bwd_final_kernel"}
+    f32 = {"scan_bwd_gates_warp_kernel", "scan_bwd_outer_kernel",
            "scan_bwd_carry_kernel", "scan_bwd_norm_kernel",
            "scan_bwd_grad_kernel"}
     for dtype, want in ((torch.bfloat16, bf16), (torch.float32, f32)):
@@ -1110,6 +1131,49 @@ def test_scan_backward_at_training_shapes_matches_plain(cuda, bh, s, dk, dv,
         assert err < NORM_TOL[torch.bfloat16], (name, err)
     again = kscan.mlstm_scan_bwd(q, k, v, logf, i, dh, scale=scale)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,scale,qk", [
+    (4, 256, 512, 512, None, 2.0), (50, 256, 16, 64, 1.0, 1.0),
+    (3, 130, 32, 96, None, 1.5)])
+def test_scan_backward_watchdog_build_gives_the_production_bits(
+        cuda, bh, s, dk, dv, scale, qk):
+    """K3's backward on its watchdog build (``-DREPRO_MBAR_WATCHDOG``:
+    every mbarrier wait traps after a bounded number of tries) against the
+    plain version at the bf16 gates, and bit for bit the production
+    build's gradients; its launches count apart."""
+    x = _scan_bwd_inputs(bh, s, dk, dv, qk, torch.bfloat16, cuda,
+                         ssd=scale == 1.0)
+    n, w = kscan.bwd_launches.count, kscan.bwd_watchdog_launches.count
+    got = kscan.mlstm_scan_bwd_watchdog(*x, scale=scale)
+    torch.cuda.synchronize()
+    assert (kscan.bwd_launches.count, kscan.bwd_watchdog_launches.count) \
+        == (n, w + 1)
+    want = ref.mlstm_chunkwise_bwd_ref(*x, scale=scale)
+    for name, g, wnt in zip(("dq", "dk", "dv", "dlogf", "di"), got, want):
+        assert _rel_err(g, wnt) < TOL[torch.bfloat16], (name, _rel_err(g, wnt))
+        err = _norm_err_or_zero(g, wnt)
+        assert err < NORM_TOL[torch.bfloat16], (name, err)
+    prod = kscan.mlstm_scan_bwd(*x, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, prod))
+
+
+def test_scan_backward_copies_what_no_tensor_map_describes(cuda):
+    """A bf16 dh that is not packed (a transposed view, as autograd may
+    hand it on) is copied before the tensor maps are encoded and counted
+    in ``tma_copies``; packed inputs are not.  The gradients equal those
+    of the packed copy, bit for bit."""
+    q, k, v, logf, i, dh = _scan_bwd_inputs(2, 200, 64, 64, 2.0,
+                                            torch.bfloat16, cuda, ssd=False)
+    strided = dh.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not strided.is_contiguous()
+    c = kscan.tma_copies.count
+    a = kscan.mlstm_scan_bwd(q, k, v, logf, i, dh)
+    assert kscan.tma_copies.count == c
+    b = kscan.mlstm_scan_bwd(q, k, v, logf, i, strided)
+    torch.cuda.synchronize()
+    assert kscan.tma_copies.count == c + 1
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_flash_backward_at_mla_training_shape_matches_plain(cuda):

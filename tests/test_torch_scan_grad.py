@@ -5,15 +5,16 @@ gates the card holds the kernels to (the error's norm below 1e-2 of the
 plain gradient's, its max below 3e-2 of max(1, max |plain|)).
 
 The kernels feed the tensor cores bf16 operands and sum in float32: the
-states C and dC (bf16 copies beside the float32 C), G = dh / den where it
-is an operand (S^T G; G C^T is dh C^T scaled by 1 / den afterwards), the
-masked scores S and dS o D, and the two operands a per-step weight is
-folded into (w o v in the forward walk, scale A o G in the reverse walk).
-Both carries, 1 / den, da, <C, dC> and the gate gradients stay float32;
-the cumulative gate sums float64.  Without rounding the emulation is the
-plain gradient (and ``jax.vjp`` of the reference's differentiable scan),
-so the gap the gates measure is the rounding alone.  Inputs come from
-numpy with a fixed seed and are bf16 values, as the kernels get them."""
+states C and dC (the bf16 copies are all that is kept of them), G = dh /
+den where it is an operand (S^T G; G C^T is dh C^T scaled by 1 / den
+afterwards), the masked scores S and dS o D, and the two operands a
+per-step weight is folded into (w o k in the forward walk, scale A rden o q
+in the reverse walk); <C, dC> is summed in float32 from the two bf16
+copies.  Both carries, 1 / den, da and the gate gradients stay float32;
+the cumulative gate sums float64.  Without rounding the emulation is the plain
+gradient (and ``jax.vjp`` of the reference's differentiable scan), so the
+gap the gates measure is the rounding alone.  Inputs come from numpy with
+a fixed seed and are bf16 values, as the kernels get them."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,8 +66,8 @@ def _scan_bwd_rounded(q, k, v, logf, i, dh, scale, rnd):
     w = ic * (total64[..., None] - la64).float().exp()
     tr = lambda x: x.transpose(-1, -2)                          # noqa: E731
 
-    # the forward walk: C = exp(total) C + k^T (w o v), w o v rounded
-    c_loc = tr(kc) @ rnd(vc * w[..., None])
+    # the forward walk: C = exp(total) C + (w o k)^T v, w o k rounded
+    c_loc = tr(rnd(kc * w[..., None])) @ vc
     n_loc = (w[..., None, :] @ kc)[..., 0, :]
     c_st = torch.zeros((bh, nc, dk, dv))
     n_st = torch.zeros((bh, nc, dk))
@@ -89,9 +90,9 @@ def _scan_bwd_rounded(q, k, v, logf, i, dh, scale, rnd):
     rden = 1.0 / a.abs().clamp(min=1.0)
     da = -numdot * rden ** 2 * a.sign() * (a.abs() > 1.0)
 
-    # the reverse walk: dC = exp(total) dC + q^T (scale A rden o dh), the
-    # weighted dh rounded
-    dc_loc = tr(qc) @ rnd(gc * (scale * amul * rden)[..., None])
+    # the reverse walk: dC = exp(total) dC + (scale A rden o q)^T dh, the
+    # weighted q rounded
+    dc_loc = tr(rnd(qc * (scale * amul * rden)[..., None])) @ gc
     dn_loc = (qc * (scale * amul * da)[..., None]).sum(-2)
     dc_st = torch.zeros_like(c_st)
     dn_st = torch.zeros_like(n_st)
@@ -112,14 +113,14 @@ def _scan_bwd_rounded(q, k, v, logf, i, dh, scale, rnd):
     dkk = scale * (tr(rnd(dsd)) @ qc) + w[..., None] * wv
     dvv = tr(rnd(smat)) @ g_op + w[..., None] * (kc @ rnd(dc_st))
 
-    # the gates, float32
+    # the gates, float32; <C, dC> from the two bf16 copies
     e_mat = ds * smat
     d_a = (scale * qc * u).sum(-1)
     d_w = (kc * wv).sum(-1)
     dla = e_mat.sum(-1) - e_mat.sum(-2) + amul * d_a - w * d_w
     di = ((ds * pmat * dec).sum(-2)
           + d_w * (total64[..., None] - la64).float().exp())
-    dtotal = (total.exp() * ((c_st * dc_st).sum((-1, -2))
+    dtotal = (total.exp() * ((rnd(c_st) * rnd(dc_st)).sum((-1, -2))
                              + (n_st * dn_st).sum(-1))
               + (d_w * w).sum(-1))
     dlogf = dla.flip(-1).cumsum(-1).flip(-1) + dtotal[..., None]
