@@ -37,7 +37,9 @@ Phases, each printed on its own line and each fatal:
                watchdog build's; K1's
                bf16 forward (``flash_fwd_tma_kernel``): registers, spill
                stores and serialised wgmma by ptxas, HGMMA in the SASS of
-               each of its six instantiations
+               each of its six instantiations; K2's kernels
+               (``decode_mma_kernel``, bf16, and ``decode_split_kernel``):
+               registers and spill stores (0) of each instantiation
 3. kernels  -- each kernel against its plain version over the serving
                shapes and the reference test shapes: attention (K1, K2)
                float32 to 1e-4 and bfloat16 to 3e-2; the MoE router (K4)
@@ -51,17 +53,21 @@ Phases, each printed on its own line and each fatal:
                from the profiler (K1 and K2: each call is one launch, and
                no other kernel runs; K3: the sum over the one to three
                launches of its plan), beside the kernel's bound; for K1
-               also its wrapper's host microseconds a call over 1000
-               unsynchronised calls (``host_us``), those of its tensor
-               maps' encoding alone, and its registers and spill stores;
+               and K2 also the wrapper's host microseconds a call over 1000
+               unsynchronised calls (``host_us``), for K1 those of its
+               tensor maps' encoding alone, for K2 the live K/V bytes a
+               call reads and their rate, and the registers and spill
+               stores of each;
                K1 and K2 at llama3.2-1b's, qwen2-moe-a2.7b's, stablelm-3b's
                (head dim 80) and hymba-1.5b's shapes, K1 at deepseek-v3's
                MLA admission (query-key dim 192, value dim 128) and
                seamless's encoder, K1 beside K2 at seamless's
                cross-attention decode (one query over 1024 positions), K3
                at xlstm-350m's admission and bulk-prefill shapes under both
-               of its plans (single pass, chunk-parallel) and at hymba's
-               SSD heads, K4 at qwen2-moe's decode and admission shapes (one
+               of its plans (single pass, chunk-parallel), at hymba's
+               SSD heads and, forward alone, at both families' training
+               shapes (xlstm 16 x 2048, dk = dv = 512; hymba 50 x 2048, dk
+               16, dv 64), K4 at qwen2-moe's decode and admission shapes (one
                launch a call); K1's backward against its plain version on
                dq, dk, dv (float32 1e-4, bf16 3e-2, of max(1, max |plain|),
                and the norm of the error within 1e-4 (float32) and 1e-2
@@ -374,6 +380,33 @@ def check_flash_build(build, built) -> None:
             v.get("spill_store_bytes") for v in FWD_PTXAS.values())):
         raise AssertionError(f"flash_attention: ptxas {FWD_PTXAS}, "
                              f"{serialised}, {setmaxnreg}")
+
+
+# K2's kernels at each (head dim, head-group bound): the bf16 tensor-core
+# kernel and the float32 split kernel
+DECODE_K = re.compile(r"(decode_(?:mma|split)_kernel)ILi(\d+)ELi(\d+)E")
+DECODE_PTXAS = {}   # "decode_mma_kernel<HD, MG>": registers, spill stores
+
+
+def decode_name(m) -> str:
+    return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
+
+
+def check_decode_build(built) -> None:
+    """K2: ptxas's registers a thread and spill stores of each instantiation
+    of both kernels (when this run built them): no spill anywhere (builds
+    of the tensor-core kernel made to spill gave wrong bits), 10
+    tensor-core and 20 split instantiations."""
+    _, _, log_ = built["decode_attention"]
+    DECODE_PTXAS.update(ptxas_by_kernel(log_, DECODE_K, decode_name))
+    mma = {n: v for n, v in DECODE_PTXAS.items() if "mma" in n}
+    log("build.decode_attention", ptxas=mma, built_here=bool(log_),
+        split_registers_max=max((v.get("registers", 0)
+                                 for n, v in DECODE_PTXAS.items()
+                                 if "split" in n), default=None))
+    if log_ and (len(mma) != 10 or len(DECODE_PTXAS) != 30 or any(
+            v.get("spill_store_bytes") for v in DECODE_PTXAS.values())):
+        raise AssertionError(f"decode_attention: ptxas {DECODE_PTXAS}")
 
 
 # The port's kernel of each reference function that reaches pl.pallas_call
@@ -831,9 +864,15 @@ def time_flash(ref, kflash, b, s, h, kh, hd, dv=None, causal=True,
     return d
 
 
+K2_BF16 = "decode_mma_kernel"      # float32 runs decode_split_kernel
+
+
 def time_decode(ref, kdecode, b, smax, live, h, kh, hd) -> dict:
     """K2 in bfloat16 at one decode-step shape, all rows ``live`` long: as
-    ``time_flash``; the profiler must see exactly one K2 launch a call."""
+    ``time_flash`` (the tensor-core kernel's own device time, launches a
+    call and grid, the wrapper's host microseconds a call), beside the live
+    K/V bytes a call reads and the rate it reads them at; the profiler must
+    see exactly one K2 launch a call."""
     F = torch.nn.functional
     dt = torch.bfloat16
     q = randn((b, 1, h, hd), dt, 80)
@@ -842,20 +881,25 @@ def time_decode(ref, kdecode, b, smax, live, h, kh, hd) -> dict:
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     mask = (torch.arange(smax, device="cuda")[None, :] < lengths[:, None])
     mask = mask[:, None, None, :]
+
+    def call():
+        return kdecode.decode_attention(q, k, v, lengths)
     d = {
-        "ms": cuda_ms(lambda: kdecode.decode_attention(q, k, v, lengths)),
+        "ms": cuda_ms(call),
         "plain_ms": cuda_ms(lambda: ref.grouped_decode_ref(q, k, v, lengths)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-        "device_ms": device_ms(
-            lambda: kdecode.decode_attention(q, k, v, lengths),
-            "decode_split_kernel", alone=True),
+        "device_ms": device_ms(call, K2_BF16, alone=True),
     }
-    _, d["launches_per_call"], _ = device_ms_per_call(
-        lambda: kdecode.decode_attention(q, k, v, lengths),
-        "decode_split_kernel", max_per_call=1)
+    _, d["launches_per_call"], d["grid"] = device_ms_per_call(
+        call, K2_BF16, max_per_call=1)
+    d["host_us"] = host_us(call)
+    d["kv_bytes"] = 2 * b * live * kh * hd * q.element_size()
+    d["kv_tb_per_s"] = d["kv_bytes"] / (d["device_ms"] * 1e-3) / 1e12
     d["bound_ms"], d["bound_by"] = RA.bound_ms(W.decode(q, k, v, lengths))
-    d["n_split"], d["chunk"] = kdecode.split_plan(smax, b, kh)
+    d["cluster"], d["groups"] = kdecode.mma_plan(smax, b, kh)
+    d.update(DECODE_PTXAS.get(
+        f"{K2_BF16}<{hd}, {8 if h // kh <= 8 else 16}>", {}))
     d["shape"] = f"B={b} S_max={smax} live={live} H={h} KH={kh} hd={hd} bf16"
     got = kdecode.decode_attention(q, k, v, lengths)
     d["max_abs_err"] = (got.float() - ref.grouped_decode_ref(
@@ -1331,6 +1375,31 @@ def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
             1.0, want.abs().max().item()):
         raise AssertionError(f"mlstm_scan at hymba's shape: max err "
                              f"{scan['max_abs_err_hymba']}")
+    # At the training shapes, the forward of each step's K3 call under its
+    # own plan: xlstm-350m (B 4 x H 4 = 16 row-heads, S 2048, dk = dv = 512)
+    # and hymba-1.5b's SSD heads (B 2 x 25 = 50, S 2048, dk 16, dv 64, scale
+    # 1.0), inputs drawn as for K3's backward; its launches a step are in
+    # the "train.families" lines (``launches``: mlstm_scan).
+    for tag, (bh, s, dk, dv, sc, qk, ssd) in (
+            ("_train_xlstm", (16, 2048, 512, 512, None, 1.0, False)),
+            ("_train_hymba", (50, 2048, 16, 64, 1.0, 0.5, True))):
+        q, k, v, logf, i, _ = scan_bwd_inputs(bh, s, dk, dv, dt, 420, qk, ssd)
+
+        def train_fwd(q=q, k=k, v=v, logf=logf, i=i, sc=sc):
+            return kscan.mlstm_scan(q, k, v, logf, i, scale=sc)
+        scan["plan" + tag] = kscan.scan_plan(bh, s, dk, dv).design
+        (scan["device_ms" + tag], scan["launches_per_call" + tag],
+         scan["grid" + tag]) = device_ms_per_call(train_fwd, "mlstm_")
+        scan["bound_ms" + tag], scan["bound_by" + tag] = RA.bound_ms(
+            W.scan(q, k, v, logf, i))
+        want = ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=sc).float()
+        scan["max_abs_err" + tag] = (train_fwd().float() - want
+                                     ).abs().max().item()
+        if not scan["max_abs_err" + tag] < SCAN_TOL[dt] * max(
+                1.0, want.abs().max().item()):
+            raise AssertionError(f"mlstm_scan at {tag[1:]}: max err "
+                                 f"{scan['max_abs_err' + tag]}")
+        del q, k, v, logf, i, want
     # At the bulk shape the chunk-parallel design's (a) local states and (c)
     # outputs each launch at least 128 blocks, by the traced grids.
     blocks = {n: int(np.prod(g))
@@ -1341,7 +1410,9 @@ def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
                              f"launched {blocks} blocks")
     scan["shape"] = ("BH=32 S=256 dk=dv=512 (B=8 H=4 admission; _bulk: BH=4 "
                      "S=500, B=1 bulk prefill; _hymba: BH=200 S=256 dk=16 "
-                     "dv=64 scale 1.0) bf16")
+                     "dv=64 scale 1.0; _train_xlstm: BH=16 S=2048 "
+                     "dk=dv=512; _train_hymba: BH=50 S=2048 dk=16 dv=64 "
+                     "scale 1.0) bf16")
     scan["library_ms"] = None
     torch.cuda.synchronize()
     for name, d in (("moe_topk", router), ("mlstm_scan", scan)):
@@ -3378,6 +3449,7 @@ def main() -> int:
     check_scan_build(build, built)
     check_bwd_build(build, built)
     check_flash_build(build, built)
+    check_decode_build(built)
 
     t0 = time.monotonic()
     timed = kernel_phase(ref, kflash, kdecode)

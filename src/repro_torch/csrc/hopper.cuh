@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels that
 // run on the tensor cores with `hopper::`: `flash_attention.cu` (K1's
 // forward), `flash_attention_bwd.cu` (K1's backward) and
-// `mlstm_scan_bwd.cu` (K3's backward).
+// `mlstm_scan_bwd.cu` (K3's backward); `decode_attention.cu` (K2's bf16
+// kernel) takes its `cp.async` copies and `pack_bf16`.
 //
 // 16-byte `cp.async` copies, the `wgmma` fences, commits and waits,
 // `wgmma.mma_async` bf16 products (m64n64k16 with both operands in shared

@@ -118,7 +118,7 @@ def grouped_decode_ref(q, k, v, lengths, *, scale: float | None = None):
 
 def grouped_decode_split_ref(q, k, v, lengths, *, n_split: int, chunk: int,
                              scale: float | None = None):
-    """K2's split and merge in plain PyTorch (tests only): split ``i``
+    """K2's float32 split and merge in plain PyTorch (tests only): split ``i``
     attends over positions ``[i * chunk, (i + 1) * chunk)`` below the row's
     length and keeps a partial (max m, sum l, unnormalised acc); the
     partials merge in split order by log-sum-exp.  A split with no live
@@ -151,6 +151,69 @@ def grouped_decode_split_ref(q, k, v, lengths, *, n_split: int, chunk: int,
         acc = acc + w[..., None] * a_i
     out = torch.where(l_tot[..., None] > 0,
                       acc / l_tot.clamp(min=1e-30)[..., None], 0.0)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def grouped_decode_mma_ref(q, k, v, lengths, *, n_split: int,
+                           scale: float | None = None, round_p: bool = True):
+    """K2's bf16 kernel's splits, tiles, rounding points and merge order in
+    plain PyTorch (tests only; the order of the sums inside a tensor-core
+    product is the card's own).  Split ``i`` of a row ``len`` long holds
+    the positions ``[i len // n_split, (i + 1) len // n_split)``; its warp
+    ``w`` of the kernel's W = 8 (4 at hd 80) the 16-position tiles ``w, w +
+    W, ...`` of them, each an online softmax step in base 2 on float32 scores
+    (q and the cache as given), the running max, sum and accumulator
+    float32, the sum over the float32 P and, with ``round_p``, P rounded to
+    bf16 before P V.  The warps merge in warp order, then the splits in
+    split order within each cluster of at most 8, then the clusters in
+    order, a split or cluster with no live position skipped, so a row of
+    length 0 gets 0.  Same arguments as ``grouped_decode_ref``."""
+    b, _, h, hd = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    warps, tile, cluster = (4 if hd == 80 else 8), 16, min(n_split, 8)
+    sl2 = (scale if scale is not None else hd ** -0.5) * 1.4426950408889634
+    qg = q.float().reshape(b, kh, g, hd)
+    lengths = lengths.to(q.device).clamp(0, s).tolist()
+    out = torch.zeros((b, kh, g, hd), dtype=torch.float32, device=q.device)
+
+    def merge(states):
+        big = torch.stack([m for m, _, _ in states]).amax(0)
+        l_tot, acc = torch.zeros_like(big), torch.zeros_like(states[0][2])
+        for m, l_i, a_i in states:
+            c = torch.where(l_i > 0, torch.exp2(m - big), 0.0)
+            l_tot, acc = l_tot + c * l_i, acc + c[..., None] * a_i
+        return big, l_tot, acc
+
+    for row in range(b):
+        n = lengths[row]
+        splits = []
+        for i in range(n_split):
+            lo, hi = i * n // n_split, (i + 1) * n // n_split
+            starts = list(range(lo, hi, tile))
+            states = []
+            for w in range(warps):
+                m = torch.full((kh, g), NEG_INF, device=q.device)
+                l_w = torch.zeros((kh, g), device=q.device)
+                acc = torch.zeros((kh, g, hd), device=q.device)
+                for t0 in starts[w::warps]:
+                    t1 = min(t0 + tile, hi)
+                    sc = torch.einsum("kgd,skd->kgs", qg[row],
+                                      k[row, t0:t1].float()) * sl2
+                    mn = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp2(m - mn)
+                    p = torch.exp2(sc - mn[..., None])
+                    l_w = l_w * alpha + p.sum(-1)
+                    pv = p.bfloat16().float() if round_p else p
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "kgs,skd->kgd", pv, v[row, t0:t1].float())
+                    m = mn
+                states.append((m, l_w, acc))
+            splits.append(merge(states))
+        _, l_tot, acc = merge([merge(splits[c:c + cluster])
+                               for c in range(0, n_split, cluster)])
+        out[row] = torch.where(l_tot[..., None] > 0,
+                               acc / l_tot.clamp(min=1e-30)[..., None], 0.0)
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 

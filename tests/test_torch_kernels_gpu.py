@@ -297,6 +297,17 @@ def test_flash_kernel_refuses_other_unequal_dims(cuda, hd, hdv):
     assert kflash.launches.count == n
 
 
+def _decode_check(out, q, k, v, lens, dtype):
+    """Rows with live positions against the dense plain version; a row of
+    length 0 gets 0, as the Pallas kernel gives (the dense plain version
+    gives the mean of V there)."""
+    want = ref.grouped_decode_ref(q, k, v, lens)
+    live = lens > 0
+    if live.any():
+        assert (out.float() - want.float())[live].abs().max().item() < TOL[dtype]
+    assert (out[~live] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kh,hd,lengths", [
     (8, 1024, 32, 8, 64, [700] * 8),                      # llama decode
@@ -309,6 +320,15 @@ def test_flash_kernel_refuses_other_unequal_dims(cuda, hd, hdv):
     (8, 1024, 32, 32, 80, [1, 63, 64, 65, 300, 700, 1000, 1024]),
     (3, 300, 4, 2, 80, [300, 1, 150]),                    # hd 80, G = 2
     (8, 1024, 25, 5, 64, [1024, 700, 1, 500, 64, 65, 900, 128]),  # hymba
+    (8, 1024, 25, 5, 64, [700] * 8),                      # hymba, G = 5
+    (8, 1024, 35, 5, 64, [0, 1, 1024, 700, 17, 512, 999, 64]),  # G = 7
+    (4, 300, 16, 4, 16, [0, 1, 300, 150]),                # G = 4 at every hd
+    (4, 300, 16, 4, 32, [0, 1, 300, 150]),
+    (4, 300, 16, 4, 64, [0, 1, 300, 150]),
+    (4, 300, 16, 4, 80, [0, 1, 300, 150]),
+    (4, 300, 16, 4, 128, [0, 1, 300, 150]),
+    (8, 1000, 32, 8, 64, [1000, 0, 1, 999, 500, 128, 129, 700]),  # S_max 1000
+    (8, 1024, 32, 2, 128, [700, 0, 1, 1024, 3, 64, 65, 511]),  # G = 16, hd 128
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, lengths):
     q = _randn((b, 1, h, hd), dtype, cuda, 4)
@@ -319,15 +339,21 @@ def test_decode_kernel_matches_plain(cuda, dtype, b, s, h, kh, hd, lengths):
     out = kdecode.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
     assert kdecode.launches.count == n + 1
-    want = ref.grouped_decode_ref(q, k, v, lens)
-    assert (out.float() - want.float()).abs().max().item() < TOL[dtype]
+    _decode_check(out, q, k, v, lens, dtype)
 
 
-def _edge_lengths(s, b, kh):
-    """0, 1, the first split boundary -1, 0, +1, and S_max, cycled over the
-    batch rows."""
-    _, chunk = kdecode.split_plan(s, b, kh)
-    edge = [0, 1, chunk - 1, chunk, chunk + 1, s]
+def _edge_lengths(s, b, kh, dtype):
+    """0, 1, S_max and the lengths about the plan's split edges, cycled over
+    the batch rows: the float32 split kernel's first boundary -1, 0, +1; the
+    bf16 mma kernel's n_split - 1, n_split, n_split + 1 (from where every
+    split has a position) and one past a multiple of n_split."""
+    if dtype == torch.bfloat16:
+        cluster, groups = kdecode.mma_plan(s, b, kh)
+        n = cluster * groups
+        edge = [0, 1, n - 1, n, n + 1, s, (s // n) * n + 1]
+    else:
+        _, chunk = kdecode.split_plan(s, b, kh)
+        edge = [0, 1, chunk - 1, chunk, chunk + 1, s]
     return [min(s, edge[i % len(edge)]) for i in range(b)]
 
 
@@ -344,31 +370,36 @@ def _edge_lengths(s, b, kh):
     (6, 512, 32, 2, 80),        # hd 80, G = 16
     (8, 1024, 25, 5, 64),       # hymba-1.5b, G = 5
     (8, 2048, 25, 5, 64),       # hymba's global layers at S_max 2048
+    (8, 1024, 56, 8, 64),       # G = 7 at hd 64
+    (8, 1000, 32, 8, 64),       # S_max 1000
 ])
 def test_decode_kernel_split_edges(cuda, dtype, b, s, h, kh, hd):
-    """Lengths at the split plan's edges.  A row of length 0 gets 0, as the
-    Pallas kernel gives; the dense plain version gives the mean of V there,
-    so those rows are held to 0 instead."""
+    """Lengths at the split plan's edges, of the plan of the kernel the
+    dtype runs."""
     q = _randn((b, 1, h, hd), dtype, cuda, 13)
     k = _randn((b, s, kh, hd), dtype, cuda, 14)
     v = _randn((b, s, kh, hd), dtype, cuda, 15)
-    lens = torch.tensor(_edge_lengths(s, b, kh), dtype=torch.int32, device=cuda)
+    lens = torch.tensor(_edge_lengths(s, b, kh, dtype), dtype=torch.int32,
+                        device=cuda)
     out = kdecode.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
-    want = ref.grouped_decode_ref(q, k, v, lens)
-    live = lens > 0
-    assert (out.float() - want.float())[live].abs().max().item() < TOL[dtype]
-    assert (out[~live] == 0).all()
+    _decode_check(out, q, k, v, lens, dtype)
 
 
-def test_decode_kernel_is_deterministic_and_leaves_counters_zero(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kh", [
+    (8, 1024, 32, 8),           # llama3.2-1b: one cluster a pair
+    (8, 1024, 14, 2),           # qwen2-0.5b: two clusters, the counters
+])
+def test_decode_kernel_is_deterministic_and_leaves_counters_zero(
+        cuda, dtype, b, s, h, kh):
     """Two back-to-back calls on one stream give bit-identical outputs: the
-    arrival counters are back at 0 after each call, and the last block
-    merges the splits in split order, whichever block it is."""
-    b, s, h, kh, hd = 8, 1024, 32, 8, 64
-    q = _randn((b, 1, h, hd), torch.bfloat16, cuda, 16)
-    k = _randn((b, s, kh, hd), torch.bfloat16, cuda, 17)
-    v = _randn((b, s, kh, hd), torch.bfloat16, cuda, 18)
+    arrival counters are back at 0 after each call, and every merge reads
+    the partials in split order, whichever block arrives last."""
+    hd = 64
+    q = _randn((b, 1, h, hd), dtype, cuda, 16)
+    k = _randn((b, s, kh, hd), dtype, cuda, 17)
+    v = _randn((b, s, kh, hd), dtype, cuda, 18)
     lens = torch.tensor([700, 1, 1024, 129, 128, 127, 500, 64],
                         dtype=torch.int32, device=cuda)
     first = kdecode.decode_attention(q, k, v, lens)
@@ -379,13 +410,15 @@ def test_decode_kernel_is_deterministic_and_leaves_counters_zero(cuda):
     assert not kdecode._counter_buffer(q.device, stream, b * kh).any()
 
 
-def test_decode_kernel_at_head_dim_80_is_deterministic(cuda):
-    """hd 80 reads a row with 10 of a 16-lane group: two calls still give
-    bit-identical outputs, and the counters are back at 0."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_head_dim_80_is_deterministic(cuda, dtype):
+    """hd 80 (the split kernel reads a row with 10 of a 16-lane group, the
+    mma kernel in 5 k16 steps): two calls still give bit-identical outputs,
+    and the counters are back at 0."""
     b, s, h, kh, hd = 8, 1024, 32, 32, 80
-    q = _randn((b, 1, h, hd), torch.bfloat16, cuda, 19)
-    k = _randn((b, s, kh, hd), torch.bfloat16, cuda, 20)
-    v = _randn((b, s, kh, hd), torch.bfloat16, cuda, 21)
+    q = _randn((b, 1, h, hd), dtype, cuda, 19)
+    k = _randn((b, s, kh, hd), dtype, cuda, 20)
+    v = _randn((b, s, kh, hd), dtype, cuda, 21)
     lens = torch.tensor([700, 1, 1024, 129, 128, 127, 500, 64],
                         dtype=torch.int32, device=cuda)
     first = kdecode.decode_attention(q, k, v, lens)
@@ -394,6 +427,54 @@ def test_decode_kernel_at_head_dim_80_is_deterministic(cuda):
     assert torch.equal(first, second)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     assert not kdecode._counter_buffer(q.device, stream, b * kh).any()
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.float32, "decode_split_kernel"),
+    (torch.bfloat16, "decode_mma_kernel"),
+])
+@pytest.mark.parametrize("b,s,h,kh,hd", [
+    (8, 1024, 32, 8, 64),       # llama3.2-1b
+    (8, 1024, 16, 16, 128),     # qwen2-moe-a2.7b, G = 1
+    (1, 8192, 8, 1, 64),        # a long cache: clusters in groups
+])
+def test_decode_launches_the_kernel_of_its_input_type(cuda, dtype, kernel,
+                                                      b, s, h, kh, hd):
+    """bf16 runs the tensor-core kernel (one launch a call), float32 the
+    split kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q = _randn((b, 1, h, hd), dtype, cuda, 22)
+    k = _randn((b, s, kh, hd), dtype, cuda, 23)
+    v = _randn((b, s, kh, hd), dtype, cuda, 24)
+    lens = torch.full((b,), s - 3, dtype=torch.int32, device=cuda)
+    kdecode.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kdecode.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.count}
+    assert any(kernel in n for n in names), names
+    assert not any("decode_" in n and kernel not in n for n in names), names
+
+
+def test_decode_kernels_build_without_spill(cuda, tmp_path, monkeypatch):
+    """ptxas reports no spill in any instantiation of either K2 kernel (the
+    mma kernel's launch bounds leave hd 80 and 128 the registers they
+    need; builds of it made to spill gave wrong bits), and builds both at
+    every head dim and head-group bound: the mma kernel for bf16, the split
+    kernel for float32."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    _, _, log_ = build.build(("decode_attention",))["decode_attention"]
+    kernels = re.findall(r"Compiling entry function '\w*?"
+                         r"(decode_(?:mma|split)_kernel)I", log_)
+    assert kernels.count("decode_mma_kernel") == 10, kernels
+    assert kernels.count("decode_split_kernel") == 20, kernels
+    assert not [ln for ln in log_.splitlines()
+                if re.search(r"[1-9]\d* bytes spill", ln)], log_
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
