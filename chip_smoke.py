@@ -24,7 +24,11 @@ Phases, each printed on its own line and each fatal:
 1. device   -- the card's name and power limit, compute capability 9.0
 2. build    -- compile the CUDA kernels from ``src/repro_torch/csrc``;
                ptxas must report no spill in the mLSTM scan, and its
-               tensor-core kernels' SASS must hold HGMMA (cuobjdump); K1's
+               tensor-core kernels' SASS must hold HGMMA (cuobjdump): the
+               single pass ``mlstm_tma_kernel`` at each of its four panel
+               counts (registers and spill stores of each, its register
+               split kept, no trap in the production build's SASS and one
+               in its watchdog build's) and the chunk-parallel kernels; K1's
                bf16 backward (``flash_bwd_dkdv_tma_kernel``,
                ``flash_bwd_dq_tma_kernel``): registers and spill stores (0)
                of each at each pair of dims, no wgmma serialised nor
@@ -39,7 +43,8 @@ Phases, each printed on its own line and each fatal:
                stores and serialised wgmma by ptxas, HGMMA in the SASS of
                each of its six instantiations; K2's kernels
                (``decode_mma_kernel``, bf16, and ``decode_split_kernel``):
-               registers and spill stores (0) of each instantiation
+               registers and spill stores (0) of each instantiation, and
+               of the bf16 kernel's build made to spill (its spill lines)
 3. kernels  -- each kernel against its plain version over the serving
                shapes and the reference test shapes: attention (K1, K2)
                float32 to 1e-4 and bfloat16 to 3e-2; the MoE router (K4)
@@ -67,7 +72,13 @@ Phases, each printed on its own line and each fatal:
                of its plans (single pass, chunk-parallel), at hymba's
                SSD heads and, forward alone, at both families' training
                shapes (xlstm 16 x 2048, dk = dv = 512; hymba 50 x 2048, dk
-               16, dv 64), K4 at qwen2-moe's decode and admission shapes (one
+               16, dv 64: CUDA-event ms, plain ms, device ms; held to the
+               bf16 gate there in the parity phase too), its single pass's
+               watchdog build against the production bits
+               (``kernels.parity.k3_watchdog``), K2's build made to spill
+               against the plain version and the production bits at G 1,
+               8 and 16 and 1 to 16 clusters (``kernels.parity.k2_spill``),
+               K4 at qwen2-moe's decode and admission shapes (one
                launch a call); K1's backward against its plain version on
                dq, dk, dv (float32 1e-4, bf16 3e-2, of max(1, max |plain|),
                and the norm of the error within 1e-4 (float32) and 1e-2
@@ -245,6 +256,14 @@ SCAN_BWD_WGMMA = re.compile(
 SCAN_BWD_WGMMA_KERNELS = 4
 
 
+# K3's bf16 single pass at NP dk panels (mangled ILi<NP>E)
+SCAN_TMA = re.compile(r"mlstm_tma_kernelILi(\d+)E")
+
+
+def scan_tma_name(m) -> str:
+    return f"mlstm_tma_kernel<{m.group(1)}>"
+
+
 def scan_bwd_name(m) -> str:
     return m.group(1) + (f"<{'-' if m.group(2) else ''}{m.group(3)}>"
                          if m.group(3) else "")
@@ -252,32 +271,53 @@ def scan_bwd_name(m) -> str:
 
 def check_scan_build(build, built) -> None:
     """ptxas reports no spill in the mLSTM scan or its backward (when this
-    run built them), and the SASS of the scan's bf16 kernels and of its
-    backward's bf16 kernels (``scan_bwd_*_tma_kernel`` and the normaliser)
-    holds tensor-core instructions (HGMMA); each backward tensor-core
-    kernel's registers and spill stores are printed.  The backward's
-    production build keeps its register split (no wgmma serialised or
-    waited on by ptxas, no setmaxnreg dropped) and holds no trap (BPT.TRAP
-    in its SASS), its watchdog build does."""
+    run built them), and the SASS of the scan's bf16 kernels (the single
+    pass ``mlstm_tma_kernel<NP>`` at NP 1, 2, 4 and 8, the chunk-parallel
+    ``mlstm_wgmma_kernel``) and of its backward's bf16 kernels
+    (``scan_bwd_*_tma_kernel`` and the normaliser) holds tensor-core
+    instructions (HGMMA); each single-pass and backward tensor-core
+    kernel's registers and spill stores are printed.  The production
+    builds of both keep their register split (no wgmma serialised or
+    waited on by ptxas, no setmaxnreg dropped) and hold no trap (BPT.TRAP
+    in their SASS), their watchdog builds do; the waits ptxas injects
+    into the forward's single pass are printed."""
     path, _, log_ = built["mlstm_scan"]
+    fw_path, _, fw_log = next(v for key, v in built.items()
+                              if key.startswith("mlstm_scan -D"))
     bwd_path, _, bwd_log = built["mlstm_scan_bwd"]
     w_path, _, w_log = next(v for key, v in built.items()
                             if key.startswith("mlstm_scan_bwd -D"))
     split = [ln.strip() for ln in bwd_log.splitlines()
              if "serializ" in ln.lower() or "setmaxnreg" in ln.lower()
              or "warpgroup.wait is injected" in ln]
+    # the forward's: setmaxnreg kept and no wgmma serialised (gated); the
+    # waits ptxas injects (printed)
+    fwd_split = [ln.strip() for ln in log_.splitlines()
+                 if "serializ" in ln.lower() or "setmaxnreg" in ln.lower()]
+    fwd_waits = [ln.strip()[:160] for ln in log_.splitlines()
+                 if "warpgroup.wait is injected" in ln]
     traps = {w: sum(c for n, c in build.sass_counts(pth, "TRAP").items()
                     if "scan_bwd" in n)
              for w, pth in (("production", bwd_path), ("watchdog", w_path))}
+    fwd_traps = {w: sum(c for n, c in build.sass_counts(pth, "TRAP").items()
+                        if "mlstm_tma_kernel" in n)
+                 for w, pth in (("production", path), ("watchdog", fw_path))}
     spills = [ln.strip() for ln in (log_ + bwd_log).splitlines()
               if re.search(r"[1-9]\d* bytes spill", ln)]
     hgmma = build.sass_counts(path, "HGMMA")
-    wgmma = {n: c for n, c in hgmma.items() if "mlstm_wgmma_kernel" in n}
+    wgmma = {n: c for n, c in hgmma.items()
+             if "mlstm_wgmma_kernel" in n or "mlstm_tma_kernel" in n}
+    tma = {f"mlstm_tma_kernel<{m.group(1)}>": c for n, c in hgmma.items()
+           if (m := SCAN_TMA.search(n))}
     bwd_hgmma = {scan_bwd_name(m): c
                  for n, c in build.sass_counts(bwd_path, "HGMMA").items()
                  if (m := SCAN_BWD_WGMMA.search(n))}
     log("build.mlstm_scan", spill_lines=spills, hgmma_per_kernel=wgmma,
         built_here=bool(log_), bwd_built_here=bool(bwd_log),
+        tma_ptxas=ptxas_by_kernel(log_, SCAN_TMA, scan_tma_name),
+        tma_hgmma_per_kernel=tma, fwd_sass_traps=fwd_traps,
+        fwd_register_split_lines=fwd_split, fwd_injected_waits=fwd_waits,
+        watchdog_tma_ptxas=ptxas_by_kernel(fw_log, SCAN_TMA, scan_tma_name),
         bwd_registers=[ln.strip() for ln in bwd_log.splitlines()
                        if "registers" in ln],
         bwd_wgmma_ptxas=ptxas_by_kernel(bwd_log, SCAN_BWD_WGMMA,
@@ -286,8 +326,11 @@ def check_scan_build(build, built) -> None:
         bwd_sass_traps=traps,
         bwd_watchdog_ptxas=ptxas_by_kernel(w_log, SCAN_BWD_WGMMA,
                                            scan_bwd_name))
-    if spills or not wgmma or not all(wgmma.values()):
-        raise AssertionError(f"mlstm_scan: spills {spills}, HGMMA {hgmma}")
+    if (spills or not wgmma or not all(wgmma.values()) or len(tma) != 4
+            or fwd_traps["production"] or not fwd_traps["watchdog"]
+            or fwd_split):
+        raise AssertionError(f"mlstm_scan: spills {spills}, HGMMA {hgmma}, "
+                             f"traps {fwd_traps}, {fwd_split}")
     if len(bwd_hgmma) != SCAN_BWD_WGMMA_KERNELS or not all(bwd_hgmma.values()):
         raise AssertionError(f"mlstm_scan_bwd: HGMMA {bwd_hgmma}")
     if split or traps["production"] or not traps["watchdog"]:
@@ -394,19 +437,30 @@ def decode_name(m) -> str:
 
 def check_decode_build(built) -> None:
     """K2: ptxas's registers a thread and spill stores of each instantiation
-    of both kernels (when this run built them): no spill anywhere (builds
-    of the tensor-core kernel made to spill gave wrong bits), 10
-    tensor-core and 20 split instantiations."""
+    of both kernels (when this run built them): no spill anywhere, 10
+    tensor-core and 20 split instantiations; the tensor-core kernel's
+    build made to spill (``SPILL_FLAGS``, held to the plain version in
+    ``kernels.parity.k2_spill``) does spill."""
     _, _, log_ = built["decode_attention"]
+    _, _, spill_log = next(v for key, v in built.items()
+                           if key.startswith("decode_attention -D"))
     DECODE_PTXAS.update(ptxas_by_kernel(log_, DECODE_K, decode_name))
     mma = {n: v for n, v in DECODE_PTXAS.items() if "mma" in n}
+    spilled = {n: v for n, v in ptxas_by_kernel(spill_log, DECODE_K,
+                                                decode_name).items()
+               if "mma" in n}
     log("build.decode_attention", ptxas=mma, built_here=bool(log_),
+        spill_build_ptxas=spilled,
         split_registers_max=max((v.get("registers", 0)
                                  for n, v in DECODE_PTXAS.items()
                                  if "split" in n), default=None))
     if log_ and (len(mma) != 10 or len(DECODE_PTXAS) != 30 or any(
             v.get("spill_store_bytes") for v in DECODE_PTXAS.values())):
         raise AssertionError(f"decode_attention: ptxas {DECODE_PTXAS}")
+    if spill_log and not any(v.get("spill_store_bytes")
+                             for v in spilled.values()):
+        raise AssertionError(f"decode_attention: the build made to spill "
+                             f"does not: {spilled}")
 
 
 # The port's kernel of each reference function that reaches pl.pallas_call
@@ -1016,6 +1070,83 @@ def k1_bwd_watchdog(ref, kflash) -> list:
     return cases
 
 
+def k3_watchdog(ref, kscan) -> list:
+    """K3's bf16 single pass on its watchdog build (``mlstm_scan_watchdog``,
+    built beside the others) at xlstm's training shape, hymba's SSD heads
+    and dims that are not multiples of 64, against the plain version (3e-2
+    of max(1, max |plain|)) and whether it gives the production build's
+    bits; its launches count apart."""
+    dt, cases = torch.bfloat16, []
+    for j, (bh, s, dk, dv, scale) in enumerate(((16, 2048, 512, 512, None),
+                                                (200, 256, 16, 64, 1.0),
+                                                (3, 129, 96, 64, None))):
+        x = scan_inputs(bh, s, dk, dv, dt, 640 + 10 * j)
+        n, w = kscan.launches.count, kscan.watchdog_launches.count
+        got = kscan.mlstm_scan_watchdog(*x, scale=scale, design="single")
+        torch.cuda.synchronize()
+        launched = (kscan.watchdog_launches.count - w,
+                    kscan.launches.count - n)
+        prod = kscan.mlstm_scan(*x, scale=scale, design="single")
+        want = ref.mlstm_chunkwise_ref(*x, scale=scale).float()
+        err = (got.float() - want).abs().max().item()
+        cases.append({"shape": [bh, s, dk, dv], "max_abs_err": err,
+                      "production_bits": torch.equal(got, prod),
+                      "launches_watchdog_production": list(launched)})
+        if not (err < SCAN_TOL[dt] * max(1.0, want.abs().max().item())
+                and launched == (1, 0) and cases[-1]["production_bits"]):
+            raise AssertionError(f"K3 watchdog build: {cases[-1]}")
+    log("kernels.parity.k3_watchdog", cases=cases,
+        flags=list(kscan.WATCHDOG_FLAGS))
+    return cases
+
+
+def k2_spill(ref, kdecode) -> list:
+    """K2's bf16 kernel on its build made to spill
+    (``decode_attention_spill``, built beside the others; such builds gave
+    wrong bits or faulted while the split ranges were a 64-bit division) at
+    G 1, 8 and 16 and 1 to 16 clusters a (row, KV head), lengths at the
+    plan's edges: against the plain version (3e-2) on live rows, a row of
+    length 0 exactly 0, two calls and the production build bit for bit;
+    its launches count apart."""
+    dt, cases = torch.bfloat16, []
+    for j, (b, s, h, kh, hd) in enumerate((
+            (8, 1024, 16, 16, 128), (4, 1024, 32, 4, 64),
+            (6, 512, 32, 2, 64), (8, 1024, 16, 2, 128),
+            (1, 8192, 8, 1, 64), (1, 4096, 16, 1, 128))):
+        q = randn((b, 1, h, hd), dt, 680 + 3 * j)
+        k = randn((b, s, kh, hd), dt, 681 + 3 * j)
+        v = randn((b, s, kh, hd), dt, 682 + 3 * j)
+        cluster, groups = kdecode.mma_plan(s, b, kh)
+        n = cluster * groups
+        edge = [0, 1, n - 1, n, n + 1, s, (s // n) * n + 1]
+        lens = torch.tensor([min(s, edge[i % len(edge)]) for i in range(b)]
+                            if b > 1 else [s - 3], dtype=torch.int32,
+                            device="cuda")
+        c, w = kdecode.launches.count, kdecode.spill_launches.count
+        got = kdecode.decode_attention_spill(q, k, v, lens)
+        again = kdecode.decode_attention_spill(q, k, v, lens)
+        torch.cuda.synchronize()
+        launched = (kdecode.spill_launches.count - w,
+                    kdecode.launches.count - c)
+        prod = kdecode.decode_attention(q, k, v, lens)
+        want = ref.grouped_decode_ref(q, k, v, lens)
+        live = lens > 0
+        err = (got.float() - want.float())[live].abs().max().item()
+        cases.append({"shape": [b, s, h, kh, hd], "cluster": cluster,
+                      "groups": groups, "max_abs_err": err,
+                      "dead_rows_zero": bool((got[~live] == 0).all()),
+                      "repeat_bits": torch.equal(got, again),
+                      "production_bits": torch.equal(got, prod),
+                      "launches_spill_production": list(launched)})
+        if not (err < TOL[dt] and cases[-1]["dead_rows_zero"]
+                and cases[-1]["repeat_bits"] and cases[-1]["production_bits"]
+                and launched == (2, 0)):
+            raise AssertionError(f"K2 spilling build: {cases[-1]}")
+    log("kernels.parity.k2_spill", cases=cases, tol=TOL[dt],
+        flags=list(kdecode.SPILL_FLAGS))
+    return cases
+
+
 def k3_bwd_watchdog(ref, kscan) -> list:
     """K3's backward on its watchdog build (``mlstm_scan_bwd_watchdog``,
     built beside the others) at xlstm's heads, hymba's SSD heads and dims
@@ -1259,6 +1390,8 @@ def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
         (32, 1024, 512, 512, None),
         (4, 500, 512, 512, None),      # xlstm bulk prefill, B=1
         (200, 256, 16, 64, 1.0),       # hymba-1.5b SSD heads, B=8 H=25
+        (16, 2048, 512, 512, None),    # xlstm-350m training, B=4 H=4
+        (50, 2048, 16, 64, 1.0),       # hymba-1.5b SSD heads training, B=2
         (2, 256, 32, 32, None),        # reference test shapes
         (4, 128, 16, 64, None),
         (1, 512, 64, 64, None),
@@ -1388,6 +1521,10 @@ def router_scan_phase(ref, kmoe, kscan, capacity) -> dict:
         def train_fwd(q=q, k=k, v=v, logf=logf, i=i, sc=sc):
             return kscan.mlstm_scan(q, k, v, logf, i, scale=sc)
         scan["plan" + tag] = kscan.scan_plan(bh, s, dk, dv).design
+        scan["ms" + tag] = cuda_ms(train_fwd, iters=20, warmup=3)
+        scan["plain_ms" + tag] = cuda_ms(
+            lambda: ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=sc),
+            iters=5, warmup=1)
         (scan["device_ms" + tag], scan["launches_per_call" + tag],
          scan["grid" + tag]) = device_ms_per_call(train_fwd, "mlstm_")
         scan["bound_ms" + tag], scan["bound_by" + tag] = RA.bound_ms(
@@ -3439,7 +3576,9 @@ def main() -> int:
     t0 = time.monotonic()
     built = build.build(extra=(("flash_attention", kflash.WATCHDOG_FLAGS),
                                ("flash_attention_bwd", kflash.WATCHDOG_FLAGS),
-                               ("mlstm_scan_bwd", kscan.WATCHDOG_FLAGS)))
+                               ("mlstm_scan", kscan.WATCHDOG_FLAGS),
+                               ("mlstm_scan_bwd", kscan.WATCHDOG_FLAGS),
+                               ("decode_attention", kdecode.SPILL_FLAGS)))
     ptxas = {name: [ln.strip() for ln in log_.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, (_, _, log_) in built.items()}
@@ -3456,6 +3595,10 @@ def main() -> int:
     done("kernels", t0)
 
     t0 = time.monotonic()
+    timed["decode_attention"]["spill_build"] = k2_spill(ref, kdecode)
+    done("kernels.k2_spill", t0)
+
+    t0 = time.monotonic()
     k1_layouts = k1_layouts_phase(ref, kflash)
     done("kernels.k1_layouts", t0)
     # from here on no path may copy an input for K1's tensor maps
@@ -3468,6 +3611,7 @@ def main() -> int:
 
     t0 = time.monotonic()
     timed.update(router_scan_phase(ref, kmoe, kscan, capacity))
+    timed["mlstm_scan"]["watchdog"] = k3_watchdog(ref, kscan)
     done("kernels.k3k4", t0)
 
     t0 = time.monotonic()

@@ -54,10 +54,13 @@
 // V tile read by ldmatrix.trans.  The running max, sum and hd-wide accumulator
 // are float32 in registers.  The launch bounds leave every instantiation the
 // registers it needs (no spill; blocks an SM: 2 at hd <= 64, 3 at hd 80, 1 at
-// hd 128), and every build is checked for spills: builds made to spill
-// (tighter launch bounds) failed on the card -- wrong bits, an illegal
-// instruction -- while the kernel holds the 64-bit division of its split
-// ranges, and were right with the ranges in 32 bits (PERF.md).
+// hd 128), and the production build is checked for spills.  Builds made
+// to spill (tighter launch bounds) failed on the card -- wrong bits, an
+// illegal instruction -- while the kernel took its split ranges by a 64-bit
+// division, and are right with the ranges in 32 bits, as now: the
+// diagnostic build -DREPRO_DECODE_SPILL (its own library) spills in every
+// instantiation and is held to the plain version by the GPU tests
+// (PERF.md).
 //
 // One launch, merged in a cluster.  Each warp writes its (m, l, acc) into
 // its own ring; the block merges its warps in warp order.  A block alone
@@ -455,7 +458,26 @@ struct MmaParams {
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_sh;
   float sl2;  // scale x log2 e
+  // x / n_split for any 32-bit unsigned x, as (t + ((x - t) >> sh1)) >> sh2
+  // with t = umulhi(x, magic) (the round-up method; `split_divisor`)
+  unsigned magic;
+  int sh1, sh2;
 };
+
+// The multiplier and shifts that divide a 32-bit unsigned by n >= 1:
+// l = ceil(log2 n), magic = floor(2^32 (2^l - n) / n) + 1.
+void split_divisor(unsigned n, unsigned& magic, int& sh1, int& sh2) {
+  int l = 0;
+  while ((1ull << l) < n) ++l;
+  magic = static_cast<unsigned>(((1ull << 32) * ((1ull << l) - n)) / n + 1);
+  sh1 = l < 1 ? l : 1;
+  sh2 = l > 1 ? l - 1 : 0;
+}
+
+__device__ __forceinline__ unsigned div_split(unsigned x, const MmaParams& p) {
+  const unsigned t = __umulhi(x, p.magic);
+  return (t + ((x - t) >> p.sh1)) >> p.sh2;
+}
 
 // The bf16 kernel's shape at head dim HD and its shared memory: MW rings
 // (one a warp) of STAGES stages, a stage one K and one V tile of TILE rows
@@ -471,7 +493,15 @@ struct Mma {
   static constexpr int MW = HD == 80 ? 4 : 8;
   static constexpr int TILE = 16;
   static constexpr int STAGES = 2;
+#ifdef REPRO_DECODE_SPILL
+  // the diagnostic build (its own library, for the parity tests alone):
+  // launch bounds that leave every instantiation too few registers, so
+  // ptxas spills -- at hd 128 the bounds (2 blocks an SM) under which the
+  // 64-bit ranges faulted -- to show the kernel stays right where it spills
+  static constexpr int MIN_BLOCKS = HD == 128 ? 2 : 4;
+#else
   static constexpr int MIN_BLOCKS = HD <= 80 ? 2 : 1;
+#endif
   static constexpr int THREADS = 32 * MW;
   static constexpr int KS = HD / 16;       // k16 steps of a score
   static constexpr int CH = HD / 8;  // 16-byte chunks a row; P V's n8 blocks
@@ -608,13 +638,18 @@ __global__ void __launch_bounds__(Mma<HD, MG>::THREADS, Mma<HD, MG>::MIN_BLOCKS)
                       : 0u;
     }
   const int len = max(0, min(__ldg(p.lengths + b), p.S));
-  // In 64 bits, measured fastest: the kernel then holds ptxas's 64-bit
-  // division subroutine, with which builds made to spill failed (with the
-  // ranges in 32 bits they did not, at 7-10% more device time; PERF.md).
-  const int lo =
-      static_cast<int>(static_cast<long long>(split) * len / n_split);
-  const int hi =
-      static_cast<int>(static_cast<long long>(split + 1) * len / n_split);
+  // floor(split len / n_split) in 32 bits: with q = len / n and r = len % n
+  // it is split q + floor(split r / n), and split r < n^2 < 2^32 for the
+  // n_split <= 65535 the entry point takes; each quotient by the host's
+  // multiplier (`div_split`).  The same ranges as the 64-bit quotient, bit
+  // for bit, without ptxas's 64-bit division subroutine: builds made to
+  // spill around that subroutine gave wrong bits or an illegal instruction
+  // (PERF.md).
+  const unsigned nq = div_split(static_cast<unsigned>(len), p);
+  const unsigned nr = static_cast<unsigned>(len) - nq * n_split;
+  const int lo = static_cast<int>(split * nq + div_split(split * nr, p));
+  const int hi = static_cast<int>((split + 1) * nq +
+                                  div_split((split + 1) * nr, p));
   const int tiles = (hi - lo + TILE - 1) / TILE;
   const int mine = warp < tiles ? (tiles - 1 - warp) / MW + 1 : 0;
   const __nv_bfloat16* krow = p.k + b * p.k_sb + kh * p.k_sh;
@@ -1009,7 +1044,8 @@ extern "C" int decode_attention_fwd(
                 static_cast<float*>(part), static_cast<int*>(counters),
                 S, H, KH, groups,
                 q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh,
-                scale * LOG2E};
+                scale * LOG2E, 0u, 0, 0};
+    split_divisor(static_cast<unsigned>(n_split), p.magic, p.sh1, p.sh2);
     return static_cast<int>(dispatch_mma(p, B, hd, cluster, st));
   }
   if (dtype != 0 || chunk <= 0)

@@ -41,8 +41,13 @@ BLOCKS_PER_SM = 4       # the grid the split plan aims at
 H100_SMS = 132
 MAX_CLUSTER = 8         # blocks of a thread-block cluster (portable)
 STAMP_FLAGS = ("-DDECODE_STAMPS",)
+# the diagnostic build whose launch bounds make ptxas spill in every
+# instantiation of the bf16 kernel (the GPU tests hold it to the plain
+# version); its launches are counted in ``spill_launches`` alone
+SPILL_FLAGS = ("-DREPRO_DECODE_SPILL",)
 
 launches = build.LaunchCounter()
+spill_launches = build.LaunchCounter()
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 10 + [ctypes.c_float]
@@ -112,9 +117,16 @@ def decode_attention(q, k, v, lengths, *, scale: float | None = None):
     return _decode(q, k, v, lengths, scale, ())
 
 
-def _decode(q, k, v, lengths, scale, flags: tuple):
+def decode_attention_spill(q, k, v, lengths, *, scale: float | None = None):
+    """``decode_attention`` on the build made to spill (``SPILL_FLAGS``),
+    counted in ``spill_launches`` alone."""
+    return _decode(q, k, v, lengths, scale, SPILL_FLAGS, spill_launches)
+
+
+def _decode(q, k, v, lengths, scale, flags: tuple, counter=launches):
     """``decode_attention`` on the build of the source with the extra nvcc
-    ``flags`` (``STAMP_FLAGS`` for the study's stamps)."""
+    ``flags`` (``STAMP_FLAGS`` for the study's stamps), counted in
+    ``counter``."""
     _check(q, k, v, lengths)
     b, _, h, hd = q.shape
     s, kh = k.shape[1], k.shape[2]
@@ -146,7 +158,7 @@ def _decode(q, k, v, lengths, scale, flags: tuple):
              out.stride(0), out.stride(2),
              float(scale), DTYPES[q.dtype], hd, cluster, stream)
     build.check(err, "decode_attention")
-    launches.add()
+    counter.add()
     return out
 
 

@@ -9,13 +9,21 @@ block owns 64 of its value columns.
 
 * bfloat16 runs on the tensor cores (``wgmma``) in chunks of 64 steps, by
   the plan ``scan_plan`` draws from the shapes alone: a **single pass**
-  (grid (BH, dv / 64), each block walks every chunk with its slice of ``C``
-  in registers), or, where the H100 timed it faster (a few row-heads over
-  many chunks; more widely at small dk), **chunk-parallel** (each chunk's
-  own state, then one pass in chunk order over those states in float32
-  scratch, then every chunk's output in parallel: three launches).
-  ``ref.mlstm_chunk_parallel_ref`` is the chunk-parallel arithmetic in plain
-  PyTorch.
+  (a pre-pass carries the normaliser once a row-head and gives each chunk
+  its gates' rows and q . n_prev; then grid (BH, dv / 64), each block walks
+  every chunk with its slice of ``C`` in registers, a TMA producer
+  warpgroup streaming Q and K in 64-column panels of dk through an
+  ``mbarrier`` ring to two consumer warpgroups: one sums the scores and Q
+  C_prev over every panel and writes the output, the other holds most of
+  ``C`` and carries it), or, where the H100 timed it faster (a few
+  row-heads over many chunks; more widely at small dk), **chunk-parallel**
+  (each chunk's own state, then one pass in chunk order over those states
+  in float32 scratch, then every chunk's output in parallel: three
+  launches).  ``ref.mlstm_single_pass_ref`` and
+  ``ref.mlstm_chunk_parallel_ref`` are their arithmetic in plain PyTorch.
+  ``mlstm_scan_watchdog`` is the single pass on a second build with
+  ``-DREPRO_MBAR_WATCHDOG`` (every ``mbarrier`` wait traps after a bounded
+  number of tries), counted in ``watchdog_launches`` alone.
 * float32 runs the first design, on the CUDA cores: one launch, chunk
   length from dk (``chunk_len``).
 
@@ -59,20 +67,16 @@ COLS = 64           # value columns a block
 MAX_DK = 512        # the bfloat16 kernels' largest head dim (8 tiles of 64)
 # Where chunk-parallel is the faster design (``scan_study plans`` on the
 # H100).  Large states (timed at dk = dv = 512): at most this many
-# single-pass blocks and at least this many chunks.
-CP_MAX_BLOCKS = 32
-CP_MIN_CHUNKS = 4
-# Small states (timed at dk = 16, dv = 64, applied up to dk = CP_SMALL_DK):
-# at one chunk, at up to CP_SMALL_MAX_BLOCKS single-pass blocks, or within
-# one wave (the H100's SMS blocks) from CP_SMALL_MIN_CHUNKS chunks.
+# single-pass blocks and at least this many chunks.  Small states (timed
+# at dk = 16, dv = 64, applied up to dk = CP_SMALL_DK): everywhere.
+CP_MAX_BLOCKS = 8
+CP_MIN_CHUNKS = 8
 CP_SMALL_DK = 16
-CP_SMALL_MAX_BLOCKS = 64
-CP_SMALL_MIN_CHUNKS = 8
-SMS = 132
 # Either way, at most this much float32 scratch.
 CP_MAX_SCRATCH = 64 << 20
 
 launches = build.LaunchCounter()
+watchdog_launches = build.LaunchCounter()   # the forward's watchdog build
 bwd_launches = build.LaunchCounter()
 bwd_watchdog_launches = build.LaunchCounter()   # the watchdog build's alone
 tma_copies = build.LaunchCounter()   # bf16 inputs of the backward copied
@@ -104,31 +108,36 @@ def scan_plan(bh: int, s: int, dk: int, dv: int, *,
     pass keeps one block for each of the ``bh * ceil(dv / 64)`` column
     slices and walks the chunks in order; the chunk-parallel design writes,
     carries and reads back ``(n_chunks - 1) * bh * dk * dv`` floats of
-    chunk states to run the chunks side by side.  Timed on the H100 at dk =
-    dv = 512 over BH 1-32 and S 128-2048, chunk-parallel was faster only at
-    BH <= 4 (32 blocks) with 4 chunks or more (1.6-4.6x at BH 1-2, 1.0-1.3x
-    at BH 4), and 1.3-3.8x slower from BH 8 (64 blocks) on.  At dk = 16, dv
-    = 64 (hymba's SSD heads) over BH 25-200 and S 64-2048, where a chunk
-    of the single pass is short and the carried states small,
-    chunk-parallel was faster at one chunk (1.27-1.30x), at BH <= 50
-    (1.06-3.9x) and at BH 100 from 8 chunks (1.19-1.35x), and up to 1.25x
-    slower elsewhere.  It is picked where it was faster while its scratch is at
-    most ``CP_MAX_SCRATCH`` bytes.  ``design`` forces one (the tests hold
-    the two against each other).  Depends on shapes only."""
+    chunk states to run the chunks side by side.  Timed on the H100 (the
+    single pass of ``mlstm_tma_kernel``) at dk = dv = 512 over BH 1-32 and
+    S 128-2048, chunk-parallel was faster at BH 1 (8 blocks) from 8 chunks
+    (S 500: 1.49x, S 2048: 1.68x) and at BH 2, S 500 (1.18x), and 1.06-7.6x
+    slower everywhere else it was timed, BH 2 from S 1024 and every BH >= 4
+    (the bulk prefill's BH 4, S 500 included: 1.66x).  At dk = 16, dv = 64
+    (hymba's SSD heads) over BH 25-200 and S 64-2048, where the single
+    pass has one 64-column panel and a short chain to a chunk,
+    chunk-parallel was faster at 21 of 24 points (1.02-3.0x) and at most
+    1.18x slower at the others (BH 100, S 256 and 500).  It is picked
+    where it was faster while its scratch is at most ``CP_MAX_SCRATCH``
+    bytes.  ``design`` forces one (the tests hold the two against each
+    other).  Depends on shapes only."""
     n_chunks = max(1, -(-s // CHUNK))
     if design is None:
         blocks = bh * -(-dv // COLS)
-        if dk <= CP_SMALL_DK:
-            few = (n_chunks == 1 or blocks <= CP_SMALL_MAX_BLOCKS
-                   or (blocks <= SMS and n_chunks >= CP_SMALL_MIN_CHUNKS))
-        else:
-            few = blocks <= CP_MAX_BLOCKS and n_chunks >= CP_MIN_CHUNKS
+        few = dk <= CP_SMALL_DK or (blocks <= CP_MAX_BLOCKS
+                                    and n_chunks >= CP_MIN_CHUNKS)
         scratch = (n_chunks - 1) * bh * dk * dv * 4
         design = ("chunk_parallel" if few and scratch <= CP_MAX_SCRATCH
                   else "single")
     if design not in DESIGNS:
         raise ValueError(f"mlstm_scan: no design {design!r}")
     return ScanPlan(design, CHUNK, COLS, n_chunks)
+
+
+def single_pass_panels(dk: int) -> int:
+    """The 64-column panels of dk the single pass is built for: 1, 2, 4 or
+    8 (dk padded up to the next)."""
+    return next(n for n in (1, 2, 4, 8) if dk <= 64 * n)
 
 
 def chunk_len(dk: int) -> int:
@@ -147,6 +156,16 @@ def mlstm_scan(q, k, v, logf, i, *, scale: float | None = None,
     out = run(q, k, v, logf, i, scale=scale, design=design)
     if not isinstance(q, FakeTensor):
         launches.add()
+    return out
+
+
+def mlstm_scan_watchdog(q, k, v, logf, i, *, scale: float | None = None,
+                        design: str | None = None):
+    """``mlstm_scan`` on the watchdog build (``WATCHDOG_FLAGS``), counted
+    in ``watchdog_launches`` alone."""
+    out = run(q, k, v, logf, i, scale=scale, design=design,
+              flags=WATCHDOG_FLAGS)
+    watchdog_launches.add()
     return out
 
 
@@ -178,6 +197,13 @@ def run(q, k, v, logf, i, *, scale: float | None = None,
             slots = (plan.n_chunks - 1) * bh
             scratch = [torch.empty(n, dtype=torch.float32, device=q.device)
                        for n in (slots * dk * dv, slots * dk, slots)]
+        elif not design:
+            # the pre-pass's rows a chunk: exp(la) and w, q . n_prev of
+            # each dk panel, the decay tile (rows of CHUNK + 8)
+            per = ((2 + single_pass_panels(dk)) * CHUNK
+                   + CHUNK * (CHUNK + 8))
+            scratch[0] = torch.empty(bh * plan.n_chunks * per,
+                                     dtype=torch.float32, device=q.device)
     if fake:                                    # shapes alone: no launch
         return out
     fn = build.function("mlstm_scan", "mlstm_scan_fwd", _ARGTYPES, flags)
@@ -189,6 +215,9 @@ def run(q, k, v, logf, i, *, scale: float | None = None,
              v.stride(0), v.stride(1), logf.stride(0), i.stride(0),
              out.stride(0), out.stride(1), float(scale), DTYPES[q.dtype],
              design, chunk, torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= TMA_REFUSED:
+        raise ValueError(f"mlstm_scan: the driver refused a tensor map of "
+                         f"q, k or v (CUresult {err - TMA_REFUSED})")
     build.check(err, "mlstm_scan")
     return out
 
@@ -321,9 +350,10 @@ def _check(q, k, v, logf, i) -> None:
                              f" and dv {dv}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             if not build.aligned16(t):
-                raise ValueError(f"mlstm_scan: bfloat16 {name} is copied in "
-                                 "16-byte chunks and must be 16-byte aligned,"
-                                 " with strides that keep every row so")
+                raise ValueError(f"mlstm_scan: bfloat16 {name} is read "
+                                 "through tensor maps and 16-byte copies and "
+                                 "must be 16-byte aligned, with strides that "
+                                 "keep every row so")
     for name, t in (("logf", logf), ("i", i)):
         if tuple(t.shape) != (bh, s):
             raise ValueError(f"mlstm_scan: {name} must be (BH, S) = "

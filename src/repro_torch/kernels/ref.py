@@ -487,6 +487,74 @@ def mlstm_chunk_parallel_ref(q, k, v, logf, i, *, scale: float | None = None,
     return h.reshape(bh, nc * chunk, dv)[:, :s].to(q.dtype)
 
 
+def mlstm_single_pass_ref(q, k, v, logf, i, *, scale: float | None = None,
+                          rounded: bool = True):
+    """K3's bf16 single pass in plain PyTorch (tests only): chunks of 64
+    steps, dk in 64-column panels (zero past dk).  A pre-pass carries n
+    (float32) a panel at a time and gives each chunk the panels' shares of
+    q . n_prev; the main pass sums the chunk's scores S and Q C_prev over
+    the panels in panel order, C_prev as bf16 (``rounded``), carries each
+    panel's C (float32) by K^T (w o V) with w o V as bf16, masks the scores
+    by the decay (gate sums in float32), takes their row sums unrounded,
+    and adds P V with P as bf16 to scale exp(la) Q C_prev; the output is
+    multiplied by 1 / max(|exp(la) scale q . n_prev + row sum|, 1), q .
+    n_prev the panels' shares summed in panel order.  With ``rounded``
+    False nothing is rounded: the chunkwise algebra alone.  Inputs are
+    taken as given (bf16 values read exactly); the sums inside a
+    tensor-core product are in the card's own order.  Same arguments as
+    ``mlstm_chunkwise_ref``; returns h (BH, S, dv) in q's dtype."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    scale = scale if scale is not None else dk ** -0.5
+    chunk, pw = 64, 64
+    nc = max(1, -(-s // chunk))
+    n_pan = -(-dk // pw)
+    pad, dkp = nc * chunk - s, n_pan * pw
+
+    def rnd(x):
+        return x.bfloat16().float() if rounded else x
+
+    def tail(x, cols=None):
+        x = x.float()
+        if x.dim() == 2:
+            return torch.nn.functional.pad(x, (0, pad))
+        return torch.nn.functional.pad(x, (0, cols - x.shape[-1], 0, pad))
+
+    qc = tail(q, dkp).reshape(bh, nc, chunk, dkp)
+    kc = tail(k, dkp).reshape(bh, nc, chunk, dkp)
+    vc = tail(v, dv).reshape(bh, nc, chunk, dv)
+    lc = tail(logf).reshape(bh, nc, chunk)
+    ic = tail(i).reshape(bh, nc, chunk)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+    c = torch.zeros((bh, dkp, dv), dtype=torch.float32, device=q.device)
+    n = torch.zeros((bh, dkp), dtype=torch.float32, device=q.device)
+    hs = []
+    for j in range(nc):
+        qb, kb, vb, ib = qc[:, j], kc[:, j], vc[:, j], ic[:, j]
+        la = torch.cumsum(lc[:, j], dim=-1)
+        etot = la[:, -1].exp()
+        wt = ib * (la[:, -1:] - la).exp()
+        wv = rnd(vb * wt[..., None])
+        sc = oc = qn = 0.0
+        for p in range(n_pan):
+            cols = slice(pw * p, pw * (p + 1))
+            qp, kp = qb[..., cols], kb[..., cols]
+            sc = sc + qp @ kp.transpose(1, 2)
+            oc = oc + qp @ rnd(c[:, cols])
+            qn = qn + (qp @ n[:, cols, None])[..., 0]
+            c[:, cols] = etot[:, None, None] * c[:, cols] + kp.transpose(1, 2) @ wv
+            n[:, cols] = etot[:, None] * n[:, cols] + (wt[:, None, :] @ kp)[:, 0]
+        dmat = torch.where(causal, (la[:, :, None] - la[:, None, :]).exp()
+                           * ib[:, None, :], 0.0)
+        x = sc * scale * dmat
+        rows = x.sum(-1)
+        dec = la.exp()
+        out = oc * (scale * dec)[..., None] + rnd(x) @ vb
+        den = (dec * (qn * scale) + rows).abs().clamp(min=1.0)
+        hs.append(out * (1.0 / den)[..., None])
+    return torch.cat(hs, dim=1)[:, :s].to(q.dtype)
+
+
 def mlstm_chunkwise_bwd_ref(q, k, v, logf, i, dh, *, scale: float | None = None,
                             chunk: int = 64):
     """The gradient of ``mlstm_chunkwise_ref`` written out, float32 inside

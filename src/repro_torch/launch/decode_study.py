@@ -18,8 +18,9 @@ K2 timings: B 8, S_max 1024, every row 700 live (llama3.2-1b, hymba-1.5b,
 qwen2-moe-a2.7b, stablelm-3b) or 1024 (seamless-m4t-medium's
 cross-attention).  Both builds are first held to the plain version
 (``ref.grouped_decode_ref``, bf16: 3e-2 of max(1, max |plain|)); this
-tree's two calls must give the same bits, and both builds' float32 route
-(the split kernel in both) the same bits as each other.  Each of
+tree's two calls must give the same bits (whether the two builds' bf16
+bits are equal is printed), and both builds' float32 route (the split
+kernel in both) the same bits as each other.  Each of
 ``ROUNDS`` rounds times a profiler window of ``ITERS`` calls of one build
 (the kernel's mean device time a launch, every kernel whose name holds
 ``decode_``); then the wrapper's host microseconds a call, in
@@ -239,6 +240,7 @@ def main() -> None:
             if not errs[who] < TOL:
                 raise AssertionError(f"{who} at {name}: error {errs[who]}")
         repeat_equal = torch.equal(got["this_tree"], runs["this_tree"]())
+        bf16_equal = torch.equal(got["this_tree"], got["baseline"])
         del want, got
         times = {who: [] for who in runs}
         kernels = {}
@@ -262,6 +264,7 @@ def main() -> None:
             "bound_ms": bound, "bound_by": bound_by,
             "share_of_bound": {w: bound / t for w, t in mean.items()},
             "max_err_vs_plain": errs, "two_calls_equal_bits": repeat_equal,
+            "bits_equal_to_baseline": bf16_equal,
             "float32_route_bits_equal_to_baseline": f32_equal,
             "plan": {"split": kdecode.split_plan(s, b, kh),
                      "mma": kdecode.mma_plan(s, b, kh)},

@@ -1,15 +1,20 @@
 """Where the mLSTM scan (K3) spends its time on the card, which of its two
-bfloat16 designs is faster where, and what its bf16 roundings cost.
+bfloat16 designs is faster where, what its bf16 roundings cost, and how its
+forward compares with another build of it.
 
-  PYTHONPATH=src python -m repro_torch.launch.scan_study stamps [--bh 32 --s 256]
+  PYTHONPATH=src python -m repro_torch.launch.scan_study stamps [--bh 16 --s 2048]
   PYTHONPATH=src python -m repro_torch.launch.scan_study plans \
       [--dk 16 --dv 64 --bhs 25,50,100,200 --ss 64,128,256,500,1024,2048]
   PYTHONPATH=src python -m repro_torch.launch.scan_study rounding
+  PYTHONPATH=src python -m repro_torch.launch.scan_study \
+      --baseline OTHER/src/repro_torch/csrc/mlstm_scan.cu [--rounds 2]
 
 ``stamps``: builds ``csrc/mlstm_scan.cu`` with ``-DMLSTM_STAMPS`` (a
-library of its own under ``build/kernels/``), runs the single pass once at
-(BH, S, 512, 512) and prints, for the first block's two warpgroups, the SM
-cycles of each phase of the kernel in every chunk.
+library of its own under ``build/kernels/``), runs the single pass at
+(BH, S, 512, 512) and prints, for each of its two consumer warpgroups, the
+SM cycles a chunk spends in each phase (``PHASES``), summed over the
+call's blocks and divided by their chunks, after two calls outside the
+count.
 
 ``plans``: device time of one call under each design, forced, over row-heads
 (``--bhs``) x sequence lengths (``--ss``) at key and value dims ``--dk`` and
@@ -23,6 +28,20 @@ of the same bf16 inputs, the bf16 spacing where they differ most, and the
 error of each bf16 operand rounding of the tensor-core design alone
 (score tile, the C copy, w o V), emulated in float32 PyTorch.
 
+``--baseline``: the bf16 forward of this tree against another build of it
+on the same inputs in one process, at ``BASELINE_SHAPES`` (xlstm-350m's
+training, admission and bulk prefill, hymba-1.5b's training), under each
+tree's own plan and with the single pass forced: the device ms of a call
+(profiler, summed over its K3 kernels) in rounds of baseline, this tree,
+this tree, baseline; each build's max error against the plain version
+(3e-2 of max(1, max |plain|)), whether two calls give the same bits,
+whether the two builds' bits are equal, each build's CUDA-event ms a call
+(host included), the bound (``kernels.work.scan``)
+and, at a reduced shape of each, whether the float32 route's bits equal
+the baseline's.  ``OTHER`` is an earlier tree unpacked with ``git archive``
+into a directory ``.gitignore`` lists: its own ``kernels/mlstm_scan.py``,
+loaded under a name of its own, builds and calls its own source.
+
 Each prints one JSON line per measurement, with the card's name and power
 limit.
 """
@@ -30,8 +49,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
+import re
 import subprocess
+import sys
+import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,10 +66,25 @@ from ..kernels import build, ref
 from ..kernels import mlstm_scan as kscan
 
 STAMP_FLAGS = ("-DMLSTM_STAMPS",)
-STAMP_CHUNKS = 16          # the kernel's STAMP_CHUNKS
-PHASES = ["top of chunk", "issue copies", "gates, C copy, barrier", "scan",
-          "wait for tiles", "scores", "mask, q.n, w o V, barrier", "Q C",
-          "S V, store", "prefetch Q, V", "carry issue, n", "carry wait"]
+# the single pass's MSTAMP(k) phases, in order (csrc/mlstm_scan.cu); the
+# panel phases are summed over the chunk's panels.  Consumer 1 stamps 0-3,
+# its carries' issue and wait on the one before as 5, its last carry's
+# wait as 6.
+PHASES = ["V and aux rows landed", "w o V", "stage landed", "C_p^T out",
+          "C_p^T from consumer 1", "products issued", "product waits",
+          "q . n_prev", "mask and row sums", "P V", "output stores"]
+# name: (BH, S, dk, dv, scale)
+BASELINE_SHAPES = {
+    "train_xlstm": (16, 2048, 512, 512, None),
+    "admission": (32, 256, 512, 512, None),
+    "bulk": (4, 500, 512, 512, None),
+    "train_hymba": (50, 2048, 16, 64, 1.0),
+    "admission_hymba": (200, 256, 16, 64, 1.0),
+}
+F32_SHAPES = {"xlstm": (4, 256, 512, 512, None),
+              "hymba": (50, 256, 16, 64, 1.0)}
+TOL = 3e-2
+ITERS = 10
 PLAN_BH = (1, 2, 4, 8, 12, 16, 24, 32)
 PLAN_S = (128, 256, 500, 1024, 2048)
 
@@ -75,38 +114,144 @@ def scan_inputs(bh, s, dk, dv, seed):
 def stamps(bh: int, s: int, card: str) -> None:
     d = 512
     q, k, v, logf, ig = scan_inputs(bh, s, d, d, 0)
-    for _ in range(3):
-        kscan.run(q, k, v, logf, ig, design="single", flags=STAMP_FLAGS)
-    torch.cuda.synchronize()
     read = build.function("mlstm_scan", "mlstm_stamps", [ctypes.c_void_p],
                           STAMP_FLAGS)
-    st = np.zeros((2, STAMP_CHUNKS, len(PHASES)), np.uint64)
+    st = np.zeros((2, len(PHASES) + 1), np.uint64)
+    for _ in range(2):
+        kscan.run(q, k, v, logf, ig, design="single", flags=STAMP_FLAGS)
+    torch.cuda.synchronize()
+    build.check(read(st.ctypes.data), "mlstm_stamps")      # clears
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    kscan.run(q, k, v, logf, ig, design="single", flags=STAMP_FLAGS)
+    end.record()
+    torch.cuda.synchronize()
     build.check(read(st.ctypes.data), "mlstm_stamps")
-    st = st.astype(np.int64)
-    n = min(kscan.scan_plan(bh, s, d, d).n_chunks, STAMP_CHUNKS)
     for w in range(2):
-        prev = [st[w, c - 1, -1] if c else st[w, 0, 0] for c in range(n)]
-        phases = {name: [int(st[w, c, j] - (st[w, c, j - 1] if j else prev[c]))
-                         for c in range(n)]
-                  for j, name in enumerate(PHASES)}
+        chunks = int(st[w, -1])
+        if not chunks:
+            continue
+        per = {name: float(st[w, j]) / chunks for j, name in enumerate(PHASES)}
         print(json.dumps({"study": "stamps", "bh": bh, "s": s, "dk": d,
-                          "dv": d, "warpgroup": w, "block": [0, 0],
-                          "cycles_per_chunk": phases,
-                          "cycles_total": int(st[w, n - 1, -1] - st[w, 0, 0]),
+                          "dv": d, "consumer": w, "chunks": chunks,
+                          "cycles_per_chunk": per,
+                          "cycles_per_chunk_sum": sum(per.values()),
+                          "call_ms": start.elapsed_time(end),
                           "card": card}), flush=True)
 
 
-def device_ms(fn, iters: int = 5) -> float:
-    """Device time of one call of ``fn``, summed over its K3 kernels."""
+def events_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Host-inclusive time of one call of ``fn``: CUDA events around
+    ``iters`` back-to-back calls after ``warmup``, over ``iters``."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def baseline_wrapper(source: Path):
+    """The ``kernels.mlstm_scan`` module of the tree that holds ``source``
+    (``<tree>/src/repro_torch/csrc/mlstm_scan.cu``), loaded beside this
+    tree's as ``scan_baseline.mlstm_scan``, with that tree's ``build``
+    module."""
+    pkg = types.ModuleType("scan_baseline")
+    pkg.__path__ = [str(source.parents[1] / "kernels")]
+    sys.modules[pkg.__name__] = pkg
+    return importlib.import_module(f"{pkg.__name__}.mlstm_scan")
+
+
+def baseline(card: str, source: Path, rounds: int) -> None:
+    """This tree's bf16 forward against the build at ``source`` (see the
+    module's doc)."""
+    from ..kernels import work as W
+    from ..roofline import analysis as RA
+    build.build(("mlstm_scan",))
+    base = baseline_wrapper(source.resolve())
+    for name, (bh, s, dk, dv, scale) in F32_SHAPES.items():
+        x = scan_inputs(bh, s, dk, dv, 17)
+        x = (*(t.float() for t in x[:3]), *x[3:])
+        equal = torch.equal(kscan.mlstm_scan(*x, scale=scale),
+                            base.mlstm_scan(*x, scale=scale))
+        print(json.dumps({"study": "scan_baseline_float32", "shape": name,
+                          "bh": bh, "s": s, "dk": dk, "dv": dv,
+                          "bits_equal_to_baseline": equal, "card": card}),
+              flush=True)
+    for name, (bh, s, dk, dv, scale) in BASELINE_SHAPES.items():
+        x = scan_inputs(bh, s, dk, dv, 29)
+        want = ref.mlstm_chunkwise_ref(*x, scale=scale).float()
+        limit = TOL * max(1.0, want.abs().max().item())
+        row = {"study": "scan_baseline", "shape": name, "bh": bh, "s": s,
+               "dk": dk, "dv": dv, "scale": scale,
+               "plan": {"this_tree": kscan.scan_plan(bh, s, dk, dv).design,
+                        "baseline": base.scan_plan(bh, s, dk, dv).design}}
+        for design in (None, "single"):
+            tag = "own_plan" if design is None else "single"
+            runs = {"baseline": lambda d=design: base.mlstm_scan(
+                        *x, scale=scale, design=d),
+                    "this_tree": lambda d=design: kscan.mlstm_scan(
+                        *x, scale=scale, design=d)}
+            got = {w: fn() for w, fn in runs.items()}
+            errs = {w: (g.float() - want).abs().max().item()
+                    for w, g in got.items()}
+            for w, e in errs.items():
+                if not e < limit:
+                    raise AssertionError(f"{w} at {name} ({tag}): max err "
+                                         f"{e} (limit {limit})")
+            again = runs["this_tree"]()
+            times = {w: [] for w in runs}
+            by_kernel = {w: {} for w in runs}
+            for _ in range(rounds):
+                for w in ("baseline", "this_tree", "this_tree", "baseline"):
+                    by_kernel[w] = {}
+                    times[w].append(device_ms(runs[w], ITERS, by_kernel[w]))
+            mean = {w: sum(t) / len(t) for w, t in times.items()}
+            row[tag] = {
+                "events_ms": {w: events_ms(fn) for w, fn in runs.items()},
+                "device_ms": times, "mean_ms": mean,
+                "this_over_baseline": mean["this_tree"] / mean["baseline"],
+                "device_ms_by_kernel_last_round": by_kernel,
+                "max_abs_err": errs,
+                "two_calls_equal_bits": torch.equal(got["this_tree"], again),
+                "bits_equal_to_baseline": torch.equal(got["this_tree"],
+                                                      got["baseline"])}
+            del got, again
+        row["bound_ms"], row["bound_by"] = RA.bound_ms(W.scan(*x))
+        row["tolerance"] = limit
+        print(json.dumps({**row, "baseline": str(source), "iters": ITERS,
+                          "card": card}), flush=True)
+        del x, want
+        torch.cuda.empty_cache()
+
+
+def device_ms(fn, iters: int = 5, by_kernel: dict | None = None) -> float:
+    """Device time of one call of ``fn``, summed over its K3 kernels (up
+    to three profiler windows, until one holds a launch a call: the
+    profiler can lose a window's device events); each kernel's ms a call
+    into ``by_kernel`` when given."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and "mlstm_" in e.key
-               ) / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "mlstm_" in e.key]
+        if mine and min(e.count for e in mine) >= iters:
+            break
+    if by_kernel is not None:
+        for e in mine:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            name = name.split("(")[0].split("::")[-1]
+            by_kernel[name] = (by_kernel.get(name, 0.0)
+                               + e.self_device_time_total / iters / 1e3)
+    return sum(e.self_device_time_total for e in mine) / iters / 1e3
 
 
 def plans(card: str, dk: int = 512, dv: int = 512, bhs=PLAN_BH,
@@ -208,9 +353,12 @@ def _ints(text: str) -> tuple:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("study", choices=("stamps", "plans", "rounding"))
-    ap.add_argument("--bh", type=int, default=32)
-    ap.add_argument("--s", type=int, default=256)
+    ap.add_argument("study", nargs="?", choices=("stamps", "plans", "rounding"))
+    ap.add_argument("--baseline", type=Path,
+                    help="an mlstm_scan.cu of another tree to time against")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--bh", type=int, default=16)
+    ap.add_argument("--s", type=int, default=2048)
     ap.add_argument("--dk", type=int, default=512)
     ap.add_argument("--dv", type=int, default=512)
     ap.add_argument("--bhs", type=_ints, default=PLAN_BH,
@@ -221,7 +369,13 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("scan_study measures the CUDA device; none found")
     card = card_line()
-    if args.study == "stamps":
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.baseline is not None:
+        baseline(card, args.baseline, args.rounds)
+    if args.study is None:
+        if args.baseline is None:
+            raise SystemExit("scan_study: a study or --baseline")
+    elif args.study == "stamps":
         stamps(args.bh, args.s, card)
     elif args.study == "plans":
         plans(card, args.dk, args.dv, args.bhs, args.ss)

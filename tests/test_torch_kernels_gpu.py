@@ -450,12 +450,15 @@ def test_decode_launches_the_kernel_of_its_input_type(cuda, dtype, kernel,
     lens = torch.full((b,), s - 3, dtype=torch.int32, device=cuda)
     kdecode.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        kdecode.decode_attention(q, k, v, lens)
-        torch.cuda.synchronize()
-    names = {e.key for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.count}
+    for _ in range(3):          # the profiler can drop device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            kdecode.decode_attention(q, k, v, lens)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count}
+        if names:
+            break
     assert any(kernel in n for n in names), names
     assert not any("decode_" in n and kernel not in n for n in names), names
 
@@ -673,12 +676,14 @@ def test_scan_kernel_plans_agree(cuda, bh, s, dk, dv, scale):
 
 @pytest.mark.parametrize("design", ["single", "chunk_parallel"])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 129])
-def test_scan_kernel_chunk_edges(cuda, design, s):
-    q, k, v, logf, i = _scan_inputs(2, s, 512, 512, torch.bfloat16, cuda)
-    out = kscan.mlstm_scan(q, k, v, logf, i, design=design)
+@pytest.mark.parametrize("dk,dv,scale", [(512, 512, None), (16, 64, 1.0)])
+def test_scan_kernel_chunk_edges(cuda, design, s, dk, dv, scale):
+    q, k, v, logf, i = _scan_inputs(2, s, dk, dv, torch.bfloat16, cuda)
+    out = kscan.mlstm_scan(q, k, v, logf, i, scale=scale, design=design)
     torch.cuda.synchronize()
-    assert out.shape == (2, s, 512)
-    assert _scan_close(out, ref.mlstm_chunkwise_ref(q, k, v, logf, i))
+    assert out.shape == (2, s, dv)
+    assert _scan_close(out, ref.mlstm_chunkwise_ref(q, k, v, logf, i,
+                                                    scale=scale))
 
 
 @pytest.mark.parametrize("design", ["single", "chunk_parallel"])
@@ -697,8 +702,11 @@ def test_scan_kernel_gates_at_their_extremes(cuda, design):
 
 
 @pytest.mark.parametrize("design", ["single", "chunk_parallel"])
-def test_scan_kernel_is_deterministic(cuda, design):
-    q, k, v, logf, i = _scan_inputs(4, 500, 512, 512, torch.bfloat16, cuda)
+@pytest.mark.parametrize("bh,s,dk,dv", [(4, 500, 512, 512),
+                                        (16, 2048, 512, 512),
+                                        (50, 2048, 16, 64)])
+def test_scan_kernel_is_deterministic(cuda, design, bh, s, dk, dv):
+    q, k, v, logf, i = _scan_inputs(bh, s, dk, dv, torch.bfloat16, cuda)
     first = kscan.mlstm_scan(q, k, v, logf, i, design=design)
     second = kscan.mlstm_scan(q, k, v, logf, i, design=design)
     torch.cuda.synchronize()
@@ -730,6 +738,187 @@ def test_scan_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, logf, i = _scan_inputs(2, 64, 32, 32, torch.float32, cuda)
     with pytest.raises(ValueError, match="float32"):
         kscan.mlstm_scan(q, k, v, logf, i, design="chunk_parallel")
+
+
+# K3's bf16 single pass (``mlstm_tma_kernel``) against its plain version and
+# against ``ref.mlstm_single_pass_ref``, the emulation of its roundings and
+# sum order: the kernel differs from the emulation only by the order of the
+# sums inside a tensor-core product and the device's exp, which move an
+# output by a few of its bf16 spacings at most (SCAN_EMULATION_TOL of max(1,
+# max |emulation|)), against the plain version's 3e-2.
+SCAN_EMULATION_TOL = 1e-2
+SCAN_SHAPES = [
+    # bh, s, dk, dv, scale
+    (16, 2048, 512, 512, None),      # xlstm-350m training, B 4 x H 4
+    (50, 2048, 16, 64, 1.0),         # hymba-1.5b's SSD heads, training
+    (32, 256, 512, 512, None),       # xlstm admission, B 8
+    (4, 500, 512, 512, None),        # xlstm bulk prefill, B 1
+    (200, 256, 16, 64, 1.0),         # hymba admission
+    (3, 129, 96, 64, None),          # two consumers, a ragged panel
+]
+
+
+@pytest.mark.parametrize("design", ["single", "chunk_parallel"])
+@pytest.mark.parametrize("bh,s,dk,dv,scale", SCAN_SHAPES)
+def test_scan_kernel_at_the_path_shapes_matches_plain_and_emulation(
+        cuda, design, bh, s, dk, dv, scale):
+    q, k, v, logf, i = _scan_inputs(bh, s, dk, dv, torch.bfloat16, cuda)
+    out = kscan.mlstm_scan(q, k, v, logf, i, scale=scale, design=design)
+    torch.cuda.synchronize()
+    want = ref.mlstm_chunkwise_ref(q, k, v, logf, i, scale=scale)
+    err = (out.float() - want.float()).abs().max().item()
+    assert err < 3e-2 * max(1.0, want.float().abs().max().item()), err
+    if design == "single":
+        emu = ref.mlstm_single_pass_ref(q, k, v, logf, i, scale=scale).float()
+        err = (out.float() - emu).abs().max().item()
+        assert err < SCAN_EMULATION_TOL * max(1.0, emu.abs().max().item()), err
+
+
+def test_scan_single_pass_runs_the_tma_kernel(cuda):
+    """bf16's single pass is the normaliser's pre-pass and
+    ``mlstm_tma_kernel`` (one launch counted a call), the chunk-parallel
+    plan the LOCAL, carry and OUTPUT launches, float32 the CUDA-core
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def names(dtype, design):
+        q, k, v, logf, i = _scan_inputs(4, 300, 512, 512, dtype, cuda)
+        kscan.mlstm_scan(q, k, v, logf, i, design=design)
+        torch.cuda.synchronize()
+        for _ in range(3):   # the profiler can lose a window's device events
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                kscan.mlstm_scan(q, k, v, logf, i, design=design)
+                torch.cuda.synchronize()
+            seen = [e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.count
+                    and "mlstm_" in e.key]
+            if seen:
+                return seen
+        return seen
+    single = sorted(names(torch.bfloat16, "single"))
+    assert (len(single) == 2 and "mlstm_norm_kernel" in single[0]
+            and "mlstm_tma_kernel" in single[1]), single
+    parallel = names(torch.bfloat16, "chunk_parallel")
+    assert len(parallel) == 3 and not any("tma" in n for n in parallel)
+    f32 = names(torch.float32, None)
+    assert len(f32) == 1 and "mlstm_kernel" in f32[0], f32
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,scale", [
+    (16, 2048, 512, 512, None), (200, 256, 16, 64, 1.0), (3, 129, 96, 64, None)])
+def test_scan_watchdog_build_gives_the_production_bits(cuda, bh, s, dk, dv,
+                                                       scale):
+    """The single pass on its watchdog build (-DREPRO_MBAR_WATCHDOG: every
+    mbarrier wait traps after a bounded number of tries) runs the same
+    arithmetic: the production build's bits, one watchdog launch
+    counted and none of the production's."""
+    q, k, v, logf, i = _scan_inputs(bh, s, dk, dv, torch.bfloat16, cuda)
+    prod = kscan.mlstm_scan(q, k, v, logf, i, scale=scale, design="single")
+    n, w = kscan.launches.count, kscan.watchdog_launches.count
+    got = kscan.mlstm_scan_watchdog(q, k, v, logf, i, scale=scale,
+                                    design="single")
+    torch.cuda.synchronize()
+    assert (kscan.launches.count, kscan.watchdog_launches.count) == (n, w + 1)
+    assert torch.equal(got, prod)
+
+
+def test_scan_kernels_build_without_spill_or_trap(cuda, tmp_path,
+                                                  monkeypatch):
+    """ptxas reports no spill in the forward's library, the single pass
+    (at every panel count) and the chunk-parallel kernels hold tensor-core
+    instructions, the production build's SASS holds no trap and ptxas
+    keeps its register split; the watchdog build holds a trap."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    got = build.build(("mlstm_scan",),
+                      extra=(("mlstm_scan", kscan.WATCHDOG_FLAGS),))
+    path, _, log_ = got["mlstm_scan"]
+    assert not [ln for ln in log_.splitlines()
+                if re.search(r"[1-9]\d* bytes spill", ln)], log_
+    assert not [ln for ln in log_.splitlines()
+                if "setmaxnreg" in ln.lower() or "serializ" in ln.lower()]
+    hgmma = build.sass_counts(path, "HGMMA")
+    tma = {n: c for n, c in hgmma.items() if "mlstm_tma_kernel" in n}
+    assert len(tma) == 4 and all(tma.values()), hgmma
+    assert all(c for n, c in hgmma.items() if "mlstm_wgmma_kernel" in n)
+    assert not any(build.sass_counts(path, "TRAP").values())
+    watch = got["mlstm_scan " + " ".join(kscan.WATCHDOG_FLAGS)][0]
+    assert any(c for n, c in build.sass_counts(watch, "TRAP").items()
+               if "mlstm_tma_kernel" in n)
+
+
+# K2's bf16 kernel on a build made to spill (-DREPRO_DECODE_SPILL: launch
+# bounds that leave too few registers): it gave wrong bits or faulted while
+# the split ranges were a 64-bit division; with the ranges in 32 bits it is
+# held to the same gate as the production build, at G 1, 8 and 16 and 1 to
+# 16 clusters a (row, KV head).
+DECODE_SPILL_SHAPES = [
+    # b, s, h, kh, hd
+    (8, 1024, 16, 16, 128),     # qwen2-moe-a2.7b, G 1, one block a pair
+    (4, 1024, 32, 4, 64),       # G 8, clusters of 8
+    (6, 512, 32, 2, 64),        # G 16
+    (8, 1024, 16, 2, 128),      # G 8, hd 128
+    (1, 8192, 8, 1, 64),        # G 8, 16 clusters of 8
+    (1, 4096, 16, 1, 128),      # G 16, hd 128, several clusters
+]
+
+
+def test_decode_spill_build_spills(cuda, tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    _, _, log_ = build.build(("decode_attention",),
+                             kdecode.SPILL_FLAGS)["decode_attention"]
+    spills = [ln for ln in log_.splitlines()
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    assert spills, log_
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd", DECODE_SPILL_SHAPES)
+def test_decode_spill_build_matches_plain(cuda, b, s, h, kh, hd):
+    q = _randn((b, 1, h, hd), torch.bfloat16, cuda, 60)
+    k = _randn((b, s, kh, hd), torch.bfloat16, cuda, 61)
+    v = _randn((b, s, kh, hd), torch.bfloat16, cuda, 62)
+    lens = torch.tensor(_edge_lengths(s, b, kh, torch.bfloat16),
+                        dtype=torch.int32, device=cuda)
+    n, w = kdecode.launches.count, kdecode.spill_launches.count
+    out = kdecode.decode_attention_spill(q, k, v, lens)
+    again = kdecode.decode_attention_spill(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert (kdecode.launches.count, kdecode.spill_launches.count) == (n, w + 2)
+    _decode_check(out, q, k, v, lens, torch.bfloat16)
+    assert torch.equal(out, again)
+    assert torch.equal(out, kdecode.decode_attention(q, k, v, lens))
+
+
+# K2's bf16 kernel against ``ref.grouped_decode_mma_ref``, the emulation of
+# its splits, tiles, bf16 P and merge order: only the order of the sums
+# inside an mma and the device's exp2 differ, a few bf16 spacings of the
+# output at most.
+DECODE_EMULATION_TOL = 1e-2
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd", [
+    (8, 1024, 32, 8, 64),       # llama3.2-1b
+    (8, 1024, 25, 5, 64),       # hymba-1.5b
+    (8, 1024, 16, 16, 128),     # qwen2-moe-a2.7b
+    (8, 1024, 32, 32, 80),      # stablelm-3b
+    (1, 8192, 8, 1, 64),        # clusters in groups
+])
+def test_decode_mma_kernel_matches_its_emulation(cuda, b, s, h, kh, hd):
+    q = _randn((b, 1, h, hd), torch.bfloat16, cuda, 63)
+    k = _randn((b, s, kh, hd), torch.bfloat16, cuda, 64)
+    v = _randn((b, s, kh, hd), torch.bfloat16, cuda, 65)
+    lens = torch.tensor(_edge_lengths(s, b, kh, torch.bfloat16),
+                        dtype=torch.int32, device=cuda)
+    out = kdecode.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    cluster, groups = kdecode.mma_plan(s, b, kh)
+    emu = ref.grouped_decode_mma_ref(q, k, v, lens,
+                                     n_split=cluster * groups).float()
+    err = (out.float() - emu).abs().max().item()
+    assert err < DECODE_EMULATION_TOL * max(1.0, emu.abs().max().item()), err
 
 
 # ------------------------------------------------------------ K1 backward
@@ -1565,8 +1754,11 @@ def test_dry_run_on_the_card_allocates_nothing(cuda):
     """A traced cell on ``device="cuda"`` (fake tensors over DTensor) holds
     no memory of the card, before, after or at its peak, and counts the
     kernels of its path."""
+    import gc
+
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
+    gc.collect()    # earlier tests' garbage is not the dry run's to free
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
