@@ -6,8 +6,9 @@ Public surface:
 * :func:`build_kernel` -- the one construction path for both backends;
   :class:`KernelReport` -- the one telemetry read-out (metrics + trace)
 * :class:`SchedKernel`, :class:`Slot`, :class:`SimClock` -- event-driven core
-* :class:`SchedTracer` -- bounded ring buffer of scheduler lifecycle events
-  (eBPF-tracepoint analogue) with Chrome-trace export and derived analyses
+* :class:`SchedTracer` -- bounded ring buffers of scheduler lifecycle events
+  (eBPF-tracepoint analogue) and of program :class:`Span` records on the
+  same clock, with Chrome-trace export and derived analyses
 * :class:`UFSPolicy` and baselines via :func:`make_policy`
 * :class:`Job`, :class:`WorkloadGroup`, :class:`Tier` -- schedulable entities
 * :class:`HintTable` -- application-based scheduler hinting (eBPF-map analogue)
@@ -19,7 +20,7 @@ from .faults import (FaultInjected, FaultInjector, crashing_chunk,
                      crashy_behavior, crashing_holder, occupy_lock,
                      drain_after)
 from .trace import (SchedTracer, TraceEvent, TraceSummary, summarize,
-                    busy_intervals, slot_busy_from_trace, wakeup_delays,
+                    Span, SpanRecord, span, bind_thread, busy_intervals,
                     detect_inversions, to_chrome_trace, write_chrome_trace,
                     validate_events, validate_chrome_trace, TraceSchemaError)
 from .base import SchedCore, Executor, Policy, Slot, DEFAULT_SLICE
@@ -42,7 +43,7 @@ __all__ = [
     "LiveKernel", "LiveJob", "LiveLock", "ThreadExecutor",
     "build_kernel", "KernelReport",
     "SchedTracer", "TraceEvent", "TraceSummary", "summarize",
-    "busy_intervals", "slot_busy_from_trace", "wakeup_delays",
+    "Span", "SpanRecord", "span", "bind_thread", "busy_intervals",
     "detect_inversions", "to_chrome_trace", "write_chrome_trace",
     "validate_events", "validate_chrome_trace", "TraceSchemaError",
     "HintTable", "SimLock", "spin_acquire", "Metrics", "percentile",

@@ -33,7 +33,7 @@ from .base import Executor, Policy, SchedCore, Slot
 from .hints import HintTable
 from .metrics import Metrics
 from .task import Job, JobState
-from .trace import SchedTracer
+from .trace import SchedTracer, bind_thread
 
 _live_ids = itertools.count(1)
 
@@ -73,6 +73,7 @@ class ThreadExecutor(Executor):
             raise ValueError(f"dispatch must be 'event' or 'polling', "
                              f"got {dispatch!r}")
         self._t0 = time.monotonic()
+        self._t0_ns = time.time_ns()             # wall clock beside _t0
         self._mu = threading.RLock()
         self._cond = threading.Condition(self._mu)   # polling-mode parking
         self._dispatch_mode = dispatch
@@ -326,6 +327,9 @@ class ThreadExecutor(Executor):
             t0 = time.monotonic()
             err: Optional[BaseException] = None
             tb = ""
+            traced = core._traced
+            if traced:
+                bind_thread(core.tracer)             # the chunk's spans
             try:
                 status = runner(budget)              # real work, no lock held
             except Exception as e:                   # noqa: BLE001
@@ -333,6 +337,8 @@ class ThreadExecutor(Executor):
                 # counted, locks force-released, retry policy applied.
                 status = "panic"
                 err, tb = e, traceback.format_exc()
+            if traced:
+                bind_thread(None)
             used = time.monotonic() - t0
             # Mark the epilogue window (thread-local): a requeue in here
             # often kicks this worker's own just-idled slot, and this
@@ -399,6 +405,9 @@ class LiveKernel(SchedCore):
         super().__init__(n_slots, policy, executor, hints=hints,
                          metrics=metrics, kick_latency=kick_latency,
                          hints_enabled=hints_enabled, tracer=tracer)
+        if tracer is not None:
+            # events are stamped with executor.now: spans take its zero
+            tracer.set_anchor(executor._t0, executor._t0_ns)
 
     def start(self) -> None:
         self.executor.start()

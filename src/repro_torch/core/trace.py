@@ -1,4 +1,5 @@
-"""Scheduler tracing: structured lifecycle events from the core.
+"""Scheduler tracing: structured lifecycle events from the core, and
+timed spans of the program the core runs.
 
 The userspace analogue of the paper's eBPF tracepoints (section 6.1
 reconstructs per-CPU execution timelines from ``sched_switch`` events;
@@ -11,40 +12,47 @@ add/drain.  The schema is backend-agnostic: sim and live runs produce the
 same event stream, timestamped by their respective clocks, so every
 derived analysis below works identically on both.
 
+Program spans (:func:`span`, kept as :class:`SpanRecord`) time what a
+job does inside a chunk -- the engine's admission, decode step and host
+sync, the model's layers -- in a second ring of the same tracer, on the
+same clock as its events.  A span is kept only while the running thread has a tracer: the
+live executor binds its kernel's tracer around each job chunk
+(:func:`bind_thread`); on any other thread a span site enters one shared
+no-op context.  :meth:`SchedTracer.to_wall_ns` maps an event's or a span's
+time to wall-clock ns (``time.time_ns()``, the clock ``torch.profiler``
+stamps host events with, up to an offset it can be calibrated by).
+
 On top of the raw stream:
 
 * :func:`to_chrome_trace` / :func:`write_chrome_trace` -- Chrome
-  ``trace_event`` JSON (one track per slot, one per group, one per lock;
-  instant events for kicks and boosts), loadable at https://ui.perfetto.dev;
-* :func:`busy_intervals` / :func:`slot_busy_from_trace` -- per-slot busy
-  timelines, reproducing the paper's Figure 2 from the trace instead of
-  charge-time accounting (cross-checked against ``Metrics`` in
-  tests/test_trace.py);
-* :func:`wakeup_delays` -- wakeup-latency breakdown per group;
+  ``trace_event`` JSON (one track per slot, one per group, one per lock,
+  one per host thread for spans; instant events for kicks and boosts),
+  loadable at https://ui.perfetto.dev;
+* :func:`busy_intervals` -- per-slot busy timelines, reproducing the
+  paper's Figure 2 from the trace instead of charge-time accounting;
 * :func:`detect_inversions` -- priority-inversion spans with boost
   resolution time (boost -> unboost per holder);
-* :class:`TraceSummary` -- counters the parity benchmark diffs across
-  backends (benchmarks/parity.py).
-
-``python -m repro_torch.core.trace --out trace.json`` runs a small mixed
-workload in simulation, validates the exported trace against the schema,
-and writes it -- CI uploads this file as a workflow artifact.
+* :class:`TraceSummary` -- counters :class:`~repro_torch.core.build.KernelReport`
+  embeds.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import threading
+import time
 from collections import Counter, defaultdict, deque
 from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import ContextManager, Iterable, Optional
+from typing import ContextManager, Iterable, NamedTuple, Optional
 
 __all__ = [
     "EVENT_KINDS", "TraceEvent", "SchedTracer", "TraceSummary", "summarize",
-    "busy_intervals", "slot_busy_from_trace", "wakeup_delays",
-    "detect_inversions", "to_chrome_trace", "write_chrome_trace",
-    "validate_events", "validate_chrome_trace", "TraceSchemaError",
+    "Span", "SpanRecord", "span", "bind_thread", "thread_tracer",
+    "busy_intervals", "detect_inversions", "to_chrome_trace",
+    "write_chrome_trace", "validate_events", "validate_chrome_trace",
+    "TraceSchemaError",
 ]
 
 #: Every lifecycle edge the core emits.  Kept in one frozenset so schema
@@ -106,18 +114,138 @@ class TraceEvent:
         return d
 
 
+class _ThreadState(threading.local):
+    """The calling thread's tracer, its open spans and its native id (set
+    by :func:`bind_thread`); class defaults for threads never bound."""
+    tracer: Optional["SchedTracer"] = None
+    stack: tuple = ()
+    tid: int = 0
+
+
+_thread = _ThreadState()
+
+
+class SpanRecord(NamedTuple):
+    """One kept span: a timed stretch of the program on one host thread.
+    ``t0`` / ``t1`` on the tracer's clock (seconds), ``sid`` its id in the
+    tracer, ``parent`` the id of the span open around it on its thread
+    (-1: none), ``tid`` the native id of that thread, ``args`` e.g.
+    ``rid`` / ``rids`` and ``jid``.  ``detached`` spans were recorded after
+    the fact (:meth:`SchedTracer.record_span`), outside their thread's
+    nesting.  A tuple: one of atomic values costs the garbage collector
+    nothing once it has been seen."""
+    name: str
+    t0: float
+    t1: float
+    sid: int
+    parent: int
+    tid: int
+    args: Optional[dict] = None
+    detached: bool = False
+
+
+class Span:
+    """An open span of a :func:`span` site, its own context manager:
+    entering stamps ``t0`` and pushes it on the thread's stack, leaving
+    pops it and keeps its :class:`SpanRecord` in the tracer's span ring."""
+
+    __slots__ = ("name", "t0", "sid", "parent", "tid", "args", "_tracer")
+
+    def __init__(self, name: str, sid: int, tid: int,
+                 args: Optional[dict], tracer: "SchedTracer"):
+        self.name = name
+        self.t0 = 0.0
+        self.sid = sid
+        self.parent = -1
+        self.tid = tid
+        self.args = args
+        self._tracer = tracer
+
+    def set(self, key: str, value) -> None:
+        """Add an argument known only once the span is open."""
+        if self.args is None:
+            self.args = {}
+        self.args[key] = value
+
+    def __enter__(self) -> "Span":
+        stack = _thread.stack
+        if stack:
+            self.parent = stack[-1].sid
+        stack.append(self)
+        self.t0 = time.monotonic() - self._tracer.anchor_mono
+        return self
+
+    def __exit__(self, et, ev, tb) -> bool:
+        tr = self._tracer
+        t1 = time.monotonic() - tr.anchor_mono
+        _thread.stack.pop()
+        tr._keep_span(SpanRecord(self.name, self.t0, t1, self.sid,
+                                 self.parent, self.tid, self.args))
+        return False
+
+
+class _NoSpan:
+    """The one context every span site enters on a thread with no tracer:
+    nothing is allocated, timed or kept."""
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, et, ev, tb) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, key: Optional[str] = None, value=None):
+    """A span named ``name`` (with one argument ``key=value``, if given)
+    on the calling thread's tracer, as a context manager whose ``as`` is
+    the :class:`Span` -- or, on a thread with no tracer, the shared no-op
+    context, whose ``as`` is None.  Arguments known only later go through
+    ``Span.set`` behind an ``is not None`` test, so an untraced site
+    builds nothing."""
+    tr = _thread.tracer
+    if tr is None:
+        return _NO_SPAN
+    return Span(name, next(tr._span_ids), _thread.tid,
+                None if key is None else {key: value}, tr)
+
+
+def bind_thread(tracer: Optional["SchedTracer"]) -> Optional["SchedTracer"]:
+    """Make ``tracer`` the calling thread's (None: no tracer), with an
+    empty span stack; returns the tracer the thread had."""
+    prev = _thread.tracer
+    _thread.tracer = tracer
+    _thread.stack = []
+    _thread.tid = threading.get_native_id()
+    return prev
+
+
+def thread_tracer() -> Optional["SchedTracer"]:
+    """The calling thread's tracer, or None."""
+    return _thread.tracer
+
+
 class SchedTracer:
-    """Bounded ring buffer of :class:`TraceEvent`.
+    """Bounded ring buffer of :class:`TraceEvent`, and a second one, of
+    the same capacity, of :class:`SpanRecord`.
 
     Backend-agnostic: the emitter passes the timestamp explicitly (virtual
     clock in sim, monotonic in live).  Appends are guarded by a mutex so
     live-mode paths that emit outside the core guard (``LiveLock``) stay
-    consistent; when the ring wraps, the oldest events are dropped and
-    counted in :attr:`dropped`.
+    consistent; when a ring wraps, its oldest records are dropped and
+    counted in :attr:`dropped` / :attr:`spans_dropped`.
 
-    ``kinds`` optionally restricts retention to a subset of
+    ``kinds`` optionally restricts retention of events to a subset of
     :data:`EVENT_KINDS` (e.g. only ``start_job``/``stop_job`` for long
-    busy-timeline captures).
+    busy-timeline captures); spans are kept whatever ``kinds`` says.
+
+    The clock's anchor: ``anchor_mono`` is the ``time.monotonic()``
+    reading at the clock's zero and ``anchor_ns`` the ``time.time_ns()``
+    read beside it.  The tracer's own creation until a live kernel sets
+    its executor's zero (:meth:`set_anchor`); spans are timed on it.
     """
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY,
@@ -130,7 +258,22 @@ class SchedTracer:
             raise ValueError(f"unknown kinds {sorted(self.kinds - EVENT_KINDS)}")
         self._events: deque = deque(maxlen=capacity)
         self._emitted = 0
+        self._spans: deque = deque(maxlen=capacity)
+        self._spans_kept = 0
+        self._span_ids = itertools.count()
         self._mu: ContextManager = threading.Lock()
+        self.set_anchor(time.monotonic(), time.time_ns())
+
+    def set_anchor(self, mono: float, wall_ns: int) -> None:
+        """The clock's zero: ``time.monotonic()`` there, and the
+        ``time.time_ns()`` read beside it."""
+        self.anchor_mono = mono
+        self.anchor_ns = wall_ns
+
+    def to_wall_ns(self, t: float) -> int:
+        """Wall-clock ns (``time.time_ns()``'s clock) of time ``t`` of a
+        live run's event or span on this tracer's clock."""
+        return self.anchor_ns + round(t * 1e9)
 
     def set_threadsafe(self, threadsafe: bool) -> None:
         """Swap the append mutex for a no-op guard (or back).
@@ -162,6 +305,24 @@ class SchedTracer:
             self._emitted += 1
             self._events.append(ev)
 
+    def record_span(self, name: str, since: float,
+                    args: Optional[dict] = None) -> SpanRecord:
+        """Keep a detached span that began at ``since`` (a
+        ``time.monotonic()`` reading, possibly on another thread) and ends
+        now, on the calling thread: a wait that started before any traced
+        code could time it (a request queued from its submission)."""
+        now = time.monotonic()
+        sp = SpanRecord(name, since - self.anchor_mono,
+                        now - self.anchor_mono, next(self._span_ids), -1,
+                        threading.get_native_id(), args, True)
+        self._keep_span(sp)
+        return sp
+
+    def _keep_span(self, sp: SpanRecord) -> None:
+        with self._mu:
+            self._spans_kept += 1
+            self._spans.append(sp)
+
     # ------------------------------------------------------------------
     @property
     def events(self) -> list:
@@ -177,6 +338,17 @@ class SchedTracer:
         with self._mu:
             return self._emitted - len(self._events)
 
+    @property
+    def spans(self) -> list:
+        """The kept spans, in the order they ended."""
+        with self._mu:
+            return list(self._spans)
+
+    @property
+    def spans_dropped(self) -> int:
+        with self._mu:
+            return self._spans_kept - len(self._spans)
+
     def __len__(self) -> int:
         return len(self._events)
 
@@ -184,12 +356,18 @@ class SchedTracer:
         with self._mu:
             self._events.clear()
             self._emitted = 0
+            self._spans.clear()
+            self._spans_kept = 0
 
     def summary(self) -> "TraceSummary":
         with self._mu:
             evs = list(self._events)
             dropped = self._emitted - len(evs)
-        return summarize(evs, dropped=dropped)
+            n_spans = len(self._spans)
+            spans_dropped = self._spans_kept - n_spans
+        s = summarize(evs, dropped=dropped)
+        s.spans, s.spans_dropped = n_spans, spans_dropped
+        return s
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +376,8 @@ class SchedTracer:
 
 @dataclass
 class TraceSummary:
-    """Counters over an event stream -- the unit the parity benchmark diffs
-    across backends and :class:`~repro_torch.core.build.KernelReport` embeds."""
+    """Counters over an event stream, and the spans kept beside it -- the
+    unit :class:`~repro_torch.core.build.KernelReport` embeds."""
 
     events: int = 0
     dropped: int = 0
@@ -209,13 +387,8 @@ class TraceSummary:
     inversions: int = 0                               # boost spans seen
     inversions_resolved: int = 0                      # ... that unboosted
     max_boost_resolution: float = 0.0                 # slowest inversion fix
-
-    def counters(self) -> dict:
-        out = {k: self.counts.get(k, 0) for k in sorted(EVENT_KINDS)}
-        out.update(events=self.events, dropped=self.dropped,
-                   inversions=self.inversions,
-                   inversions_resolved=self.inversions_resolved)
-        return out
+    spans: int = 0                                    # program spans kept
+    spans_dropped: int = 0                            # ... and lost to the ring
 
     def to_dict(self) -> dict:
         return {
@@ -225,21 +398,11 @@ class TraceSummary:
             "inversions": self.inversions,
             "inversions_resolved": self.inversions_resolved,
             "max_boost_resolution": self.max_boost_resolution,
+            "spans": self.spans, "spans_dropped": self.spans_dropped,
         }
 
     def to_json(self, indent: Optional[int] = None) -> str:
         return json.dumps(self.to_dict(), sort_keys=True, indent=indent)
-
-    def diff(self, other: "TraceSummary") -> dict:
-        """Presence diff against another backend's summary: kinds one stream
-        has and the other lacks.  Absolute counts are never comparable
-        across clocks, presence must be (the parity invariant)."""
-        mine, theirs = self.counters(), other.counters()
-        out = {}
-        for k in sorted(EVENT_KINDS):
-            if (mine[k] > 0) != (theirs[k] > 0):
-                out[k] = (mine[k], theirs[k])
-        return out
 
 
 def summarize(events: list, dropped: int = 0) -> TraceSummary:
@@ -295,40 +458,6 @@ def busy_intervals(events: list, end: Optional[float] = None) -> dict:
     return dict(out)
 
 
-def slot_busy_from_trace(events: list, n_slots: int, kind: str = "",
-                         window: tuple = (0.0, 0.0),
-                         end: Optional[float] = None) -> list:
-    """Per-slot busy seconds from the trace, clipped to ``window`` --
-    directly comparable to ``Metrics.slot_utilization(kind, n_slots)``."""
-    ws, we = window
-    hi_bound = we if we > 0.0 else math.inf
-    busy = [0.0] * n_slots
-    for slot, ivs in busy_intervals(events, end=end).items():
-        if not (0 <= slot < n_slots):
-            continue
-        for iv in ivs:
-            if kind and iv["jkind"] != kind:
-                continue
-            lo = min(max(iv["start"], ws), hi_bound)
-            hi = min(max(iv["stop"], ws), hi_bound)
-            busy[slot] += hi - lo
-    return busy
-
-
-def wakeup_delays(events: list) -> dict:
-    """Per-group wake -> first-start delays (the paper's wakeup-latency
-    attribution for tail spikes).  Matches the metrics convention: only the
-    first start after each wake counts."""
-    pending: dict = {}
-    delays: dict = defaultdict(list)
-    for ev in events:
-        if ev.kind == "wake":
-            pending[ev.jid] = ev.t
-        elif ev.kind == "start_job" and ev.jid in pending:
-            delays[ev.group].append(ev.t - pending.pop(ev.jid))
-    return dict(delays)
-
-
 def detect_inversions(events: list) -> list:
     """Priority-inversion spans: each hint boost of a background lock
     holder, paired with its unboost.  ``resolution`` is the boost->unboost
@@ -362,14 +491,15 @@ def detect_inversions(events: list) -> list:
 # Chrome trace_event export
 # ---------------------------------------------------------------------------
 
-PID_SLOTS, PID_GROUPS, PID_LOCKS = 1, 2, 3
+PID_SLOTS, PID_GROUPS, PID_LOCKS, PID_THREADS, PID_REQUESTS = 1, 2, 3, 4, 5
 
 
 def _us(t: float) -> float:
     return round(t * 1e6, 3)
 
 
-def to_chrome_trace(events: list, end: Optional[float] = None) -> dict:
+def to_chrome_trace(events: list, end: Optional[float] = None,
+                    spans: Iterable[SpanRecord] = ()) -> dict:
     """Export to the Chrome ``trace_event`` JSON object format (loadable in
     Perfetto / chrome://tracing).
 
@@ -377,7 +507,10 @@ def to_chrome_trace(events: list, end: Optional[float] = None) -> dict:
     ("X") events per job run plus instant events for kicks and preempts;
     process "groups" has one thread per workload group carrying the same
     runs grouped by owner plus instant wake/boost/unboost events; process
-    "locks" has one thread per lock with held spans named by holder."""
+    "locks" has one thread per lock with held spans named by holder.
+    Given ``spans`` (on the events' clock), process "host threads" has one
+    thread per host thread carrying its nested spans, and process
+    "requests" one per request id carrying the detached spans."""
     te: list = []
     slots_seen: list = []
     groups_seen: list = []
@@ -457,17 +590,40 @@ def to_chrome_trace(events: list, end: Optional[float] = None) -> dict:
         te.append({"ph": "M", "pid": PID_GROUPS, "tid": groups_seen.index(gname),
                    "ts": 0, "name": "thread_name", "args": {"name": gname}})
 
+    # --- program spans: one track per host thread, one per request ------
+    tracks: dict = {}
+    for sp in spans:
+        a = dict(sp.args or {}, sid=sp.sid, parent=sp.parent)
+        if sp.detached:
+            track = (PID_REQUESTS, int(a.get("rid", 0)))
+            label = f"request {track[1]}"
+        else:
+            track = (PID_THREADS, sp.tid)
+            label = f"thread {sp.tid}"
+        tracks[track] = label
+        te.append({"name": sp.name, "cat": "span", "ph": "X",
+                   "pid": track[0], "tid": track[1], "ts": _us(sp.t0),
+                   "dur": max(0.0, _us(sp.t1) - _us(sp.t0)), "args": a})
+    if tracks:
+        meta(PID_THREADS, "host threads")
+        meta(PID_REQUESTS, "requests")
+    for (pid, tid), label in sorted(tracks.items()):
+        te.append({"ph": "M", "pid": pid, "tid": tid, "ts": 0,
+                   "name": "thread_name", "args": {"name": label}})
+
     return {"displayTimeUnit": "ms", "traceEvents": te,
             "otherData": {"schema": "repro.core.trace/v1",
                           "n_source_events": len(events)}}
 
 
 def write_chrome_trace(events: list, path: str,
-                       end: Optional[float] = None) -> int:
-    """Validate and write a Chrome trace export; returns the number of
-    trace_event records written.  Output bytes are deterministic for a
-    deterministic event stream (sorted keys, fixed float formatting)."""
-    doc = to_chrome_trace(events, end=end)
+                       end: Optional[float] = None,
+                       spans: Iterable[SpanRecord] = ()) -> int:
+    """Validate and write a Chrome trace export (with ``spans``, see
+    :func:`to_chrome_trace`); returns the number of trace_event records
+    written.  Output bytes are deterministic for a deterministic event
+    stream (sorted keys, fixed float formatting)."""
+    doc = to_chrome_trace(events, end=end, spans=spans)
     n = validate_chrome_trace(doc)
     with open(path, "w") as f:
         json.dump(doc, f, sort_keys=True, separators=(",", ":"))
@@ -551,39 +707,3 @@ def validate_chrome_trace(doc: dict) -> int:
         if ev["ph"] == "M" and "name" not in (ev.get("args") or {}):
             raise TraceSchemaError(f"record {i}: metadata event needs args.name")
     return len(evs)
-
-
-# ---------------------------------------------------------------------------
-# CLI: produce and validate a sample trace (CI artifact)
-# ---------------------------------------------------------------------------
-
-def main(argv: Optional[list] = None) -> None:
-    import argparse
-
-    from .experiment import run_mix
-
-    ap = argparse.ArgumentParser(
-        description="Run a small mixed workload in simulation and export a "
-                    "validated Chrome trace (open at https://ui.perfetto.dev)")
-    ap.add_argument("--out", default="trace.json")
-    ap.add_argument("--policy", default="ufs")
-    ap.add_argument("--slots", type=int, default=2)
-    ap.add_argument("--duration", type=float, default=1.0)
-    ap.add_argument("--warmup", type=float, default=0.2)
-    args = ap.parse_args(argv)
-
-    tracer = SchedTracer()
-    run_mix(args.policy, n_slots=args.slots, n_bursty=args.slots,
-            n_bound=args.slots, duration=args.duration, warmup=args.warmup,
-            tracer=tracer)
-    events = tracer.events
-    validate_events(events, balanced=False)
-    n = write_chrome_trace(events, args.out,
-                           end=args.warmup + args.duration)
-    s = tracer.summary()
-    print(f"{args.out}: {n} trace records from {s.events} events "
-          f"({s.dropped} dropped), kinds={sorted(s.counts)}")
-
-
-if __name__ == "__main__":
-    main()

@@ -53,8 +53,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="seconds before a kick takes effect (chunk-boundary "
                          "model; supported by both executor backends)")
     ap.add_argument("--trace-out", default=None,
-                    help="write a Chrome trace JSON of the run (open at "
-                         "https://ui.perfetto.dev)")
+                    help="write a Chrome trace JSON of the run: the "
+                         "scheduler's slot, group and lock tracks, and the "
+                         "engine's and model's spans on one track per host "
+                         "thread (open at https://ui.perfetto.dev)")
     ap.add_argument("--report-out", default=None,
                     help="write the KernelReport JSON to this path")
     return ap.parse_args(argv)
@@ -115,7 +117,7 @@ def main(argv=None) -> None:
         print(f"report written to {args.report_out}")
     if args.trace_out:
         n = write_chrome_trace(kernel.tracer.events, args.trace_out,
-                               end=kernel.now)
+                               end=kernel.now, spans=kernel.tracer.spans)
         print(f"wrote {n} trace records to {args.trace_out} "
               f"(open at https://ui.perfetto.dev)")
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.trace import span
 from ..distributed.sharding import (constrain, head_layout, shardwise,
                                     whole)
 from ..kernels import ops
@@ -151,41 +152,53 @@ def gqa_decode(cfg, p, x, cache, pos: int, *, window: int = 0, out=None,
     they are placed by before the cache write on a DTensor program (the
     cache's own placement keeps the write shard-local); a no-op on plain
     tensors.
+
+    Spans, in order: ``attn.qkv``, ``attn.rope``, ``attn.cache_copy``,
+    ``attn.kv_write``, ``attn.k2`` (the decode kernel and its wrapper) and
+    ``attn.out``.
     """
     b = x.shape[0]
     hd = cfg.hd
-    q = _split_heads(L.linear(p["wq"], x), cfg.n_heads, hd)
-    k = _split_heads(L.linear(p["wk"], x), cfg.n_kv_heads, hd)
-    v = _split_heads(L.linear(p["wv"], x), cfg.n_kv_heads, hd)
-    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q = L.apply_rope(q, posv, cfg.rope_theta)
-    k = L.apply_rope(k, posv, cfg.rope_theta)
+    with span("attn.qkv"):
+        q = _split_heads(L.linear(p["wq"], x), cfg.n_heads, hd)
+        k = _split_heads(L.linear(p["wk"], x), cfg.n_kv_heads, hd)
+        v = _split_heads(L.linear(p["wv"], x), cfg.n_kv_heads, hd)
+    with span("attn.rope"):
+        posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q = L.apply_rope(q, posv, cfg.rope_theta)
+        k = L.apply_rope(k, posv, cfg.rope_theta)
     k, v = constrain(k, kv_constraint), constrain(v, kv_constraint)
 
     slot = pos % window if window > 0 else pos
     slot = min(slot, cache["k"].shape[1] - 1)
     length = min(pos + 1, window) if window > 0 else pos + 1
-    new = out if out is not None else {n: torch.empty_like(t)
-                                       for n, t in cache.items()}
-    for n, t in cache.items():
-        new[n].copy_(t)
+    with span("attn.cache_copy"):
+        new = out if out is not None else {n: torch.empty_like(t)
+                                           for n, t in cache.items()}
+        for n, t in cache.items():
+            new[n].copy_(t)
     if "k_scale" in cache:
-        kq, ks = _kv_quantize(k)
-        vq, vs = _kv_quantize(v)
-        new["k"][:, slot] = kq[:, 0]
-        new["v"][:, slot] = vq[:, 0]
-        new["k_scale"][:, slot] = ks[:, 0]
-        new["v_scale"][:, slot] = vs[:, 0]
-        o = _grouped_decode(q, _kv_dequant(new["k"], new["k_scale"], x.dtype),
-                            _kv_dequant(new["v"], new["v_scale"], x.dtype),
-                            length)
+        with span("attn.kv_write"):
+            kq, ks = _kv_quantize(k)
+            vq, vs = _kv_quantize(v)
+            new["k"][:, slot] = kq[:, 0]
+            new["v"][:, slot] = vq[:, 0]
+            new["k_scale"][:, slot] = ks[:, 0]
+            new["v_scale"][:, slot] = vs[:, 0]
+        with span("attn.k2"):
+            o = _grouped_decode(
+                q, _kv_dequant(new["k"], new["k_scale"], x.dtype),
+                _kv_dequant(new["v"], new["v_scale"], x.dtype), length)
     else:
-        new["k"][:, slot] = k[:, 0].to(new["k"].dtype)
-        new["v"][:, slot] = v[:, 0].to(new["v"].dtype)
+        with span("attn.kv_write"):
+            new["k"][:, slot] = k[:, 0].to(new["k"].dtype)
+            new["v"][:, slot] = v[:, 0].to(new["v"].dtype)
         # ring order does not matter for softmax attention (permutation
         # invariant); mask by live length.
-        o = _grouped_decode(q, new["k"], new["v"], length)
-    y = L.linear(p["wo"], o.reshape(b, 1, cfg.n_heads * hd))
+        with span("attn.k2"):
+            o = _grouped_decode(q, new["k"], new["v"], length)
+    with span("attn.out"):
+        y = L.linear(p["wo"], o.reshape(b, 1, cfg.n_heads * hd))
     return y, new
 
 

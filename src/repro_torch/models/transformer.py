@@ -30,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..core.trace import span
 from ..distributed.sharding import cache_leaf_spec, constrain, settle
 from . import attention as A
 from . import layers as L
@@ -267,7 +268,11 @@ def _apply_layer_decode(cfg, seg, lp, x, cache, pos, *, out=None,
         x = x + A.gqa_forward(cfg, lp["cross"], xc, zeros, causal=False,
                               kv_override=(ck, cv))
         new_cache = {"self": new_cache, "cross_k": ck, "cross_v": cv}
-    x, _ = _apply_ffn(cfg, seg, lp, x, capacity_factor)
+    if seg.ffn == "swiglu":
+        with span("layer.mlp"):
+            x, _ = _apply_ffn(cfg, seg, lp, x, capacity_factor)
+    else:
+        x, _ = _apply_ffn(cfg, seg, lp, x, capacity_factor)
     return x, new_cache
 
 
@@ -522,20 +527,33 @@ class Model(nn.Module):
     # ------------------------------------------------------------- decode
     def decode_step(self, params, caches, token, pos: int):
         """token: (B, 1); ``pos``: host int shared by the batch.  Returns
-        logits (B, 1, V) and new caches; ``caches`` is not written."""
+        logits (B, 1, V) and new caches; ``caches`` is not written.  Spans:
+        ``model.decode_step`` holding ``model.embed``, ``model.views`` (a
+        segment's new cache tensors and each layer's views of the stacked
+        parameters and caches), ``model.layer`` (index) and
+        ``model.logits``."""
         cfg = self.cfg
-        x = L.embed(params["embed"], self._tokens(token))
-        new_caches = []
-        for seg, sp, sc in zip(self.plan, params["segments"], caches):
-            out = _decode_out(seg, sc)              # every layer writes here
-            for lp, lc, lo in zip(_layers(seg, sp), _layers(seg, sc),
-                                  _layers(seg, out)):
-                x, _ = _apply_layer_decode(
-                    cfg, seg, lp, x, lc, pos, out=lo,
-                    capacity_factor=self._cf(2.0),
-                    kv_constraint=self.kv_update_constraint)
-            new_caches.append(out)
-        return self._logits(params, x), new_caches
+        with span("model.decode_step"):
+            with span("model.embed"):
+                x = L.embed(params["embed"], self._tokens(token))
+            new_caches = []
+            index = 0
+            for seg, sp, sc in zip(self.plan, params["segments"], caches):
+                with span("model.views"):
+                    out = _decode_out(seg, sc)      # every layer writes here
+                    views = list(zip(_layers(seg, sp), _layers(seg, sc),
+                                     _layers(seg, out)))
+                for lp, lc, lo in views:
+                    with span("model.layer", "index", index):
+                        x, _ = _apply_layer_decode(
+                            cfg, seg, lp, x, lc, pos, out=lo,
+                            capacity_factor=self._cf(2.0),
+                            kv_constraint=self.kv_update_constraint)
+                    index += 1
+                new_caches.append(out)
+            with span("model.logits"):
+                logits = self._logits(params, x)
+        return logits, new_caches
 
     # ---------------------------------------------------------- cache spec
     def init_cache(self, batch_size: int, smax: int, dtype=None, device=None):

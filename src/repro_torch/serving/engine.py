@@ -45,6 +45,14 @@ Device work: every thread issues to the default CUDA stream, so kernels run
 in the order the threads issue them.  Model steps return new cache tensors
 (out of place), so a snapshot held outside the lock stays valid while a
 concurrent publish replaces ``self.caches``.
+
+Spans (``core.trace.span``, kept only when the kernel has a tracer):
+``engine.decode_chunk`` (jid, rids, outcome) around each decode chunk,
+holding ``engine.admit`` (rids), ``engine.decode`` (pos: the model's
+``decode_step`` and ``engine.sync``, the host's wait for the argmax) and
+``engine.lock`` (phase) for each locked section, wait included;
+``engine.bulk_prefill`` (rid) around a bulk request's prefill and merge;
+``request.queued`` (rid, tier) from ``submit`` to the slot's reservation.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ import torch
 
 from ..core.live import LiveJob, LiveKernel
 from ..core.task import Tier
+from ..core.trace import span, thread_tracer
 from ..models.weights import tree_map
 from .kv_cache import CacheSlotPool, cache_batch_axes, make_write_slots
 
@@ -351,16 +360,26 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ internals
     @contextmanager
-    def _held(self):
+    def _held(self, phase: str):
         """Engine lock + hold-time sample (acquire-to-release, so the
         benchmark's decode-lock hold stat reflects actual exclusion, not
-        wait time)."""
-        with self._lock:
+        wait time), inside an ``engine.lock`` span of ``phase`` that also
+        times the wait."""
+        with span("engine.lock", "phase", phase), self._lock:
             t0 = time.perf_counter()
             try:
                 yield
             finally:
                 self.stats.lock_hold_s.append(time.perf_counter() - t0)
+
+    @staticmethod
+    def _span_queued(req: Request) -> None:
+        """``request.queued``: ``submit`` ran on the caller's thread, which
+        has no tracer, so the wait is recorded where it ends."""
+        tr = thread_tracer()
+        if tr is not None:
+            tr.record_span("request.queued", req.submitted,
+                           {"rid": req.rid, "tier": req.tier})
 
     def _tokens(self, a):
         """Host int32 tokens -> tensor on the model's device."""
@@ -409,6 +428,16 @@ class InferenceEngine:
                 # We got a slot by allocation AND swallowed a wake meant
                 # for a waiter: pass the signal on so it is not lost.
                 self._notify_slot_free_locked()
+        self._span_queued(req)
+        with span("engine.bulk_prefill", "rid", req.rid):
+            wake = self._bulk_prefill_merge(req, slot)
+        if wake and self._job.state.value == "blocked":
+            self.kernel.wake(self._job)
+        return "done"
+
+    def _bulk_prefill_merge(self, req: Request, slot: int) -> bool:
+        """Prefill a bulk request into its reserved ``slot`` and publish
+        the row; True when it joined the decode batch."""
         # Prefill outside the engine lock: it reads only immutable state
         # (params, the request's own prompt). The slot is reserved, so no
         # other writer targets this cache row until we publish it below.
@@ -417,7 +446,7 @@ class InferenceEngine:
         logits, caches1 = self.model.prefill(self.params, batch, self.max_len)
         tok = int(logits[0, -1].argmax())  # sync outside lock
         wake = False
-        with self._held():
+        with self._held("bulk_merge"):
             now = time.monotonic()
             if req.error is not None or not self._running:
                 # Failed while we were prefilling (drain or deadline):
@@ -442,9 +471,7 @@ class InferenceEngine:
                 self._inflight_bulk.pop(req.rid, None)
                 self.stats.bulk_prefills += 1
                 wake = True
-        if wake and self._job.state.value == "blocked":
-            self.kernel.wake(self._job)
-        return "done"
+        return wake
 
     # ----------------------------------------------------------- admission
     def _reserve_admissions_locked(self) -> list:
@@ -457,6 +484,7 @@ class InferenceEngine:
                 break                        # pool exhausted: retry next chunk
             req = self.pending.popleft()
             req.slot = slot
+            self._span_queued(req)
             admits.append((req, slot))
         return admits
 
@@ -472,7 +500,7 @@ class InferenceEngine:
             batch = {"tokens": self._tokens(req.prompt[None, :])}
             logits, rows = self.model.prefill(self.params, batch, self.max_len)
             tok = int(logits[0, -1].argmax())
-            with self._held():
+            with self._held("admit_merge"):
                 if not self._running:
                     self._fail_locked(req, "shutdown", slot=slot)
                     continue
@@ -505,7 +533,7 @@ class InferenceEngine:
         first = logits[:, 0].argmax(dim=-1).cpu().numpy()  # host sync
         self.stats.batched_admissions += 1
         failed = []
-        with self._held():
+        with self._held("admit_merge"):
             if not self._running:
                 failed = admits
             else:
@@ -530,25 +558,31 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ mechanics
     def _decode_chunk(self, budget: float) -> str:
-        try:
-            if not self.overlap_decode:
-                return self._decode_chunk_legacy(budget)
-            return self._decode_chunk_impl(budget)
-        finally:
-            # Deliver any slot-free wakes queued while the lock was held
-            # (finish / expiry released slots with bulk waiters parked).
-            self._flush_slot_wakes()
+        with span("engine.decode_chunk", "jid", self._job.jid) as sp:
+            try:
+                if not self.overlap_decode:
+                    return self._decode_chunk_legacy(budget)
+                return self._decode_chunk_impl(budget, sp)
+            finally:
+                # Deliver any slot-free wakes queued while the lock was held
+                # (finish / expiry released slots with bulk waiters parked).
+                self._flush_slot_wakes()
 
-    def _decode_chunk_impl(self, budget: float) -> str:
+    def _decode_chunk_impl(self, budget: float, sp=None) -> str:
+        """One chunk; ``sp``, the chunk's span when traced, gets the rows'
+        ``rids`` and the ``outcome``: merged, discarded, blocked or yield."""
         # --- phase 1 (locked): expire + reserve admissions ---------------
-        with self._held():
+        with self._held("expire_reserve"):
             self._expire_locked(time.monotonic())
             admits = self._reserve_admissions_locked() if self._running else []
         # --- phase 2 (unlocked): batched admission prefill ---------------
         if admits:
-            self._prefill_admissions(admits)
+            with span("engine.admit") as asp:
+                if asp is not None:
+                    asp.set("rids", [req.rid for req, _ in admits])
+                self._prefill_admissions(admits)
         # --- phase 3 (locked): snapshot --------------------------------
-        with self._held():
+        with self._held("snapshot"):
             if not self.active:
                 if self._running and self.pending and self.pool.free:
                     # An arrival landed between admission (phase 1) and
@@ -556,7 +590,11 @@ class InferenceEngine:
                     # of parking over runnable work.  (Without free slots
                     # the pending work waits on a bulk merge, which wakes
                     # the loop itself -- yielding would just spin.)
+                    if sp is not None:
+                        sp.set("outcome", "yield")
                     return "yield"
+                if sp is not None:
+                    sp.set("outcome", "blocked")
                 return "blocked" if self._running else "done"
             gen = self._gen
             caches = self.caches
@@ -566,18 +604,24 @@ class InferenceEngine:
             for slot, req in self.active.items():
                 toks[slot, 0] = req.tokens[-1]
                 snap_slots.append(slot)
+            if sp is not None:
+                sp.set("rids", [req.rid for req in self.active.values()])
         # --- phase 4 (unlocked): device decode + host sync ---------------
-        logits, new_caches = self._decode(self.params, caches,
-                                          self._tokens(toks), pos)
-        nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        with span("engine.decode", "pos", pos):
+            logits, new_caches = self._decode(self.params, caches,
+                                              self._tokens(toks), pos)
+            with span("engine.sync"):
+                nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
         # --- phase 5 (locked): merge or discard --------------------------
-        with self._held():
+        with self._held("merge"):
             if self._gen != gen:
                 # A concurrent admission/bulk merge published rows this
                 # snapshot lacks; committing would lose their prefill
                 # state.  Discard and retry -- per-row results for
                 # still-active slots are recomputed next chunk.
                 self.stats.decode_invalidations += 1
+                if sp is not None:
+                    sp.set("outcome", "discarded")
                 return "yield"
             self.caches = new_caches
             self.stats.decode_steps += 1
@@ -602,6 +646,8 @@ class InferenceEngine:
                 self.pool.release(self._job, slot)
                 self._notify_slot_free_locked()
                 self.lengths[slot] = 0
+            if sp is not None:
+                sp.set("outcome", "merged")
             return ("yield" if (self.active or self.pending or self._running)
                     else "done")
 
@@ -609,7 +655,7 @@ class InferenceEngine:
         """Pre-overhaul chunk: admit + one batched decode step with the
         engine lock held for the whole read->decode->write cycle.  Kept as
         the serving benchmark's recorded baseline (``overlap_decode=False``)."""
-        with self._held():
+        with self._held("legacy"):
             self._expire_locked(time.monotonic())
             self._admit_locked()
             if not self.active:

@@ -122,11 +122,55 @@ def _strip_docstrings(tree):
     return ast.dump(tree)
 
 
+# Copied modules the port has moved on from, on purpose: program spans in
+# the tracer, bound around each job chunk by the live executor, and the
+# reference's trace helpers that nothing in the port reads taken out.
+# {module: (top-level definitions changed, definitions removed)}; every
+# other definition still equals the reference's.
+DIVERGED = {
+    "core/trace.py": ({"from typing", "__all__", "SchedTracer",
+                       "TraceSummary", "to_chrome_trace",
+                       "write_chrome_trace"},
+                      {"(PID_SLOTS, PID_GROUPS, PID_LOCKS)", "main",
+                       "if __name__ == '__main__'", "slot_busy_from_trace",
+                       "wakeup_delays"}),
+    "core/live.py": ({"from .trace", "ThreadExecutor", "LiveKernel"}, set()),
+    "core/__init__.py": ({"from .trace", "__all__"}, set()),
+}
+
+
+def _top_level(tree) -> dict:
+    """A module's top-level statements by what they define, docstrings
+    left out."""
+    _strip_docstrings(tree)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            key = node.name
+        elif isinstance(node, ast.Assign):
+            key = ",".join(ast.unparse(t) for t in node.targets)
+        elif isinstance(node, ast.ImportFrom):
+            key = "from " + "." * node.level + (node.module or "")
+        elif isinstance(node, ast.If):
+            key = "if " + ast.unparse(node.test)
+        else:
+            key = ast.unparse(node)
+        out[key] = ast.dump(node)
+    return out
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_module_equals_reference(rel):
     ref = ast.parse((SRC / "repro" / rel).read_text())
     port = ast.parse((PORT / rel).read_text())
-    assert _strip_docstrings(port) == _strip_docstrings(ref)
+    if rel not in DIVERGED:
+        assert _strip_docstrings(port) == _strip_docstrings(ref)
+        return
+    changed, removed = DIVERGED[rel]
+    ref, port = _top_level(ref), _top_level(port)
+    assert set(ref) - set(port) == removed
+    assert changed <= set(ref) & set(port)
+    assert {k for k in set(ref) & set(port) if ref[k] != port[k]} == changed
 
 
 def test_no_copied_module_missing():
